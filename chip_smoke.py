@@ -8,26 +8,42 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (each prints a line; any failure exits non-zero):
 
 1. device: the card's name, and ``name, power.limit`` from nvidia-smi;
-2. build: the three CUDA sources under ``zkp_subnet_tpu_torch/csrc/`` with
-   nvcc for sm_90a (registers and spills from ``-Xptxas -v``);
+2. build: the CUDA sources under ``zkp_subnet_tpu_torch/csrc/`` with nvcc
+   for sm_90a, one process per source (registers and spills from
+   ``-Xptxas -v``);
 3. kernels vs plain: every kernel on the card against its plain PyTorch
    version on CPU copies of the same inputs, random and edge cases, with
    tolerance zero (integer arithmetic: canonical integers and affine points
    must be equal); then each kernel's time beside its plain version's, both
-   on the card, at the main path's shapes;
-4. main path: a 2^16-base SRS slice [τ^j]G1 built on the card, a ``Worker``
-   over it, and three 2^16-coefficient ``Prove`` requests (two with a
-   challenge point, one commit-only), each checked by the trapdoor τ and
-   the pairing verify, with kernel launch counts; then the median of warm
-   commit+open requests and the peak device memory.
+   on the card, at the shapes the paths below give it, and the least time
+   the card could take for the same work (``bound_ms``);
+4. ``[main]``, the worker's path: a 2^16-base SRS slice [τ^j]G1 built on the
+   card, a ``Worker`` over it, and three 2^16-coefficient ``Prove`` requests
+   (two with a challenge point, one commit-only), each checked by the
+   trapdoor τ and the pairing verify, with kernel launch counts; then the
+   median of warm commit+open requests and the peak device memory;
+5. ``[round]``, the coordinator's side of one Pianist round at the row width
+   of the reference mainnet (2^16 coefficients a worker) with 16 workers
+   (scale 20, machines_scale 4; mainnet has 256 workers, and the other 240
+   rows would repeat the same work): ``Srs.generate`` with a known trapdoor
+   (oracle samples, a scalar-multiplication cross-check and every point on
+   the curve), a 16 × 2^16 challenge in evaluation form brought to
+   coefficient rows by the inverse NTT, every row through
+   ``Worker.forward`` at one α, ``pianist.aggregate`` at a β (its launch
+   count, and its warm time after the path's counts are read) and
+   ``pianist.verify_aggregated`` (True, and False after tampering);
+6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22.
 
-The last lines are the kernel table as JSON, the nvidia-smi line and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository beside it, the script exits non-zero before printing a result.
+The launch counts are set to 0 just before each of the two paths and read
+just after it. The last lines are the kernel table as JSON, the nvidia-smi
+line and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+without the repository beside it, the script exits non-zero before printing
+a result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -37,15 +53,19 @@ import time
 import numpy as np
 import torch
 
-from zkp_subnet_tpu_torch._shared import encoding as enc
-from zkp_subnet_tpu_torch._shared import oracle as o
-from zkp_subnet_tpu_torch.models.srs import Srs
+from zkp_subnet_tpu_torch.models import pianist
+from zkp_subnet_tpu_torch.models.srs import Srs, _lagrange_coeffs_at
 from zkp_subnet_tpu_torch.ops import curve as cv
 from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
-from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fr_add_plain,
-                                            fr_mul_plain)
+from zkp_subnet_tpu_torch.ops import ntt as tntt
+from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fq_add_plain,
+                                            fq_mul_plain, fq_sub_plain,
+                                            fr_add_plain, fr_mul_plain,
+                                            fr_sub_plain)
 from zkp_subnet_tpu_torch.runtime.worker import Prove, Worker
+from zkp_subnet_tpu_torch.utils import encoding as enc
+from zkp_subnet_tpu_torch.utils import oracle as o
 
 LOG_N = 16
 SEED = 20260301
@@ -53,23 +73,53 @@ SEED = 20260301
 # self-check recompute every output with O(1) oracle scalar multiplications
 TAU = 0x1F2E3D4C5B6A79880123456789ABCDEF1122334455667788
 WARM_REQUESTS = 5
+# the [round] path: scale 20, machines_scale 4 -> 16 workers x 2^16
+ROUND_SCALE, ROUND_MACHINES_SCALE = 20, 4
+TAU_Y = 0x0F1E2D3C4B5A69788796A5B4C3D2E1F00112233445566778
+NTT_CELL_LOGS = (16, 20, 22)
+NTT_CELL_RUNS = 5
+AGGREGATE_WARM_RUNS = 5
+
+# the card's peaks for ``bound_ms``: device memory rate from NVIDIA's data
+# sheet (H100 SXM); the integer rate is 64 INT32 lanes per SM (Hopper
+# architecture white paper) x the SM count x the card's top SM clock as
+# nvidia-smi reports it in this run, one 32x32->64 multiply-add counted as
+# one lane-operation
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+
+# 32-bit integer operations that each function needs: a CIOS product of L
+# limbs is 2·L·L multiply-adds (csrc/mont.cuh); an add or subtract is a
+# carry chain and a conditional correction, 2·L. The RCB15 point add
+# (csrc/g1.cuh) is 14 Fq products and 19 add/subtracts, the double 9 and 9;
+# of the products 2 and 1 are by the constant b3 = 12, which needs no
+# product but 4 additions (2x, 4x, 8x, 8x + 4x). The bound counts them so,
+# although the kernels spend a full product on each: 12 products and 27
+# add/subtracts an add, 8 and 13 a double
+OPS_FR_MUL, OPS_FR_LIN = 2 * 8 * 8, 2 * 8
+OPS_FQ_MUL, OPS_FQ_LIN = 2 * 12 * 12, 2 * 12
+OPS_G1_ADD = 12 * OPS_FQ_MUL + 27 * OPS_FQ_LIN
+OPS_G1_DOUBLE = 8 * OPS_FQ_MUL + 13 * OPS_FQ_LIN
+G1_BYTES, FQ_BYTES, FR_BYTES = 144, 48, 32
+
+_PALLAS = "zkp_subnet_tpu/ops/pallas_g1.py"
+
+_CSRC = "zkp_subnet_tpu_torch/csrc/"
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
-    "g1_add": ("zkp_subnet_tpu_torch/csrc/g1.cu",
-               "zkp_subnet_tpu/ops/pallas_g1.py:181"),
-    "g1_double": ("zkp_subnet_tpu_torch/csrc/g1.cu",
-                  "zkp_subnet_tpu/ops/pallas_g1.py:181"),
-    "msm_buckets": ("zkp_subnet_tpu_torch/csrc/msm.cu",
-                    "zkp_subnet_tpu/ops/msm.py:202"),
-    "msm_reduce": ("zkp_subnet_tpu_torch/csrc/msm.cu",
-                   "zkp_subnet_tpu/ops/msm.py:303"),
-    "msm_combine": ("zkp_subnet_tpu_torch/csrc/msm.cu",
-                    "zkp_subnet_tpu/ops/msm.py:384"),
-    "fr_mul": ("zkp_subnet_tpu_torch/csrc/fr.cu",
-               "zkp_subnet_tpu/ops/pallas_g1.py:181"),
-    "fr_add": ("zkp_subnet_tpu_torch/csrc/fr.cu",
-               "zkp_subnet_tpu/ops/pallas_g1.py:181"),
+    "g1_add": (_CSRC + "g1.cu", _PALLAS + ":181"),
+    "g1_double": (_CSRC + "g1.cu", _PALLAS + ":181"),
+    "msm_buckets": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:202"),
+    "msm_reduce": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:303"),
+    "msm_combine": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:384"),
+    "fr_mul": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    "fr_add": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    "fr_sub": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    "fq_mul": (_CSRC + "fq.cu", _PALLAS + ":181"),
+    "fq_add": (_CSRC + "fq.cu", _PALLAS + ":181"),
+    "fq_sub": (_CSRC + "fq.cu", _PALLAS + ":181"),
+    "fr_butterfly": (_CSRC + "ntt.cu", _PALLAS + ":219"),
 }
 
 
@@ -86,12 +136,19 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, int_ops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the integer rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int_ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # -- inputs ------------------------------------------------------------------
@@ -116,10 +173,19 @@ def random_points(rng, n, device):
     return pts, [(a + i * s) % o.R for i in range(n)]
 
 
+def random_field(F, rng, n, device):
+    vals = [int.from_bytes(rng.bytes(56), "little") % F.p for _ in range(n)]
+    vals[:4] = [0, 1, F.p - 1, F.p - 2]
+    return F.encode(vals, device)
+
+
 def random_fr(rng, n, device):
-    vals = [int.from_bytes(rng.bytes(32), "little") % FR.p for _ in range(n)]
-    vals[:4] = [0, 1, FR.p - 1, FR.p - 2]
-    return FR.encode(vals, device)
+    return random_field(FR, rng, n, device)
+
+
+def fr_from_canonical_limbs(limbs: np.ndarray, device) -> torch.Tensor:
+    """(..., 16) uint32 canonical limbs → (..., 8) Montgomery on the card."""
+    return FR.to_mont(FR.from_limbs16(limbs, device))
 
 
 def random_scalar_limbs(rng, n) -> np.ndarray:
@@ -152,12 +218,20 @@ def same_points(got, want) -> int:
     return err
 
 
-def same_fr(got, want) -> int:
+def same_field(F, got, want) -> int:
     """0 if equal, else the largest absolute difference of the integers."""
     if torch.equal(got.cpu(), want.cpu()):
         return 0
-    g, w = FR.decode(got), FR.decode(want)
-    return max([abs(a - b) for a, b in zip(g, w)] + [0])
+    g, w = F.decode(got), F.decode(want)
+    return max([abs(a - b) for a, b in zip(g, w)] + [1])
+
+
+def same_fr(got, want) -> int:
+    return same_field(FR, got, want)
+
+
+def same_fq(got, want) -> int:
+    return same_field(FQ, got, want)
 
 
 def time_cuda(fn, reps):
@@ -177,9 +251,10 @@ def time_cuda(fn, reps):
 
 # -- phases ------------------------------------------------------------------
 
-def phase_kernels(rng, dev):
-    """Kernel vs plain on random and edge inputs; then times at the main
-    path's shapes. Returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
+def phase_kernels(rng, dev, int_ops_per_s):
+    """Kernel vs plain on random and edge inputs; then times at the paths'
+    shapes beside the card's bound for the same work. Returns {name:
+    {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"}}."""
     res = {name: {"max_abs_err": 0} for name in KERNELS}
 
     def record(name, err):
@@ -210,13 +285,45 @@ def phase_kernels(rng, dev):
     b[4:8] = a[0:4]
     one = FR.ints_to_limbs([1], dev)
     for name, kern, plain in (("fr_mul", kernels.fr_mul, fr_mul_plain),
-                              ("fr_add", kernels.fr_add, fr_add_plain)):
+                              ("fr_add", kernels.fr_add, fr_add_plain),
+                              ("fr_sub", kernels.fr_sub, fr_sub_plain)):
         record(name, same_fr(kern(a, b), plain(a.cpu(), b.cpu())))
+        record(name, same_fr(kern(a, a), plain(a.cpu(), a.cpu())))
         record(name, same_fr(kern(a, one), plain(a.cpu(), one.cpu())))
         record(name, same_fr(kern(b[:1], a), plain(b[:1].cpu(),
                                                        a.cpu())))
-    say(f"[kernels] K3 fr_mul / fr_add: {n} elements incl. 0, 1, r-1, r-2 "
-        "and broadcast operands: equal to plain")
+    say(f"[kernels] K3 fr_mul / fr_add / fr_sub: {n} elements incl. 0, 1, "
+        "r-1, r-2, equal operands and broadcast operands: equal to plain")
+
+    # K4: the same cases over Fq (0, 1, q−1, q−2, equal, broadcast)
+    a = random_field(FQ, rng, n, dev)
+    b = random_field(FQ, rng, n, dev)
+    b[4:8] = a[0:4]
+    for name, kern, plain in (("fq_mul", kernels.fq_mul, fq_mul_plain),
+                              ("fq_add", kernels.fq_add, fq_add_plain),
+                              ("fq_sub", kernels.fq_sub, fq_sub_plain)):
+        record(name, same_fq(kern(a, b), plain(a.cpu(), b.cpu())))
+        record(name, same_fq(kern(a, a), plain(a.cpu(), a.cpu())))
+        record(name, same_fq(kern(a, b[1:2]), plain(a.cpu(), b[1:2].cpu())))
+        record(name, same_fq(kern(b[:1], a), plain(b[:1].cpu(), a.cpu())))
+    say(f"[kernels] K4 fq_mul / fq_add / fq_sub: {n} elements incl. 0, 1, "
+        "q-1, q-2, equal operands and broadcast operands: equal to plain")
+
+    # K5: every stage (first and last included) of a small transform over
+    # 3 rows, forward and inverse twiddles, in place
+    log_small = 5
+    for inverse in (False, True):
+        v = random_fr(rng, 3 << log_small, dev).view(3, 1 << log_small, 8)
+        ref = v.cpu()
+        tw = tntt.twiddles(log_small, inverse, dev)
+        for stage in range(1, log_small + 1):
+            ref = tntt.fr_butterfly_plain(ref, tw.cpu(), stage)
+            check(kernels.fr_butterfly(v, tw, stage).data_ptr()
+                  == v.data_ptr(), "fr_butterfly: not in place")
+            record("fr_butterfly", same_fr(v, ref))
+    say(f"[kernels] K5 fr_butterfly: stages 1..{log_small} of 3 transforms "
+        f"of 2^{log_small} incl. 0, 1, r-1, r-2, both directions: equal to "
+        "plain")
 
     # K2: random scalars at 4096 points; zero, all-equal and half-zero
     # scalars at 512. Each kernel against its plain version (the reduce on
@@ -262,31 +369,113 @@ def phase_kernels(rng, dev):
     bk = kernels.msm_buckets(p, *runs)
     sk = kernels.msm_reduce(bk)
     wins = sk[:tmsm.NUM_WINDOWS].contiguous()
-    pts, fr = same_points, same_fr
+    pts, fr, fq = same_points, same_fr, same_fq
+    rows_b, nb = runs[1].shape
+    bucket_adds = int(runs[2][:, 1:].sum())        # this run's data
+    windows = tmsm.NUM_WINDOWS
+    # the [round] path's shapes: the aggregation's 16 evaluations, and the
+    # on-curve check over every point of the generated SRS
+    m = 1 << ROUND_MACHINES_SCALE
+    sa, sb = random_fr(rng, m, dev), random_fr(rng, m, dev)
+    n_srs = (1 << ROUND_SCALE) + n + m
+    qa = random_field(FQ, rng, 4096, dev).repeat(n_srs // 4096 + 1, 1)[:n_srs]
+    qa = qa.contiguous()
+    qb = qa.roll(1, 0).contiguous()
+    # each entry: kernel, plain, repetitions, comparison, bytes moved (each
+    # input read once, each output written once), integer operations
     timings = {
         "g1_add": (lambda: kernels.g1_add(p, q),
-                   lambda: cv.g1_add_plain(p, q), 20, pts),
+                   lambda: cv.g1_add_plain(p, q), 20, pts,
+                   3 * G1_BYTES * n, OPS_G1_ADD * n),
         "g1_double": (lambda: kernels.g1_double(p),
-                      lambda: cv.g1_double_plain(p), 20, pts),
+                      lambda: cv.g1_double_plain(p), 20, pts,
+                      2 * G1_BYTES * n, OPS_G1_DOUBLE * n),
         "fr_mul": (lambda: kernels.fr_mul(a, b),
-                   lambda: fr_mul_plain(a, b), 50, fr),
+                   lambda: fr_mul_plain(a, b), 50, fr,
+                   3 * FR_BYTES * n, OPS_FR_MUL * n),
         "fr_add": (lambda: kernels.fr_add(a, b),
-                   lambda: fr_add_plain(a, b), 50, fr),
+                   lambda: fr_add_plain(a, b), 50, fr,
+                   3 * FR_BYTES * n, OPS_FR_LIN * n),
+        "fr_sub": (lambda: kernels.fr_sub(sa, sb),
+                   lambda: fr_sub_plain(sa, sb), 50, fr,
+                   3 * FR_BYTES * m, OPS_FR_LIN * m),
+        "fq_mul": (lambda: kernels.fq_mul(qa, qb),
+                   lambda: fq_mul_plain(qa, qb), 20, fq,
+                   3 * FQ_BYTES * n_srs, OPS_FQ_MUL * n_srs),
+        "fq_add": (lambda: kernels.fq_add(qa, qb),
+                   lambda: fq_add_plain(qa, qb), 20, fq,
+                   3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
+        "fq_sub": (lambda: kernels.fq_sub(qa, qb),
+                   lambda: fq_sub_plain(qa, qb), 20, fq,
+                   3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
         "msm_buckets": (lambda: kernels.msm_buckets(p, *runs),
-                        lambda: tmsm.msm_buckets_plain(p, *runs), 5, pts),
+                        lambda: tmsm.msm_buckets_plain(p, *runs), 5, pts,
+                        G1_BYTES * n + 4 * (runs[0].numel()
+                                            + 2 * rows_b * nb)
+                        + G1_BYTES * rows_b * nb,
+                        OPS_G1_ADD * bucket_adds),
         "msm_reduce": (lambda: kernels.msm_reduce(bk),
-                       lambda: tmsm.msm_reduce_plain(bk), 5, pts),
+                       lambda: tmsm.msm_reduce_plain(bk), 5, pts,
+                       G1_BYTES * rows_b * (nb + 1),
+                       OPS_G1_ADD * rows_b * 2 * (nb - 1)),
         "msm_combine": (lambda: kernels.msm_combine(wins, 8)[None],
-                        lambda: tmsm.msm_combine_plain(wins)[None], 5, pts),
+                        lambda: tmsm.msm_combine_plain(wins)[None], 5, pts,
+                        G1_BYTES * (windows + 1),
+                        windows * (8 * OPS_G1_DOUBLE + OPS_G1_ADD)),
     }
-    for name, (kern, plain, reps, same) in timings.items():
-        res[name]["ms"], got = time_cuda(kern, reps)
-        res[name]["plain_ms"], want = time_cuda(plain, 1)
+    for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
+        r = res[name]
+        r["ms"], got = time_cuda(kern, reps)
+        r["plain_ms"], want = time_cuda(plain, 1)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, int_ops_per_s)
         record(name, same(got, want))
-        say(f"[kernels] {name} at the main path's shape {tuple(got.shape)}: "
-            f"equal to plain; kernel {res[name]['ms']:.4f} ms, plain "
-            f"{res[name]['plain_ms']:.2f} ms")
+        del want
+        say(f"[kernels] {name} at its path's shape {tuple(got.shape)}: "
+            f"equal to plain; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    del qa, qb
+    res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
+                                              record))
+    say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
+        f"shape is {m}): "
+        f"{time_cuda(lambda: kernels.fr_sub(a, b), 50)[0]:.4f} ms")
     return res
+
+
+def time_butterfly(rng, dev, int_ops_per_s, record):
+    """K5 at the [round] path's shape, 16 transforms of 2^16: three stages
+    against the plain version on the card, and every stage timed."""
+    log_n, rows = LOG_N, 1 << ROUND_MACHINES_SCALE
+    n = 1 << log_n
+    tw = tntt.twiddles(log_n, True, dev)
+    distinct = min(4096, rows * n)
+    base = random_fr(rng, distinct, dev).repeat(rows * n // distinct, 1)
+    base = base.view(rows, n, 8).contiguous()
+    plain_ms = []
+    for stage in (1, log_n // 2, log_n):
+        v = base.clone()
+        t_plain, want = time_cuda(
+            lambda: tntt.fr_butterfly_plain(base, tw, stage), 1)
+        kernels.fr_butterfly(v, tw, stage)
+        record("fr_butterfly", same_fr(v, want))
+        plain_ms.append(t_plain)
+        del want
+    v = base.clone()
+    stage_ms = [time_cuda(lambda s=s: kernels.fr_butterfly(v, tw, s), 10)[0]
+                for s in range(1, log_n + 1)]
+    pairs = rows * n // 2
+    nbytes = 2 * FR_BYTES * rows * n + FR_BYTES * n // 2
+    b_ms, b_by = bound(nbytes, pairs * (OPS_FR_MUL + 2 * OPS_FR_LIN),
+                       int_ops_per_s)
+    mean = statistics.fmean(stage_ms)
+    say(f"[kernels] fr_butterfly at its path's shape ({rows}, 2^{log_n}, 8): "
+        f"stages 1, {log_n // 2}, {log_n} equal to plain; kernel mean "
+        f"{mean:.4f} ms a stage, plain {statistics.fmean(plain_ms):.2f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}); stage 1..{log_n} ms: "
+        + " ".join(f"{t:.4f}" for t in stage_ms))
+    return {"ms": mean, "plain_ms": statistics.fmean(plain_ms),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def build_srs(dev):
@@ -368,8 +557,9 @@ def phase_main_path(rng, dev):
             + ("" if commit_only else ", pairing verify PASS")
             + f"; launches {used}")
     launches = dict(kernels.LAUNCHES)
-    for k, v in launches.items():
-        check(v > 0, f"main path never launched {k}")
+    for k in ("g1_add", "g1_double", "msm_buckets", "msm_reduce",
+              "msm_combine", "fr_mul", "fr_add"):
+        check(launches[k] > 0, f"main path never launched {k}")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -385,6 +575,230 @@ def phase_main_path(rng, dev):
         f"{len(times)} ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms); "
         f"peak device memory {peak / 2**20:.1f} MiB")
     return launches
+
+
+def on_curve_defect(points: torch.Tensor) -> torch.Tensor:
+    """Y²Z − (X³ + 4Z³) for an (N, 3, 12) tensor on the card, by K4
+    ``fq_mul``/``fq_add``/``fq_sub``: zero for every point on the curve
+    (infinity (0 : 1 : 0) included)."""
+    X, Y, Z = (c.contiguous() for c in cv.g1_unpack(points))
+    lhs = FQ.mont_mul(FQ.sqr(Y), Z)
+    x3 = FQ.mont_mul(FQ.sqr(X), X)
+    z3 = FQ.mont_mul(FQ.sqr(Z), Z)
+    z3_2 = FQ.add(z3, z3)
+    return FQ.sub(lhs, FQ.add(x3, FQ.add(z3_2, z3_2)))
+
+
+def check_srs(srs, lag, dev):
+    """The generated SRS against the oracle (samples), against the
+    double-and-add scalar multiplication on the card (a sample of the
+    comb's outputs), and every point against the curve equation."""
+    m, t = srs.machines, srs.row_size
+    g = o.G1.from_affine(o.G1_GEN)
+
+    def want(k):
+        return o.G1.to_affine(o.G1.mul(g, k % o.R))
+
+    for j in (0, 1, t // 2 + 1, t - 1):
+        check(cv.g1_affine(srs.g1_x[j])[0] == want(pow(TAU, j, o.R)),
+              f"g1_x[{j}] != [tau_x^{j}]G1")
+    for i, j in ((0, 0), (1, 1), (m // 2, t - 1), (m - 1, t // 3)):
+        check(cv.g1_affine(srs.worker_bases[i, j])[0]
+              == want(lag[i] * pow(TAU, j, o.R)),
+              f"worker_bases[{i}, {j}] != [R_{i}(tau_y) tau_x^{j}]G1")
+    for i in (0, m - 1):
+        check(cv.g1_affine(srs.lagrange_y[i])[0] == want(lag[i]),
+              f"lagrange_y[{i}] != [R_{i}(tau_y)]G1")
+
+    # 256 of the comb's outputs against g1_scalar_mul (K1 double + add)
+    idx = [(i, (977 * k + 31 * i) % t) for k in range(16) for i in range(m)]
+    scalars = cv.fr_to_scalar_limbs(
+        [lag[i] * pow(TAU, j, o.R) for i, j in idx], dev)
+    gen = cv.g1_encode([g], dev).expand(len(idx), 3, 12).contiguous()
+    by_ladder = cv.g1_scalar_mul(gen, scalars)
+    ii = torch.tensor([i for i, _ in idx], device=dev)
+    jj = torch.tensor([j for _, j in idx], device=dev)
+    check(same_points(srs.worker_bases[ii, jj], by_ladder) == 0,
+          "comb outputs != double-and-add scalar multiplication")
+
+    everything = torch.cat([srs.g1_x, srs.worker_bases.view(-1, 3, 12),
+                            srs.lagrange_y])
+    defect = on_curve_defect(everything)
+    off = int((defect != 0).any(-1).sum())
+    check(off == 0, f"{off} generated points are not on the curve")
+    return everything.shape[0], len(idx)
+
+
+def phase_round(rng, dev):
+    """The coordinator's side of one Pianist round (see module docstring).
+    Returns the launch counts of this path."""
+    m, t = 1 << ROUND_MACHINES_SCALE, 1 << (ROUND_SCALE
+                                            - ROUND_MACHINES_SCALE)
+    kernels.reset_launches()
+    say(f"[round] scale {ROUND_SCALE}, machines_scale "
+        f"{ROUND_MACHINES_SCALE}: {m} workers x 2^"
+        f"{ROUND_SCALE - ROUND_MACHINES_SCALE} coefficients (the reference "
+        "mainnet's row width; 16 workers where mainnet has 256: the one "
+        "cut)")
+
+    # 1. SRS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cv.g1_fixed_base_tables(device=dev)
+    t_tables = time.perf_counter() - t0
+    srs = Srs.generate(ROUND_SCALE, ROUND_MACHINES_SCALE, tau_x=TAU,
+                       tau_y=TAU_Y)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    check(srs.device.type == "cuda", "Srs.generate did not use the card")
+    lag = _lagrange_coeffs_at(TAU_Y, m)
+    n_points, n_ladder = check_srs(srs, lag, dev)
+    mb = sum(x.numel() * 4 for x in (srs.g1_x, srs.worker_bases,
+                                     srs.lagrange_y)) / 1e6
+    say(f"[round] Srs.generate: {t_gen:.2f} s ({t_tables:.2f} s of it the "
+        f"comb tables on the host oracle), {mb:.1f} MB of bases on the "
+        f"card; 10 samples match the oracle, {n_ladder} comb outputs match "
+        f"g1_scalar_mul, all {n_points} points are on the curve")
+
+    # 2. challenge in evaluation form -> coefficient rows
+    eval_limbs = random_scalar_limbs(rng, m * t).reshape(m, t, 16)
+    evals = fr_from_canonical_limbs(eval_limbs, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = pianist.fft(evals, left=True, inverse=True)
+    torch.cuda.synchronize()
+    t_intt_first = time.perf_counter() - t0
+    t_intt, _ = time_cuda(lambda: pianist.fft(evals, True, True), 5)
+    check(torch.equal(pianist.fft(rows, left=True, inverse=False), evals),
+          "forward NTT of the coefficient rows != the evaluations")
+    row0 = o.intt(limbs_to_ints(eval_limbs[0]))
+    check(FR.decode(rows[0]) == row0, "row 0 != oracle.intt")
+    say(f"[round] pianist.fft(left, inverse) of {m} x 2^"
+        f"{ROUND_SCALE - ROUND_MACHINES_SCALE}: first call "
+        f"{t_intt_first * 1e3:.2f} ms (builds the twiddles), then "
+        f"{t_intt:.3f} ms mean of 5; forward NTT gives the evaluations "
+        "back; row 0 equals oracle.intt")
+
+    # 3. every row through the worker's entry point at one alpha
+    worker = Worker(srs)
+    alpha = int.from_bytes(rng.bytes(32), "little") % o.R
+    beta = int.from_bytes(rng.bytes(32), "little") % o.R
+    row_limbs = FR.to_limbs16(FR.from_mont(rows))       # canonical
+    g = o.G1.from_affine(o.G1_GEN)
+    coms, prfs, ys, times = [], [], [], []
+    for i in range(m):
+        syn = Prove(index=i, poly=enc.limbs_to_b64(row_limbs[i]),
+                    alpha=enc.fr_to_b64(alpha))
+        t0 = time.perf_counter()
+        resp = worker.forward(syn)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(resp.commitment is not None and resp.proof is not None
+              and resp.eval_ is not None, f"row {i}: no proof came back")
+        ints = row0 if i == 0 else limbs_to_ints(row_limbs[i])
+        f_tau = o.poly_eval(ints, TAU)
+        y = o.poly_eval(ints, alpha)
+        q_tau = (f_tau - y) * pow((TAU - alpha) % o.R, o.R - 2, o.R) % o.R
+        com, prf = (enc.g1_from_b64(resp.commitment),
+                    enc.g1_from_b64(resp.proof))
+        check(enc.fr_from_b64(resp.eval_) == y, f"row {i}: eval != f_i(a)")
+        check(o.G1.to_affine(com)
+              == o.G1.to_affine(o.G1.mul(g, lag[i] * f_tau % o.R)),
+              f"row {i}: commitment != [R_i(tau_y) f_i(tau_x)]G1")
+        check(o.G1.to_affine(prf)
+              == o.G1.to_affine(o.G1.mul(g, lag[i] * q_tau % o.R)),
+              f"row {i}: proof != [R_i(tau_y) q_i(tau_x)]G1")
+        if i in (0, m - 1):
+            check(worker.worker_verify(i, resp.proof, resp.alpha, resp.eval_,
+                                       resp.commitment),
+                  f"row {i}: worker_verify rejected the proof")
+            check(pianist.worker_verify(srs, i, prf, alpha, y, com),
+                  f"row {i}: pianist.worker_verify rejected the proof")
+        coms.append(com)
+        prfs.append(prf)
+        ys.append(y)
+    say(f"[round] {m} rows through Worker.forward at one alpha: trapdoor "
+        f"self-check PASS for each, worker_verify PASS for rows 0 and "
+        f"{m - 1}; {sum(times):.2f} s, median "
+        f"{statistics.median(times) * 1e3:.2f} ms a row")
+
+    # 4. aggregate and verify
+    coms_t, prfs_t = cv.g1_encode(coms, dev), cv.g1_encode(prfs, dev)
+    ys_t = FR.encode(ys, dev)
+    beta_t = FR.encode([beta], dev)[0]
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg = pianist.aggregate(srs, coms_t, prfs_t, ys_t, beta_t)
+    torch.cuda.synchronize()
+    t_agg = time.perf_counter() - t0
+    agg_launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v - before[k]}
+    lag_b = _lagrange_coeffs_at(beta, m)
+    check(FR.decode(agg.value)[0]
+          == sum(a * b for a, b in zip(lag_b, ys)) % o.R,
+          "aggregated value != f(alpha, beta)")
+    t0 = time.perf_counter()
+    check(pianist.verify_aggregated(srs, agg, alpha, beta),
+          "verify_aggregated rejected the aggregated proof")
+    t_ver = time.perf_counter() - t0
+    forged = dataclasses.replace(agg, value=FR.encode([1], dev)[0])
+    check(not pianist.verify_aggregated(srs, forged, alpha, beta),
+          "verify_aggregated accepted a changed value")
+    bad_ys = ys_t.clone()
+    bad_ys[m // 2] = FR.add(ys_t[m // 2], FR.ones((), dev))
+    forged = pianist.aggregate(srs, coms_t, prfs_t, bad_ys, beta_t)
+    check(not pianist.verify_aggregated(srs, forged, alpha, beta),
+          "verify_aggregated accepted a proof with one eval changed")
+    say(f"[round] pianist.aggregate: first call {t_agg * 1e3:.2f} ms, "
+        f"{sum(agg_launches.values())} kernel launches {agg_launches}; value "
+        f"equals f(alpha, beta); verify_aggregated True in "
+        f"{t_ver * 1e3:.1f} ms "
+        "(host pairing); False with the value changed, and False for the "
+        "proof aggregated from one changed eval")
+
+    # 5. launch counts of this path
+    launches = dict(kernels.LAUNCHES)
+    for k, v in launches.items():
+        check(v > 0, f"the round path never launched {k}")
+    say(f"[round] launches {launches}")
+
+    # after the counts are read: the aggregation warm, on the host's clock
+    times = []
+    for _ in range(AGGREGATE_WARM_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = pianist.aggregate(srs, coms_t, prfs_t, ys_t, beta_t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(again.proof_y, agg.proof_y)
+              and torch.equal(again.value, agg.value),
+              "a repeated aggregate gave another proof")
+    say(f"[round] pianist.aggregate warm: median "
+        f"{statistics.median(times):.2f} ms over {len(times)} "
+        f"({', '.join(f'{t:.2f}' for t in times)} ms)")
+    return launches
+
+
+def phase_ntt_cells(dev):
+    """Forward + inverse round trips of one transform at 2^16, 2^20, 2^22."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for log_n in NTT_CELL_LOGS:
+        x = pianist._uniform_fr(gen, (1 << log_n,))
+        check(torch.equal(tntt.intt(tntt.ntt(x)), x),
+              f"NTT round trip at 2^{log_n} != identity")
+        times = []
+        for _ in range(NTT_CELL_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tntt.intt(tntt.ntt(x))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        say(f"[ntt] 2^{log_n} forward + inverse round trip equals the input; "
+            f"{NTT_CELL_RUNS} timed runs: median "
+            f"{statistics.median(times):.3f} ms, min {min(times):.3f}, max "
+            f"{max(times):.3f}")
+        del x
 
 
 def main() -> int:
@@ -405,17 +819,35 @@ def main() -> int:
     for ln in regs:
         say(f"[build]   {ln}")
 
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = INT32_LANES_PER_SM * sms * sm_mhz * 1e6
+    say(f"[device] bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s; integer rate "
+        f"{INT32_LANES_PER_SM} lanes x {sms} SMs x {sm_mhz:.0f} MHz = "
+        f"{int_ops_per_s / 1e12:.2f} T 32-bit operations/s")
+
     rng = np.random.default_rng(SEED)
+    t_start = time.perf_counter()
     try:
-        res = phase_kernels(rng, dev)
-        launches = phase_main_path(rng, dev)
+        res = phase_kernels(rng, dev, int_ops_per_s)
+        main_launches = phase_main_path(rng, dev)
+        round_launches = phase_round(rng, dev)
+        phase_ntt_cells(dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    say(f"[done] all phases in {time.perf_counter() - t_start:.1f} s after "
+        "the build")
 
+    # launches: both paths' counts added, each path counted from 0
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-              "launches": launches[k], "max_abs_err": res[k]["max_abs_err"],
-              "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"]}
+              "launches": main_launches[k] + round_launches[k],
+              "launches_main": main_launches[k],
+              "launches_round": round_launches[k],
+              "max_abs_err": res[k]["max_abs_err"],
+              "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
+              "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
+              "library_ms": None}
              for k, (src, rep) in KERNELS.items()]
     say(json.dumps({"kernels": table}))
     say(nvidia_smi())

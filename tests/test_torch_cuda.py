@@ -12,14 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from zkp_subnet_tpu_torch._shared import encoding as enc
-from zkp_subnet_tpu_torch._shared import oracle as o
 from zkp_subnet_tpu_torch.models.srs import Srs
 from zkp_subnet_tpu_torch.ops import curve as tcv
 from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
-from zkp_subnet_tpu_torch.ops.field import FR
+from zkp_subnet_tpu_torch.ops import ntt as tntt
+from zkp_subnet_tpu_torch.ops.field import FQ, FR
 from zkp_subnet_tpu_torch.runtime.worker import Prove, Worker
+from zkp_subnet_tpu_torch.utils import encoding as enc
+from zkp_subnet_tpu_torch.utils import oracle as o
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +57,88 @@ def test_fr_kernels_match_plain(dev):
         assert torch.equal(kern(a.to(dev), b.to(dev)).cpu(), plain(a, b))
         assert torch.equal(kern(a.to(dev), b[:1].to(dev)).cpu(),
                            plain(a, b[:1]))
+
+
+def _field_values(p, seed, n=999):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(56), "little") % p for _ in range(n)]
+    vals[:3] = [0, 1, p - 1]
+    return vals
+
+
+def _binary_cases(F, kern, plain, dev, seed):
+    """Full operands, equal operands, and a broadcast operand on each side."""
+    vals = _field_values(F.p, seed)
+    a, b = F.encode(vals), F.encode(vals[::-1])
+    b[5] = a[5]
+    ad, bd = a.to(dev), b.to(dev)
+    assert torch.equal(kern(ad, bd).cpu(), plain(a, b))
+    assert torch.equal(kern(ad, ad).cpu(), plain(a, a))
+    assert torch.equal(kern(ad, bd[:1]).cpu(), plain(a, b[:1]))
+    assert torch.equal(kern(bd[2:3], ad).cpu(), plain(b[2:3], a))
+
+
+def test_fr_sub_kernel_matches_plain(dev):
+    _binary_cases(FR, kernels.fr_sub, FR.sub_plain, dev, 11)
+    a = FR.encode(_field_values(FR.p, 12, 50)).to(dev)
+    assert FR.decode(FR.neg(a)) == [-x % o.R for x in FR.decode(a)]
+
+
+def test_fq_mul_kernel_matches_plain(dev):
+    _binary_cases(FQ, kernels.fq_mul, FQ.mont_mul_plain, dev, 13)
+
+
+def test_fq_add_kernel_matches_plain(dev):
+    _binary_cases(FQ, kernels.fq_add, FQ.add_plain, dev, 14)
+
+
+def test_fq_sub_kernel_matches_plain(dev):
+    _binary_cases(FQ, kernels.fq_sub, FQ.sub_plain, dev, 15)
+
+
+def test_field_kernels_refuse_a_misaligned_tensor(dev):
+    """The kernels move an element as 16-byte words: a view that starts 4
+    bytes into its storage raises rather than being read misaligned."""
+    for limbs, kern in ((8, kernels.fr_add), (12, kernels.fq_add)):
+        good = torch.zeros((4, limbs), dtype=torch.int32, device=dev)
+        flat = torch.zeros(4 * limbs + 1, dtype=torch.int32, device=dev)
+        skewed = flat[1:].view(4, limbs)
+        assert kern(good, good[1:2]).shape == (4, limbs)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kern(skewed, good)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kern(good, skewed)
+
+
+def test_fr_butterfly_kernel_matches_plain(dev):
+    """Every stage of a size-64 transform over 3 rows, in place."""
+    log_n, n = 6, 64
+    v = FR.encode(_field_values(FR.p, 16, 3 * n)).reshape(3, n, FR.L)
+    tw = tntt.twiddles(log_n, False)
+    vd, twd = v.to(dev), tw.to(dev)
+    for stage in range(1, log_n + 1):
+        v = tntt.fr_butterfly_plain(v, tw, stage)
+        out = kernels.fr_butterfly(vd, twd, stage)
+        assert out.data_ptr() == vd.data_ptr()
+        assert torch.equal(vd.cpu(), v), stage
+
+
+def test_ntt_round_trip_on_card(dev):
+    vals = _field_values(FR.p, 17, 4 * 256)
+    x = FR.encode(vals).reshape(4, 256, FR.L).to(dev)
+    fwd = tntt.ntt_batch(x)
+    assert FR.decode(fwd[1]) == o.ntt(vals[256:512])
+    assert torch.equal(tntt.ntt_batch(fwd, inverse=True), x)
+    assert torch.equal(tntt.intt(tntt.ntt(x[0])), x[0])
+
+
+def test_fixed_base_mul_and_inverse_on_card(dev):
+    ks = [0, 1, o.R - 1] + _field_values(FR.p, 18, 61)
+    got = tcv.g1_fixed_base_mul(tcv.g1_fixed_base_tables(device=dev),
+                                tcv.fr_to_scalar_limbs(ks, dev))
+    assert tcv.g1_affine(got) == [o.G1.to_affine(o.G1.mul(G, k)) for k in ks]
+    a = FR.encode(ks, dev)
+    assert FR.decode(FR.inv(a)) == [pow(k, o.R - 2, o.R) for k in ks]
 
 
 def test_g1_kernels_match_plain(dev):

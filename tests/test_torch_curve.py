@@ -107,6 +107,33 @@ def test_scalar_mul_matches_oracle():
                             for a, k in zip(d, ks)]
 
 
+def test_fixed_base_tables_match_jax():
+    """tables[j, d] = [d·2^(8j)]G, limb for limb the JAX package's, at a few
+    (j, d), and as affine points against the oracle."""
+    t = tcv.g1_fixed_base_tables()
+    jt = np.asarray(jcv.g1_fixed_base_tables())
+    assert t.shape == (32, 256, 3, 12) and jt.shape == (32, 256, 3, 24)
+    for j, d in ((0, 0), (0, 1), (0, 255), (1, 1), (7, 100), (31, 255)):
+        assert np.array_equal(to_numpy_points(t[j, d]), jt[j, d]), (j, d)
+        assert _affine(t[j, d]) == [o.G1.to_affine(
+            o.G1.mul(G, d << (8 * j)))]
+    assert tcv.g1_fixed_base_tables() is t            # built once
+
+
+def test_fixed_base_mul_matches_oracle_and_jax():
+    """[k]G for k ∈ {0, 1, r − 1, random} against the oracle, and the
+    projective result limb for limb against the JAX package's comb."""
+    ks = [0, 1, o.R - 1] + _dlogs(5, 17)
+    sc = tcv.fr_to_scalar_limbs(ks)
+    got = tcv.g1_fixed_base_mul(tcv.g1_fixed_base_tables(), sc)
+    assert _affine(got) == [o.G1.to_affine(o.G1.mul(G, k)) for k in ks]
+    want = jcv.g1_fixed_base_mul(jcv.g1_fixed_base_tables(),
+                                 jcv.fr_to_scalar_limbs(ks))
+    assert np.array_equal(to_numpy_points(got), np.asarray(want))
+    assert _affine(tcv.g1_neg(got)) == [o.G1.to_affine(o.G1.neg(
+        o.G1.mul(G, k))) for k in ks]
+
+
 def test_sum_select_matches_oracle():
     d = _dlogs(5, 16)                       # not a power of two: pads
     p = _points(d)

@@ -59,6 +59,25 @@ def test_mont_ops_match_jax_and_oracle(name):
         assert np.array_equal(TF.to_limbs16(got), np.asarray(jop(ja, jb))), op
         assert TF.decode(got) == [ref(x, y) % TF.p for x, y in zip(xs, ys)]
     assert TF.decode(TF.neg(a)) == [-x % TF.p for x in xs]
+    assert np.array_equal(TF.to_limbs16(TF.neg(a)), np.asarray(JF.neg(ja)))
+    assert np.array_equal(TF.to_limbs16(TF.sqr(a)), np.asarray(JF.sqr(ja)))
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_pow_static_and_inv_match_jax_and_oracle(name):
+    """Fermat inversion incl. 0 ↦ 0, and a^e for a static exponent."""
+    TF, JF = FIELDS[name]
+    xs = _values(TF.p, 6, n=6)
+    ja = JF.encode(xs)
+    a = TF.from_limbs16(np.asarray(ja))
+    got = TF.inv(a)
+    assert np.array_equal(TF.to_limbs16(got), np.asarray(JF.inv(ja)))
+    assert TF.decode(got) == [pow(x, TF.p - 2, TF.p) for x in xs]
+    assert TF.decode(got)[0] == 0
+    for e in (0, 1, 4, 0b1011001):
+        assert TF.decode(TF.pow_static(a, e)) == [pow(x, e, TF.p) for x in xs]
+    one = TF.pow_static(a[5], 0)
+    assert one.shape == (TF.L,) and TF.decode(one) == [1]
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])
@@ -146,11 +165,25 @@ def test_kernel_constants_match_the_fields():
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback inside a wrapper: a tensor off the card is an error, and
-    Fq ops with no kernel of their own refuse CUDA tensors by name."""
+    every public field op has a kernel to go to on the card."""
     a = tf.FR.encode([1, 2])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_mul(a, a)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.g1_add(torch.zeros((1, 3, 12), dtype=torch.int32),
                        torch.zeros((1, 3, 12), dtype=torch.int32))
-    assert tf.FQ._mul_kernel is None and tf.FR._mul_kernel is kernels.fr_mul
+    b = tf.FQ.encode([1, 2])
+    for kern, x in ((kernels.fr_sub, a), (kernels.fq_mul, b),
+                    (kernels.fq_add, b), (kernels.fq_sub, b)):
+        with pytest.raises(ValueError, match="CUDA"):
+            kern(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_butterfly(a, a[:1], 1)
+    assert (tf.FR._mul_kernel, tf.FR._add_kernel, tf.FR._sub_kernel) == \
+        (kernels.fr_mul, kernels.fr_add, kernels.fr_sub)
+    assert (tf.FQ._mul_kernel, tf.FQ._add_kernel, tf.FQ._sub_kernel) == \
+        (kernels.fq_mul, kernels.fq_add, kernels.fq_sub)
+    assert sorted(kernels.LAUNCHES) == sorted(
+        ["g1_add", "g1_double", "msm_buckets", "msm_reduce", "msm_combine",
+         "fr_mul", "fr_add", "fr_sub", "fq_mul", "fq_add", "fq_sub",
+         "fr_butterfly"])

@@ -24,6 +24,7 @@ from zkp_subnet_tpu.ops.field import FR as JFR
 from zkp_subnet_tpu.runtime import worker as jworker
 from zkp_subnet_tpu.utils import encoding as enc
 from zkp_subnet_tpu.utils import oracle as o
+from zkp_subnet_tpu_torch.models.pianist import AggregatedProof
 from zkp_subnet_tpu_torch.models.srs import (Srs, from_numpy_points,
                                              to_numpy_points)
 from zkp_subnet_tpu_torch.ops import curve as tcv
@@ -128,7 +129,7 @@ def test_srs_load_reads_jax_files(tmp_path, monkeypatch, sidecar):
     setup_p, pre_p = str(tmp_path / "setup.npz"), str(tmp_path / "pre.npz")
     jsrs.save(setup_p, pre_p)
     assert os.path.exists(pre_p + ".bases.npy") == sidecar
-    srs = Srs.load(setup_p, pre_p)
+    srs = Srs.load(setup_p, pre_p, device="cpu")
     assert torch.equal(srs.g1_x, from_numpy_points(pts[:2]))
     assert torch.equal(srs.worker_bases,
                        from_numpy_points(pts[:4].reshape(2, 2, 3, 24)))
@@ -141,14 +142,26 @@ def test_srs_load_reads_jax_files(tmp_path, monkeypatch, sidecar):
                           pts[:4].reshape(2, 2, 3, 24))
 
 
+def test_srs_entry_points_want_the_card_unless_told(tmp_path):
+    """With no device argument the SRS entry points mean the CUDA device and
+    raise where there is none; they never pick the CPU by themselves."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    sp, pp = str(tmp_path / "s.npz"), str(tmp_path / "p.npz")
+    for call in (lambda: Srs.generate(2, 1),
+                 lambda: Srs.generate_to_disk(2, 1, sp, pp),
+                 lambda: Srs.load(sp, pp),
+                 lambda: Srs.from_numpy({}),
+                 lambda: AggregatedProof.from_numpy({})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(sp)
+
+
 def test_port_never_imports_jax():
-    mods = ["zkp_subnet_tpu_torch", "zkp_subnet_tpu_torch._shared",
-            "zkp_subnet_tpu_torch.ops.kernels",
-            "zkp_subnet_tpu_torch.ops.field", "zkp_subnet_tpu_torch.ops.curve",
-            "zkp_subnet_tpu_torch.ops.poly", "zkp_subnet_tpu_torch.ops.msm",
-            "zkp_subnet_tpu_torch.models.kzg",
-            "zkp_subnet_tpu_torch.models.srs",
-            "zkp_subnet_tpu_torch.runtime.worker"]
+    """The worker and all it imports load without JAX and without the JAX
+    package (tests/test_torch_utils.py holds the same for every module)."""
+    mods = ["zkp_subnet_tpu_torch.runtime.worker"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"

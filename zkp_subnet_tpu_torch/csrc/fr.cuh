@@ -24,4 +24,9 @@ __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
   mont::add<L>(r, a, b, P);
 }
 
+__device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a,
+                                    const uint32_t* b) {
+  mont::sub<L>(r, a, b, P);
+}
+
 }  // namespace fr

@@ -2,7 +2,11 @@
 //
 // Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ (reached
 // through dispatch_ladd/dispatch_ldouble: 29 field-op launches compose one
-// RCB15 add on the TPU) and, later, padd/pdouble/pfield over lane8.BFQ/pmul.
+// RCB15 add on the TPU) and _padd1 -> padd / _pdouble1 -> pdouble (a whole
+// RCB15 add or double over lane8.BFQ per tile, the add of the fixed-base
+// comb): the lazy and the fully reduced engines compute the same function,
+// and fully reduced values have one representation, so one kernel serves
+// both. g1_fixed_base_mul launches g1_add once per 8-bit window.
 // Here one thread computes one whole add or double in registers: no field
 // intermediate ever leaves the SM.
 //

@@ -19,6 +19,28 @@
 
 namespace mont {
 
+// An element's N limbs (N a multiple of 4) between registers and global
+// memory as 16-byte words. p must be 16-byte aligned: the wrappers check the
+// tensors' base addresses, and an element is 32 or 48 bytes.
+template <int N>
+__device__ __forceinline__ void load(uint32_t* x, const uint32_t* p) {
+  static_assert(N % 4 == 0, "limbs move as 16-byte words");
+#pragma unroll
+  for (int j = 0; j < N / 4; j++) {
+    const uint4 w = reinterpret_cast<const uint4*>(p)[j];
+    x[4 * j] = w.x; x[4 * j + 1] = w.y; x[4 * j + 2] = w.z; x[4 * j + 3] = w.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store(uint32_t* p, const uint32_t* x) {
+  static_assert(N % 4 == 0, "limbs move as 16-byte words");
+#pragma unroll
+  for (int j = 0; j < N / 4; j++)
+    reinterpret_cast<uint4*>(p)[j] =
+        make_uint4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+
 // r = t - p if (hi:t) >= p else t, for a value (hi:t) < 2p.
 template <int N>
 __device__ __forceinline__ void sub_p_if_ge(uint32_t* r, const uint32_t* t,

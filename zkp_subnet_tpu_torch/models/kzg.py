@@ -2,7 +2,7 @@
 
 Port of ``zkp_subnet_tpu/models/kzg.py``: commit = MSM(SRS, coefficients),
 open = the suffix-sum quotient + MSM over the same bases, verify = one
-pairing-product check through the shared native library (``_shared``).
+pairing-product check through the native library (``utils/native.py``).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import torch
 
 from ..ops import msm as tmsm
 from ..ops import poly as tpoly
-from .._shared import native
-from .._shared import oracle as o
+from ..utils import native
+from ..utils import oracle as o
 
 
 def commit(bases: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ complete RCB15 formulas (eprint 2015/1060, Algorithms 7 and 9, a = 0):
 kernel K1 (``csrc/g1.cu``) on a CUDA tensor, ``g1_add_plain``/
 ``g1_double_plain`` on a CPU tensor. Both evaluate the same field-op
 sequence as the JAX package, so even the projective outputs agree.
-``g1_scalar_mul`` and ``g1_sum`` are glue loops over those two.
+``g1_scalar_mul`` and ``g1_sum`` are glue loops over those two, and so is the
+fixed-base comb ``g1_fixed_base_mul`` (a table gather and one K1 add per
+8-bit window), which generates the SRS.
 
 The TPU's byte-limb (``ops/lane8.py``) and lazy signed-digit
 (``ops/lazy8.py``) point engines have no counterpart: coordinates stay
@@ -22,7 +24,7 @@ import torch
 
 from . import kernels
 from .field import FQ, FR, narrow, widen
-from .._shared import oracle as o
+from ..utils import oracle as o
 
 _B3 = 12  # 3·b for y² = x³ + 4
 
@@ -151,7 +153,7 @@ def g1_double(p: torch.Tensor) -> torch.Tensor:
 
 
 def g1_neg(p: torch.Tensor) -> torch.Tensor:
-    """−P (plain: Fq negation has no kernel of its own)."""
+    """−P: (X : −Y : Z), the negation by K4 ``fq_sub`` on a CUDA tensor."""
     X, Y, Z = g1_unpack(p)
     return g1_pack(X, FQ.neg(Y), Z)
 
@@ -172,6 +174,72 @@ def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
         b = (scalars[..., bit // 32] >> (bit % 32)) & 1
         acc = g1_double(acc)
         acc = g1_select(b.bool(), g1_add(acc, p), acc)
+    return acc
+
+
+def scalar_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:
+    """(N, 8) int32 canonical scalars → (N, 256/w) int64 w-bit digits, least
+    significant window first."""
+    s = scalars.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(0, 32, window_bits, device=scalars.device)
+    return ((s.unsqueeze(-1) >> shifts)
+            & ((1 << window_bits) - 1)).flatten(-2)
+
+
+#: the comb's window width: W = 32 windows of D = 256 multiples of G, the
+#: only width the port's callers use
+COMB_WINDOW_BITS = 8
+
+_tables_cache = {}
+
+
+def g1_fixed_base_tables(window_bits: int = COMB_WINDOW_BITS,
+                         device=None) -> torch.Tensor:
+    """Generator multiples for the fixed-base comb: tables[j, d] =
+    [d·2^(8·j)]G, shape (32, 256, 3, 12).
+
+    Built once on the host oracle, as
+    ``zkp_subnet_tpu/ops/curve.py:184-206`` builds them (so the entries are
+    the same affine points with Z = 1, limb for limb), then moved to
+    ``device`` and kept per device. ``window_bits`` keeps the JAX
+    signature; only 8 is built."""
+    if window_bits != COMB_WINDOW_BITS:
+        raise ValueError(f"window_bits must be {COMB_WINDOW_BITS}")
+    device = torch.device(device or "cpu")
+    key = str(device)
+    if key not in _tables_cache:
+        host = _tables_cache.get("cpu")
+        if host is None:
+            W, D = 256 // COMB_WINDOW_BITS, 1 << COMB_WINDOW_BITS
+            base = o.G1.from_affine(o.G1_GEN)
+            pts = []
+            for _ in range(W):
+                row = [o.G1.infinity()]
+                for _ in range(D - 1):
+                    row.append(o.G1.add(row[-1], base))
+                pts.extend(row)
+                for _ in range(COMB_WINDOW_BITS):
+                    base = o.G1.double(base)
+            host = g1_encode(pts).reshape(W, D, 3, FQ.L)
+            _tables_cache["cpu"] = host
+        _tables_cache[key] = host.to(device)
+    return _tables_cache[key]
+
+
+def g1_fixed_base_mul(tables: torch.Tensor,
+                      scalars: torch.Tensor) -> torch.Tensor:
+    """[k_i]G by the comb: (32, 256, 3, 12) tables and (N, 8) canonical
+    int32 scalars → (N, 3, 12).
+
+    Windows j = 0..31 in that order from infinity; each step gathers the
+    table rows of the window's digits and adds them with one complete add
+    (K1 ``g1_add`` on the card), the order of
+    ``zkp_subnet_tpu/ops/curve.py:209-239``, so the projective result is
+    the same limb for limb."""
+    digits = scalar_digits(scalars, COMB_WINDOW_BITS)          # (N, 32)
+    acc = g1_infinity((scalars.shape[0],), scalars.device)
+    for j in range(tables.shape[0]):
+        acc = g1_add(acc, tables[j].index_select(0, digits[:, j]))
     return acc
 
 

@@ -15,10 +15,12 @@ versions below, which widen to int64 tensors of 16-bit limbs: limb products
 stay below 2^32 and column sums below 2^38 (this torch has no uint32
 arithmetic on the CPU).
 
-Dispatch: ``FR.mont_mul`` and ``FR.add`` launch kernel K3 (``csrc/fr.cu``)
-on a CUDA tensor and run ``fr_mul_plain``/``fr_add_plain`` on a CPU tensor.
-Every other field op is plain, and raises on a CUDA tensor: Fq arithmetic on
-the card lives inside the G1 kernels (``csrc/g1.cu``).
+Dispatch: ``mont_mul``, ``add`` and ``sub`` launch kernel K3 (``csrc/fr.cu``,
+Fr) or K4 (``csrc/fq.cu``, Fq) on a CUDA tensor and run the plain versions
+(``fr_mul_plain``, ``fq_mul_plain``, ...) on a CPU tensor. ``neg``, ``sqr``,
+``pow_static``, ``inv``, ``to_mont``, ``from_mont`` and ``powers`` are glue
+over those three. Inside a point add the Fq arithmetic stays in registers
+(``csrc/g1.cu``).
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ from . import kernels
 
 MASK16 = 0xFFFF
 
-__all__ = ["PrimeField", "FR", "FQ", "fr_mul", "fr_add", "fr_mul_plain",
-           "fr_add_plain"]
+__all__ = ["PrimeField", "FR", "FQ", "fr_mul", "fr_add",
+           "fr_mul_plain", "fr_add_plain", "fr_sub_plain", "fq_mul_plain",
+           "fq_add_plain", "fq_sub_plain"]
 
 
 # -- 16-bit int64 internals of the plain versions ----------------------------
@@ -90,7 +93,7 @@ class PrimeField:
     """Constants and ops of one prime field (see module docstring)."""
 
     def __init__(self, modulus: int, n_limbs: int, name: str,
-                 mul_kernel=None, add_kernel=None):
+                 mul_kernel, add_kernel, sub_kernel):
         self.p = modulus
         self.L = n_limbs                  # 32-bit limbs on the device
         self.L16 = 2 * n_limbs            # 16-bit limbs at the JAX boundary
@@ -103,6 +106,7 @@ class PrimeField:
         self._nprime16 = _int_to_limbs16((-pow(modulus, -1, R)) % R, self.L16)
         self._mul_kernel = mul_kernel
         self._add_kernel = add_kernel
+        self._sub_kernel = sub_kernel
         self._consts = {}
 
     # -- host-side conversions ----------------------------------------------
@@ -231,29 +235,47 @@ class PrimeField:
     def sub_plain(self, a, b):
         return narrow(self.sub16(widen(a), widen(b)))
 
-    # -- public ops: kernel on CUDA where one exists, plain on the CPU --------
+    # -- public ops: the kernel on a CUDA tensor, plain on the CPU ------------
 
-    def _dispatch(self, op: str, kernel, plain, a, b):
-        if not (a.is_cuda or b.is_cuda):
-            return plain(a, b)
-        if kernel is None:
-            raise NotImplementedError(
-                f"{self.name}.{op} has no CUDA kernel; on the card it runs "
-                "only inside the kernels that need it")
-        return kernel(a, b)
+    @staticmethod
+    def _dispatch(kernel, plain, a, b):
+        if a.is_cuda or b.is_cuda:
+            return kernel(a.contiguous(), b.contiguous())
+        return plain(a, b)
 
     def mont_mul(self, a, b):
-        return self._dispatch("mont_mul", self._mul_kernel,
-                              self.mont_mul_plain, a, b)
+        return self._dispatch(self._mul_kernel, self.mont_mul_plain, a, b)
 
     def add(self, a, b):
-        return self._dispatch("add", self._add_kernel, self.add_plain, a, b)
+        return self._dispatch(self._add_kernel, self.add_plain, a, b)
 
     def sub(self, a, b):
-        return self._dispatch("sub", None, self.sub_plain, a, b)
+        return self._dispatch(self._sub_kernel, self.sub_plain, a, b)
 
     def neg(self, a):
-        return self.sub(torch.zeros_like(a), a)
+        """−a: 0 − a, the zero a single broadcast element."""
+        return self.sub(self.zeros((), a.device), a)
+
+    def sqr(self, a):
+        return self.mont_mul(a, a)
+
+    def pow_static(self, a, e: int):
+        """a^e for a Python-int exponent, elementwise: square-and-multiply
+        from the least significant bit, as
+        ``zkp_subnet_tpu/ops/field.py:324-340`` (which multiplies at every
+        bit and selects; skipping the zero bits gives the same values)."""
+        out = self.ones(a.shape[:-1], a.device)
+        base = a
+        for i in range(max(e.bit_length(), 1)):
+            if (e >> i) & 1:
+                out = self.mont_mul(out, base)
+            if e >> (i + 1):
+                base = self.sqr(base)
+        return out
+
+    def inv(self, a):
+        """Batched inversion by Fermat, a^(p−2); 0 ↦ 0."""
+        return self.pow_static(a, self.p - 2)
 
     def to_mont(self, a):
         """Canonical → Montgomery: a·R² ·R⁻¹."""
@@ -293,13 +315,34 @@ def fr_add_plain(a, b):
     return FR.add_plain(a, b)
 
 
+def fr_sub_plain(a, b):
+    """Plain version of K3 ``fr_sub``: Fr subtraction, broadcasting."""
+    return FR.sub_plain(a, b)
+
+
+def fq_mul_plain(a, b):
+    """Plain version of K4 ``fq_mul``: Fq Montgomery product, broadcasting."""
+    return FQ.mont_mul_plain(a, b)
+
+
+def fq_add_plain(a, b):
+    """Plain version of K4 ``fq_add``: Fq addition, broadcasting."""
+    return FQ.add_plain(a, b)
+
+
+def fq_sub_plain(a, b):
+    """Plain version of K4 ``fq_sub``: Fq subtraction, broadcasting."""
+    return FQ.sub_plain(a, b)
+
+
 FR = PrimeField(
     0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
     n_limbs=8, name="fr", mul_kernel=kernels.fr_mul,
-    add_kernel=kernels.fr_add)
+    add_kernel=kernels.fr_add, sub_kernel=kernels.fr_sub)
 FQ = PrimeField(
     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB,
-    n_limbs=12, name="fq")
+    n_limbs=12, name="fq", mul_kernel=kernels.fq_mul,
+    add_kernel=kernels.fq_add, sub_kernel=kernels.fq_sub)
 
 
 def fr_mul(a, b):

@@ -1,12 +1,13 @@
 """The port's hand-written Hopper kernels: build, binding, launch wrappers.
 
 Sources live in ``zkp_subnet_tpu_torch/csrc/`` (K1 ``g1.cu``, K2 ``msm.cu``,
-K3 ``fr.cu``, headers ``mont.cuh``/``fq.cuh``/``fr.cuh``/``g1.cuh``). On
-first CUDA use they are compiled with ``nvcc`` for ``sm_90a`` into
+K3 ``fr.cu``, K4 ``fq.cu``, K5 ``ntt.cu``, headers ``mont.cuh``/``fq.cuh``/
+``fr.cuh``/``g1.cuh``). On first CUDA use they are compiled with ``nvcc`` for
+``sm_90a``, one process per source and all started together, and linked into
 ``build/zkp_subnet_tpu_torch/libzkp_kernels.so`` (a plain C interface, no
-PyTorch headers, so the build takes seconds) and loaded with ``ctypes``.
-A stamp of the sources' hash next to the library decides whether a rebuild
-is due. Nothing is compiled or loaded at import time.
+PyTorch headers) that is loaded with ``ctypes``. A stamp of the sources' hash
+next to the library decides whether a rebuild is due. Nothing is compiled or
+loaded at import time.
 
 Every wrapper below takes CUDA tensors only: it checks device, dtype, shape
 and contiguity and raises on anything else, allocates its output with
@@ -33,15 +34,16 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "zkp_subnet_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libzkp_kernels.so")
-SOURCES = ("g1.cu", "msm.cu", "fr.cu")
+SOURCES = ("g1.cu", "msm.cu", "fr.cu", "fq.cu", "ntt.cu")
 HEADERS = ("mont.cuh", "fq.cuh", "fr.cuh", "g1.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "msm_buckets",
                                  "msm_reduce", "msm_combine", "fr_mul",
-                                 "fr_add")}
+                                 "fr_add", "fr_sub", "fq_mul", "fq_add",
+                                 "fq_sub", "fr_butterfly")}
 
 _lib = None
 
@@ -79,19 +81,36 @@ def build(force: bool = False) -> dict:
             if f.read().strip() == digest:
                 return {"built": False, "seconds": 0.0, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB_PATH + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    tag = f".tmp{os.getpid()}"
+    objects = [os.path.join(BUILD_DIR, s + tag + ".o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once: the sources share no device symbol,
+    # so each compiles alone and the slowest (msm.cu) sets the build time
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = LIB_PATH + tag
+    try:
+        for src, proc, out in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src} ({proc.returncode}):\n{out}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objects],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in objects:
+            if os.path.exists(path):
+                os.remove(path)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest + "\n")
-    log = proc.stdout + proc.stderr
+    log = "".join(logs)
     with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
         f.write(log)
     return {"built": True, "seconds": seconds, "log": log}
@@ -111,6 +130,11 @@ def _load() -> ctypes.CDLL:
             "zkp_msm_combine": [p, p, i32, i32, p],
             "zkp_fr_mul": [p, p, p, i64, i32, i32, p],
             "zkp_fr_add": [p, p, p, i64, i32, i32, p],
+            "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
+            "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
+            "zkp_fq_add": [p, p, p, i64, i32, i32, p],
+            "zkp_fq_sub": [p, p, p, i64, i32, i32, p],
+            "zkp_fr_butterfly": [p, p, i64, i32, i32, p],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -235,26 +259,32 @@ def msm_combine(window_sums: torch.Tensor, window_bits: int) -> torch.Tensor:
     return out
 
 
-# -- K3: csrc/fr.cu ------------------------------------------------------------
+# -- K3: csrc/fr.cu and K4: csrc/fq.cu -------------------------------------------
 
-def _fr_binary(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _check(a, "a", tail=(8,))
-    _check(b, "b", tail=(8,))
+def _binary(name: str, limbs: int, a: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """An elementwise field op over (..., limbs) tensors; either operand may
+    be a single element, which the kernel reads with a step of 0. The
+    kernels move an element as 16-byte words."""
+    _check(a, "a", tail=(limbs,))
+    _check(b, "b", tail=(limbs,))
     if a.device != b.device:
         raise ValueError(f"{name}: operands on different devices")
     shape = torch.broadcast_shapes(a.shape, b.shape)
     n = 1
     for d in shape[:-1]:
         n *= d
-    na, nb = a.numel() // 8, b.numel() // 8
+    na, nb = a.numel() // limbs, b.numel() // limbs
     if na not in (n, 1) or nb not in (n, 1):
         raise ValueError(f"{name}: operands must match or one must be a "
                          "single element")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     if n:
         _launch(name, getattr(_load(), f"zkp_{name}"),
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                8 if na == n else 0, 8 if nb == n else 0)
+                limbs if na == n else 0, limbs if nb == n else 0)
     return out
 
 
@@ -264,7 +294,7 @@ def fr_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("mont_mul", BFR) (via
     poly._fmul). Bound: launch latency at the slice's 2^16 widths (128
     wide multiplies per element); one element per thread."""
-    return _fr_binary("fr_mul", a, b)
+    return _binary("fr_mul", 8, a, b)
 
 
 def fr_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -273,4 +303,74 @@ def fr_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("add", BFR) (via
     poly._fadd). Bound: bytes and launch latency (log2 N launches per
     suffix sum); one element per thread."""
-    return _fr_binary("fr_add", a, b)
+    return _binary("fr_add", 8, a, b)
+
+
+def fr_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fr subtraction a − b mod r over (..., 8) tensors.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("sub", BFR) (the
+    differences β − ω^i and y_i − v of the Pianist aggregation). Bound:
+    launch latency at the aggregation's widths (M elements); one element
+    per thread."""
+    return _binary("fr_sub", 8, a, b)
+
+
+def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fq Montgomery product a·b·2⁻³⁸⁴ mod q over (..., 12) tensors.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("mont_mul", BFQ) and
+    _pmul1 → pmul. Bound: 288 wide multiply-adds against 144 bytes per
+    element, about even on the card; launch latency below ~2^17 elements.
+    One element per thread."""
+    return _binary("fq_mul", 12, a, b)
+
+
+def fq_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fq addition over (..., 12) tensors.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("add", BFQ). Bound:
+    bytes (144 per element); one element per thread."""
+    return _binary("fq_add", 12, a, b)
+
+
+def fq_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fq subtraction a − b mod q over (..., 12) tensors.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("sub", BFQ). Bound:
+    bytes (144 per element); one element per thread."""
+    return _binary("fq_sub", 12, a, b)
+
+
+# -- K5: csrc/ntt.cu -------------------------------------------------------------
+
+def fr_butterfly(v: torch.Tensor, tw: torch.Tensor,
+                 stage: int) -> torch.Tensor:
+    """One DIT butterfly stage of a batched size-n NTT, IN PLACE on ``v``.
+
+    ``v`` (..., n, 8) Montgomery values (bit-reversed order before stage 1),
+    ``tw`` (n/2, 8) the table [w^0 .. w^(n/2−1)], ``stage`` in 1..log2 n:
+    each pair (j, j + 2^(stage−1)) becomes (e + o·w, e − o·w). Returns ``v``.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pbutterfly. Bound: bytes (every
+    element read and written once per stage); one thread per pair, 16-byte
+    loads and stores, offsets worked out in the kernel."""
+    _check(v, "v", tail=(8,))
+    _check(tw, "tw", tail=(8,))
+    if v.dim() < 2 or tw.dim() != 2 or v.device != tw.device:
+        raise ValueError("fr_butterfly: v (..., n, 8) and tw (n/2, 8) on "
+                         "one device expected")
+    n = v.shape[-2]
+    log_n = n.bit_length() - 1
+    if n < 2 or 1 << log_n != n or tw.shape[0] != n // 2:
+        raise ValueError("fr_butterfly: n must be a power of two ≥ 2 and "
+                         "tw must hold n/2 twiddles")
+    if not 1 <= stage <= log_n:
+        raise ValueError(f"fr_butterfly: stage {stage} outside 1..{log_n}")
+    if v.data_ptr() % 16 or tw.data_ptr() % 16:
+        raise ValueError("fr_butterfly: tensors must be 16-byte aligned")
+    rows = v.numel() // (8 * n)
+    if rows:
+        _launch("fr_butterfly", _load().zkp_fr_butterfly,
+                v.data_ptr(), tw.data_ptr(), rows, log_n, int(stage))
+    return v

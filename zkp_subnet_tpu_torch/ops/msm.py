@@ -32,7 +32,7 @@ import torch
 
 from . import kernels
 from .curve import (g1_add, g1_add_plain, g1_double_plain, g1_infinity,
-                    g1_scalar_mul, g1_sum)
+                    g1_scalar_mul, g1_sum, scalar_digits)
 
 WINDOW_BITS = 8
 NUM_WINDOWS = 256 // WINDOW_BITS
@@ -59,14 +59,6 @@ def _groups(n: int) -> int:
     return g
 
 
-def _digits(scalars: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int32 canonical scalars → (N, 32) int64 byte digits, least
-    significant window first."""
-    s = scalars.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(0, 32, 8, device=scalars.device)
-    return ((s.unsqueeze(-1) >> shifts) & 0xFF).flatten(-2)
-
-
 def bucket_runs(scalars: torch.Tensor, groups: int):
     """Sorted runs of every (group, window) row.
 
@@ -76,7 +68,7 @@ def bucket_runs(scalars: torch.Tensor, groups: int):
     bucket that is summed."""
     n = scalars.shape[0]
     n_g = -(-n // groups)
-    digits = _digits(scalars)
+    digits = scalar_digits(scalars, WINDOW_BITS)
     if groups * n_g != n:
         digits = torch.cat([digits, digits.new_zeros(
             (groups * n_g - n, NUM_WINDOWS))])

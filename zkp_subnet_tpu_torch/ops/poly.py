@@ -10,7 +10,8 @@ versions on the CPU. For one opening at x, with t_k = c_k·x^k:
 Tensors are (N, 8) int32 Fr elements (Montgomery unless said otherwise),
 fully reduced: the TPU's byte-lane layout (``ops/lane8.py``) that
 ``zkp_subnet_tpu/ops/poly.py`` converts to and from has no counterpart.
-The inverse of the single challenge point is a host ``pow(x, r−2, r)``.
+The inverse of the single challenge point is ``FR.inv`` (Fermat, on the
+tensor's device).
 """
 
 from __future__ import annotations
@@ -37,18 +38,12 @@ def _suffix_sums(terms: torch.Tensor) -> torch.Tensor:
     return terms
 
 
-def _inverse(x: torch.Tensor) -> torch.Tensor:
-    """1/x (0 ↦ 0) of one Montgomery element, on the host."""
-    xi = FR.decode(x.reshape(1, FR.L))[0]
-    return FR.encode([pow(xi, FR.p - 2, FR.p)], x.device)[0]
-
-
 def _open_pieces(coeffs: torch.Tensor, x: torch.Tensor):
     """(y, q') with q'_j = x^{-(j+1)}·S_{j+1} at full width n (q'_{n−1} = 0)."""
     n = coeffs.shape[0]
     terms = fr_mul(coeffs, FR.powers(x, n))         # t_k = c_k·x^k
     suffix = _suffix_sums(terms)
-    xi = _inverse(x).reshape(1, FR.L)
+    xi = FR.inv(x).reshape(1, FR.L)                # 0 ↦ 0
     inv_pw = fr_mul(FR.powers(xi, n), xi)           # x^{-1} .. x^{-n}
     s_next = torch.cat([suffix[1:], FR.zeros((1,), coeffs.device)])
     return suffix[0], fr_mul(s_next, inv_pw)

@@ -18,12 +18,9 @@ from ..models import kzg
 from ..models.srs import Srs
 from ..ops import curve as cv
 from ..ops.field import FR
-from .._shared import config as _config
-from .._shared import encoding as enc
-from .._shared import protocol as _protocol
-
-Prove = _protocol.Prove
-WorkerConfig = _config.WorkerConfig
+from ..utils import encoding as enc
+from .config import WorkerConfig
+from .protocol import Prove
 
 log = logging.getLogger("zkp_subnet_tpu_torch.worker")
 
@@ -45,7 +42,9 @@ class Worker:
 
     @property
     def device(self) -> torch.device:
-        return self.srs.worker_bases.device
+        """The SRS's device: ``Srs.load``/``generate`` put it on the card
+        unless the caller named another."""
+        return self.srs.device
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -56,7 +55,8 @@ class Worker:
         first use). Returns the wall time in seconds."""
         t0 = time.perf_counter()
         row = FR.zeros((self.srs.row_size,), self.device)
-        prove_row(self.srs.worker_bases[0], row, FR.zeros((), self.device))
+        prove_row(self.srs.device_worker_bases(0), row,
+                  FR.zeros((), self.device))
         self._sync()
         dt = time.perf_counter() - t0
         log.info("warmup ran the prove path in %.1fs", dt)
@@ -73,13 +73,14 @@ class Worker:
 
     def worker_commit(self, i: int, poly_b64) -> str:
         """b64 row → b64 commitment."""
-        return self._g1_b64(kzg.commit(self.srs.worker_bases[i],
+        return self._g1_b64(kzg.commit(self.srs.device_worker_bases(i),
                                        self._row(poly_b64)))
 
     def worker_open(self, i: int, poly_b64, x_b64: str) -> Tuple[str, str]:
         """b64 row + point → (b64 eval, b64 proof)."""
         x = FR.encode([enc.fr_from_b64(x_b64)], self.device)[0]
-        y, prf = kzg.open_(self.srs.worker_bases[i], self._row(poly_b64), x)
+        y, prf = kzg.open_(self.srs.device_worker_bases(i),
+                           self._row(poly_b64), x)
         return enc.fr_to_b64(FR.decode(y)[0]), self._g1_b64(prf)
 
     def worker_verify(self, i: int, proof_b64: str, alpha_b64: str,
@@ -117,8 +118,8 @@ class Worker:
             x = (FR.zeros((), self.device) if commit_only
                  else FR.encode([enc.fr_from_b64(synapse.alpha)],
                                 self.device)[0])
-            com, y, prf = prove_row(self.srs.worker_bases[synapse.index],
-                                    row, x)
+            com, y, prf = prove_row(
+                self.srs.device_worker_bases(synapse.index), row, x)
             out = synapse.response(
                 eval_=None if commit_only else enc.fr_to_b64(FR.decode(y)[0]),
                 commitment=self._g1_b64(com),
