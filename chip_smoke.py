@@ -14,13 +14,18 @@ Phases (each prints a line; any failure exits non-zero):
 3. kernels vs plain: every kernel on the card against its plain PyTorch
    version on CPU copies of the same inputs, random and edge cases, with
    tolerance zero (integer arithmetic: canonical integers and affine points
-   must be equal); then each kernel's time beside its plain version's, both
-   on the card, at the shapes the paths below give it, and the least time
-   the card could take for the same work (``bound_ms``);
+   must be equal; ``msm_reduce`` and ``msm_combine`` limb for limb); then
+   each kernel's time beside its plain version's, both on the card, at the
+   shapes the paths below give it (CUDA events around a loop of launches:
+   for a short kernel that is the host's cost a launch) and the least time
+   the card could take for the same work (``bound_ms``); for the two chains
+   of K2, the depth of the dependency chain and ms ÷ depth;
 4. ``[main]``, the worker's path: a 2^16-base SRS slice [τ^j]G1 built on the
    card, a ``Worker`` over it, and three 2^16-coefficient ``Prove`` requests
    (two with a challenge point, one commit-only), each checked by the
-   trapdoor τ and the pairing verify, with kernel launch counts; then the
+   trapdoor τ and the pairing verify, with kernel launch counts (one launch
+   of each K2 kernel a request: the commit's and the opening's MSMs run as
+   one batched MSM); then the
    median of warm commit+open requests and the peak device memory;
 5. ``[round]``, the coordinator's side of one Pianist round at the row width
    of the reference mainnet (2^16 coefficients a worker) with 16 workers
@@ -32,7 +37,12 @@ Phases (each prints a line; any failure exits non-zero):
    ``Worker.forward`` at one α, ``pianist.aggregate`` at a β (its launch
    count, and its warm time after the path's counts are read) and
    ``pianist.verify_aggregated`` (True, and False after tampering);
-6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22.
+6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22;
+7. ``[device]``: each kernel's device time with no host work between
+   launches (``device_ms``: CUDA events around the replay of a CUDA graph of
+   many launches) and torch.profiler's figure beside it; last, because
+   graph captures and a profiler run slow every later launch on the
+   host.
 
 The launch counts are set to 0 just before each of the two paths and read
 just after it. The last lines are the kernel table as JSON, the nvidia-smi
@@ -49,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -218,6 +229,14 @@ def same_points(got, want) -> int:
     return err
 
 
+def same_limbs(got, want) -> int:
+    """0 if the two point tensors are equal limb for limb; else at least 1
+    (the affine difference where the points differ too)."""
+    if torch.equal(got.cpu(), want.cpu()):
+        return 0
+    return max(same_points(got, want), 1)
+
+
 def same_field(F, got, want) -> int:
     """0 if equal, else the largest absolute difference of the integers."""
     if torch.equal(got.cpu(), want.cpu()):
@@ -249,12 +268,139 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def time_graph(fn, launches):
+    """Device ms a launch with no host work between the kernels: CUDA events
+    around the second replay of a CUDA graph that holds ``launches`` calls
+    of ``fn`` (the wrappers launch on the current stream, which is the
+    capture's)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def time_profiler(fn, launches):
+    """Device ms a launch as torch.profiler reports it (the kernel events'
+    device time over ``launches`` calls), or None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if "memcpy" in evt.key.lower() or "memset" in evt.key.lower():
+            continue
+        total_us += getattr(evt, "self_device_time_total",
+                            getattr(evt, "self_cuda_time_total", 0.0))
+    return total_us / 1e3 / launches if total_us > 0 else None
+
+
+# -- the paths' shapes ------------------------------------------------------
+
+def path_inputs(rng, dev):
+    """Inputs at the shapes the paths give the kernels, on the card."""
+    n = 1 << LOG_N
+    p = random_points(rng, 256, dev)[0].repeat(n // 256, 1, 1)
+    q = p.roll(1, 0).contiguous()
+    a, b = random_fr(rng, n, dev), random_fr(rng, n, dev)
+    # two MSMs over the same bases, as one request's commit and opening
+    sc = FR.from_limbs16(random_scalar_limbs(rng, 2 * n).reshape(2, n, 16),
+                         dev)
+    runs = tmsm.bucket_runs(sc, tmsm._groups(n))
+    runs1 = tmsm.bucket_runs(sc[0], tmsm._groups(n))
+    bk = kernels.msm_buckets(p, *runs)
+    sk = tmsm.msm_reduce(bk)
+    wins = sk[:2 * tmsm.NUM_WINDOWS].view(2, tmsm.NUM_WINDOWS, 3, 12)
+    # the [round] path's shapes: the aggregation's 16 evaluations, and the
+    # on-curve check over every point of the generated SRS
+    m = 1 << ROUND_MACHINES_SCALE
+    sa, sb = random_fr(rng, m, dev), random_fr(rng, m, dev)
+    n_srs = (1 << ROUND_SCALE) + n + m
+    qa = random_field(FQ, rng, 4096, dev).repeat(n_srs // 4096 + 1, 1)[:n_srs]
+    qa = qa.contiguous()
+    qb = qa.roll(1, 0).contiguous()
+    return types.SimpleNamespace(n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
+                                 sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
+                                 runs1=runs1, bk=bk, wins=wins)
+
+
+def path_calls(x):
+    """{kernel: (kernel call, plain call, repetitions, comparison, bytes
+    moved (each input read once, each output written once), integer
+    operations)} over ``path_inputs``; K5 is ``time_butterfly``'s."""
+    n, m, n_srs = x.n, x.m, x.n_srs
+    p, q, a, b, sa, sb, qa, qb = x.p, x.q, x.a, x.b, x.sa, x.sb, x.qa, x.qb
+    runs, bk, wins = x.runs, x.bk, x.wins
+    pts, limbs, fr, fq = same_points, same_limbs, same_fr, same_fq
+    rows_b, nb = runs[1].shape
+    bucket_adds = int(runs[2][:, 1:].sum())        # this run's data
+    windows = tmsm.NUM_WINDOWS
+    return {
+        "g1_add": (lambda: kernels.g1_add(p, q),
+                   lambda: cv.g1_add_plain(p, q), 20, pts,
+                   3 * G1_BYTES * n, OPS_G1_ADD * n),
+        "g1_double": (lambda: kernels.g1_double(p),
+                      lambda: cv.g1_double_plain(p), 20, pts,
+                      2 * G1_BYTES * n, OPS_G1_DOUBLE * n),
+        "fr_mul": (lambda: kernels.fr_mul(a, b),
+                   lambda: fr_mul_plain(a, b), 50, fr,
+                   3 * FR_BYTES * n, OPS_FR_MUL * n),
+        "fr_add": (lambda: kernels.fr_add(a, b),
+                   lambda: fr_add_plain(a, b), 50, fr,
+                   3 * FR_BYTES * n, OPS_FR_LIN * n),
+        "fr_sub": (lambda: kernels.fr_sub(sa, sb),
+                   lambda: fr_sub_plain(sa, sb), 50, fr,
+                   3 * FR_BYTES * m, OPS_FR_LIN * m),
+        "fq_mul": (lambda: kernels.fq_mul(qa, qb),
+                   lambda: fq_mul_plain(qa, qb), 20, fq,
+                   3 * FQ_BYTES * n_srs, OPS_FQ_MUL * n_srs),
+        "fq_add": (lambda: kernels.fq_add(qa, qb),
+                   lambda: fq_add_plain(qa, qb), 20, fq,
+                   3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
+        "fq_sub": (lambda: kernels.fq_sub(qa, qb),
+                   lambda: fq_sub_plain(qa, qb), 20, fq,
+                   3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
+        "msm_buckets": (lambda: kernels.msm_buckets(p, *runs),
+                        lambda: tmsm.msm_buckets_plain(p, *runs), 5, pts,
+                        G1_BYTES * n + 4 * (runs[0].numel()
+                                            + 2 * rows_b * nb)
+                        + G1_BYTES * rows_b * nb,
+                        OPS_G1_ADD * bucket_adds),
+        "msm_reduce": (lambda: kernels.msm_reduce(bk),
+                       lambda: tmsm.msm_reduce_plain(bk), 5, limbs,
+                       G1_BYTES * rows_b * (nb + 1),
+                       OPS_G1_ADD * rows_b * 2 * (nb - 1)),
+        "msm_combine": (lambda: kernels.msm_combine(wins, 8),
+                        lambda: tmsm.msm_combine_plain(wins), 5, limbs,
+                        G1_BYTES * 2 * (windows + 1),
+                        2 * windows * (8 * OPS_G1_DOUBLE + OPS_G1_ADD)),
+    }
+
+
 # -- phases ------------------------------------------------------------------
 
 def phase_kernels(rng, dev, int_ops_per_s):
     """Kernel vs plain on random and edge inputs; then times at the paths'
     shapes beside the card's bound for the same work. Returns {name:
-    {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"}}."""
+    {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by" and for some
+    "other_ms"}}. Nothing it allocates outlives it, so the peak memory that
+    ``phase_main_path`` reads is the main path's own."""
     res = {name: {"max_abs_err": 0} for name in KERNELS}
 
     def record(name, err):
@@ -325,104 +471,70 @@ def phase_kernels(rng, dev, int_ops_per_s):
         f"of 2^{log_small} incl. 0, 1, r-1, r-2, both directions: equal to "
         "plain")
 
-    # K2: random scalars at 4096 points; zero, all-equal and half-zero
-    # scalars at 512. Each kernel against its plain version (the reduce on
-    # the first 64 rows: the plain running sum is 510 serial CPU adds), and
-    # the whole kernel-path MSM against the oracle via the known dlogs.
+    # K2: each kernel against its plain version, two MSMs side by side as
+    # the main path launches them (the second takes the scalars in reverse
+    # order), on random scalars at 4096 points and on edge cases at 512:
+    # buckets against the plain version on CPU copies; reduce (every row)
+    # and combine (K = 2 and K = 1) limb for limb; then the batched MSM against two single ones and
+    # against the oracle via the known dlogs.
     pts, dlogs = random_points(rng, n, dev)
     k = random_scalar_limbs(rng, 1)
-    cases = [("random", n, random_scalar_limbs(rng, n)),
-             ("zero", 512, np.zeros((512, 16), np.uint32)),
-             ("all-equal", 512, np.repeat(k, 512, axis=0)),
+    rand512 = random_scalar_limbs(rng, 512)
+    cases = [("random", n, random_scalar_limbs(rng, n), None),
+             ("zero", 512, np.zeros((512, 16), np.uint32), None),
+             ("all-equal", 512, np.repeat(k, 512, axis=0), None),
              ("half zero", 512, np.concatenate(
-                 [np.zeros((256, 16), np.uint32), np.repeat(k, 256, 0)]))]
-    for label, m, limbs in cases:
-        pp, sc = pts[:m].contiguous(), FR.from_limbs16(limbs, dev)
+                 [np.zeros((256, 16), np.uint32), np.repeat(k, 256, 0)]),
+              None),
+             ("only bucket 255", 512, np.full((512, 16), 0xFFFF, np.uint32),
+              None),
+             ("only bucket 1", 512, np.full((512, 16), 0x0101, np.uint32),
+              None),
+             ("every point the same", 512, rand512, 0)]
+    for label, m, limbs, repeat in cases:
+        if repeat is None:
+            pp, logs = pts[:m].contiguous(), dlogs[:m]
+        else:
+            pp = pts[repeat:repeat + 1].repeat(m, 1, 1)
+            logs = [dlogs[repeat]] * m
+        both = np.stack([limbs, limbs[::-1]])
+        sc = FR.from_limbs16(both, dev)                    # (2, m, 8)
         groups = tmsm._groups(m)
         runs = tmsm.bucket_runs(sc, groups)
         bk = kernels.msm_buckets(pp, *runs)
         bp = tmsm.msm_buckets_plain(pp.cpu(), *(t.cpu() for t in runs))
         record("msm_buckets", same_points(bk, bp))
-        sk = kernels.msm_reduce(bk[:64].contiguous())
-        record("msm_reduce", same_points(sk, tmsm.msm_reduce_plain(
-            bp[:64])))
-        wins = sk[:tmsm.NUM_WINDOWS].contiguous()
-        record("msm_combine", same_points(
-            kernels.msm_combine(wins, 8)[None],
-            tmsm.msm_combine_plain(wins.cpu())[None]))
-        total = sum(a * b for a, b in zip(limbs_to_ints(limbs), dlogs)) % o.R
-        want = o.G1.to_affine(o.G1.mul(o.G1.from_affine(o.G1_GEN), total))
-        check(cv.g1_affine(tmsm.msm(pp, sc))[0] == want,
-              f"msm ({label}): result != oracle")
-        say(f"[kernels] K2 msm ({label} scalars, {m} points, {groups} "
-            "groups): buckets, reduce and combine equal to plain; the MSM "
-            "equals the oracle")
+        sk = kernels.msm_reduce(bk)
+        record("msm_reduce", same_limbs(sk, tmsm.msm_reduce_plain(bk)))
+        wins = sk[:2 * tmsm.NUM_WINDOWS].view(2, tmsm.NUM_WINDOWS, 3, 12)
+        wp = tmsm.msm_combine_plain(wins.cpu())
+        record("msm_combine", same_limbs(tmsm.msm_combine(wins), wp))
+        record("msm_combine", same_limbs(tmsm.msm_combine(wins[1]), wp[1]))
+        many = tmsm.msm_many(pp, sc)
+        g = o.G1.from_affine(o.G1_GEN)
+        for j in range(2):
+            check(torch.equal(many[j], tmsm.msm(pp, sc[j])),
+                  f"msm_many ({label}): chain {j} != msm")
+            total = sum(a * b for a, b in
+                        zip(limbs_to_ints(both[j]), logs)) % o.R
+            check(cv.g1_affine(many[j])[0]
+                  == o.G1.to_affine(o.G1.mul(g, total)),
+                  f"msm_many ({label}): chain {j} != oracle")
+        say(f"[kernels] K2 msm ({label}; 2 x {m} scalars, {groups} "
+            f"groups, {bk.shape[0]} rows): buckets equal to plain; reduce "
+            "and combine (K = 2, K = 1) equal to "
+            "plain limb for limb; msm_many equals two msm calls and the "
+            "oracle")
 
-    # the main path's shapes: kernel and plain both on the card, timed, and
+    # the paths' shapes: kernel and plain both on the card, timed, and
     # their results compared
-    n = 1 << LOG_N
-    p = random_points(rng, 256, dev)[0].repeat(n // 256, 1, 1)
-    q = p.roll(1, 0).contiguous()
-    a, b = random_fr(rng, n, dev), random_fr(rng, n, dev)
-    sc = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
-    runs = tmsm.bucket_runs(sc, tmsm._groups(n))
-    bk = kernels.msm_buckets(p, *runs)
-    sk = kernels.msm_reduce(bk)
-    wins = sk[:tmsm.NUM_WINDOWS].contiguous()
-    pts, fr, fq = same_points, same_fr, same_fq
-    rows_b, nb = runs[1].shape
-    bucket_adds = int(runs[2][:, 1:].sum())        # this run's data
-    windows = tmsm.NUM_WINDOWS
-    # the [round] path's shapes: the aggregation's 16 evaluations, and the
-    # on-curve check over every point of the generated SRS
-    m = 1 << ROUND_MACHINES_SCALE
-    sa, sb = random_fr(rng, m, dev), random_fr(rng, m, dev)
-    n_srs = (1 << ROUND_SCALE) + n + m
-    qa = random_field(FQ, rng, 4096, dev).repeat(n_srs // 4096 + 1, 1)[:n_srs]
-    qa = qa.contiguous()
-    qb = qa.roll(1, 0).contiguous()
-    # each entry: kernel, plain, repetitions, comparison, bytes moved (each
-    # input read once, each output written once), integer operations
-    timings = {
-        "g1_add": (lambda: kernels.g1_add(p, q),
-                   lambda: cv.g1_add_plain(p, q), 20, pts,
-                   3 * G1_BYTES * n, OPS_G1_ADD * n),
-        "g1_double": (lambda: kernels.g1_double(p),
-                      lambda: cv.g1_double_plain(p), 20, pts,
-                      2 * G1_BYTES * n, OPS_G1_DOUBLE * n),
-        "fr_mul": (lambda: kernels.fr_mul(a, b),
-                   lambda: fr_mul_plain(a, b), 50, fr,
-                   3 * FR_BYTES * n, OPS_FR_MUL * n),
-        "fr_add": (lambda: kernels.fr_add(a, b),
-                   lambda: fr_add_plain(a, b), 50, fr,
-                   3 * FR_BYTES * n, OPS_FR_LIN * n),
-        "fr_sub": (lambda: kernels.fr_sub(sa, sb),
-                   lambda: fr_sub_plain(sa, sb), 50, fr,
-                   3 * FR_BYTES * m, OPS_FR_LIN * m),
-        "fq_mul": (lambda: kernels.fq_mul(qa, qb),
-                   lambda: fq_mul_plain(qa, qb), 20, fq,
-                   3 * FQ_BYTES * n_srs, OPS_FQ_MUL * n_srs),
-        "fq_add": (lambda: kernels.fq_add(qa, qb),
-                   lambda: fq_add_plain(qa, qb), 20, fq,
-                   3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
-        "fq_sub": (lambda: kernels.fq_sub(qa, qb),
-                   lambda: fq_sub_plain(qa, qb), 20, fq,
-                   3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
-        "msm_buckets": (lambda: kernels.msm_buckets(p, *runs),
-                        lambda: tmsm.msm_buckets_plain(p, *runs), 5, pts,
-                        G1_BYTES * n + 4 * (runs[0].numel()
-                                            + 2 * rows_b * nb)
-                        + G1_BYTES * rows_b * nb,
-                        OPS_G1_ADD * bucket_adds),
-        "msm_reduce": (lambda: kernels.msm_reduce(bk),
-                       lambda: tmsm.msm_reduce_plain(bk), 5, pts,
-                       G1_BYTES * rows_b * (nb + 1),
-                       OPS_G1_ADD * rows_b * 2 * (nb - 1)),
-        "msm_combine": (lambda: kernels.msm_combine(wins, 8)[None],
-                        lambda: tmsm.msm_combine_plain(wins)[None], 5, pts,
-                        G1_BYTES * (windows + 1),
-                        windows * (8 * OPS_G1_DOUBLE + OPS_G1_ADD)),
-    }
+    x = path_inputs(rng, dev)
+    timings = path_calls(x)
+    nb, windows = x.runs[1].shape[1], tmsm.NUM_WINDOWS
+    # the longest chain of dependent point operations in the two kernels
+    # that are bound by it
+    depth = {"msm_reduce": tmsm.reduce_depth(nb),
+             "msm_combine": windows * (tmsm.WINDOW_BITS + 1)}
     for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
         r = res[name]
         r["ms"], got = time_cuda(kern, reps)
@@ -431,27 +543,58 @@ def phase_kernels(rng, dev, int_ops_per_s):
         record(name, same(got, want))
         del want
         say(f"[kernels] {name} at its path's shape {tuple(got.shape)}: "
-            f"equal to plain; kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
-    del qa, qb
+            f"equal to plain; kernel {r['ms']:.4f} ms a launch on the "
+            f"host's loop, plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        if name in depth:
+            say(f"[kernels] {name}: longest chain {depth[name]} dependent "
+                f"point operations, {r['ms'] / depth[name] * 1e3:.2f} us "
+                "each")
+    # the same kernels at one MSM (the shapes a lone commit gives them)
+    p, runs1, bk, wins = x.p, x.runs1, x.bk, x.wins
+    bk1 = kernels.msm_buckets(p, *runs1)
+    groups = tmsm._groups(x.n)
+    limbs = same_limbs
+    others = [("msm_buckets", "one MSM", limbs,       # against its rows of
+               lambda: kernels.msm_buckets(p, *runs1),    # the batched launch
+               lambda: bk.view(groups, 2, windows, nb, 3, 12)[:, 0].reshape(
+                   -1, nb, 3, 12)),
+              ("msm_reduce", "one MSM", limbs,
+               lambda: kernels.msm_reduce(bk1),
+               lambda: tmsm.msm_reduce_plain(bk1)),
+              ("msm_combine", "one MSM", limbs,
+               lambda: kernels.msm_combine(wins[0], 8),
+               lambda: tmsm.msm_combine_plain(wins[0]))]
+    for name, label, same, kern, plain in others:
+        ms, got = time_cuda(kern, 5)
+        record(name, same(got, plain()))
+        say(f"[kernels] {name}, {label}, {tuple(got.shape)}: equal to "
+            f"plain; kernel {ms:.4f} ms")
+        res[name].setdefault("other_ms", {})[label] = ms
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
     say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
-        f"shape is {m}): "
-        f"{time_cuda(lambda: kernels.fr_sub(a, b), 50)[0]:.4f} ms")
+        f"shape is {x.m}): "
+        f"{time_cuda(lambda: kernels.fr_sub(x.a, x.b), 50)[0]:.4f} ms")
     return res
 
 
-def time_butterfly(rng, dev, int_ops_per_s, record):
-    """K5 at the [round] path's shape, 16 transforms of 2^16: three stages
-    against the plain version on the card, and every stage timed."""
-    log_n, rows = LOG_N, 1 << ROUND_MACHINES_SCALE
-    n = 1 << log_n
-    tw = tntt.twiddles(log_n, True, dev)
+def butterfly_inputs(rng, dev):
+    """K5's inputs at the [round] path's shape, 16 transforms of 2^16:
+    (values (16, 2^16, 8), inverse twiddles)."""
+    rows, n = 1 << ROUND_MACHINES_SCALE, 1 << LOG_N
     distinct = min(4096, rows * n)
     base = random_fr(rng, distinct, dev).repeat(rows * n // distinct, 1)
-    base = base.view(rows, n, 8).contiguous()
+    return (base.view(rows, n, 8).contiguous(),
+            tntt.twiddles(LOG_N, True, dev))
+
+
+def time_butterfly(rng, dev, int_ops_per_s, record):
+    """K5 at the [round] path's shape: three stages against the plain
+    version on the card, and every stage timed."""
+    log_n = LOG_N
+    base, tw = butterfly_inputs(rng, dev)
+    rows, n = base.shape[:2]
     plain_ms = []
     for stage in (1, log_n // 2, log_n):
         v = base.clone()
@@ -471,11 +614,38 @@ def time_butterfly(rng, dev, int_ops_per_s, record):
     mean = statistics.fmean(stage_ms)
     say(f"[kernels] fr_butterfly at its path's shape ({rows}, 2^{log_n}, 8): "
         f"stages 1, {log_n // 2}, {log_n} equal to plain; kernel mean "
-        f"{mean:.4f} ms a stage, plain {statistics.fmean(plain_ms):.2f} ms, "
+        f"{mean:.4f} ms a stage on the host's loop, plain "
+        f"{statistics.fmean(plain_ms):.2f} ms, "
         f"bound {b_ms:.5f} ms ({b_by}); stage 1..{log_n} ms: "
         + " ".join(f"{t:.4f}" for t in stage_ms))
     return {"ms": mean, "plain_ms": statistics.fmean(plain_ms),
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_device_times(res, dev):
+    """Each kernel's device time at its path's shape (inputs built anew),
+    with no host work between launches: by graph replay (``device_ms``),
+    then by torch.profiler. Last of all phases, because both leave the
+    process slower on the host (graph captures until
+    ``torch.cuda.empty_cache()``, a profiler run for good), which the
+    launch-bound phases would show."""
+    rng = np.random.default_rng(SEED + 1)
+    calls = {name: call[0] for name, call in
+             path_calls(path_inputs(rng, dev)).items()}
+    v, tw = butterfly_inputs(rng, dev)
+    calls["fr_butterfly"] = lambda: kernels.fr_butterfly(v, tw, LOG_N // 2)
+    graph_launches = {"fq_mul": 20, "fq_add": 20, "fq_sub": 20,
+                      "msm_buckets": 5, "msm_reduce": 5, "msm_combine": 5}
+    for name, r in res.items():
+        r["device_ms"] = time_graph(calls[name],
+                                    graph_launches.get(name, 100))
+    for name, r in res.items():
+        r["profiler_ms"] = time_profiler(calls[name], 20)
+        prof = ("no device time" if r["profiler_ms"] is None
+                else f"{r['profiler_ms']:.4f} ms")
+        say(f"[device] {name}: {r['device_ms']:.4f} ms a launch by graph "
+            f"replay, {prof} by torch.profiler; host's loop {r['ms']:.4f} "
+            f"ms; {r['device_ms'] / r['bound_ms']:.1f} x its bound")
 
 
 def build_srs(dev):
@@ -548,9 +718,11 @@ def phase_main_path(rng, dev):
             check(worker.worker_verify(0, resp.proof, resp.alpha, resp.eval_,
                                        resp.commitment),
                   "worker_verify rejected the proof")
-        for k in ("g1_add", "msm_buckets", "msm_reduce", "msm_combine",
-                  "fr_mul", "fr_add"):
+        for k in ("g1_add", "fr_mul", "fr_add"):
             check(used[k] > 0, f"request {i}: no {k} launch")
+        for k in ("msm_buckets", "msm_reduce", "msm_combine"):
+            check(used[k] == 1, f"request {i}: {used[k]} {k} launches, "
+                  "not the one of a batched commit + opening")
         kind = "commit-only" if commit_only else "commit+open"
         say(f"[main] request {i} ({kind}, {n} coefficients): {dt:.3f} s, "
             f"trapdoor self-check PASS"
@@ -833,6 +1005,7 @@ def main() -> int:
         main_launches = phase_main_path(rng, dev)
         round_launches = phase_round(rng, dev)
         phase_ntt_cells(dev)
+        phase_device_times(res, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -847,7 +1020,9 @@ def main() -> int:
               "max_abs_err": res[k]["max_abs_err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
               "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
-              "library_ms": None}
+              "library_ms": None, "device_ms": res[k]["device_ms"],
+              "profiler_ms": res[k]["profiler_ms"],
+              "other_ms": res[k].get("other_ms")}
              for k, (src, rep) in KERNELS.items()]
     say(json.dumps({"kernels": table}))
     say(nvidia_smi())

@@ -5,7 +5,8 @@ The module imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: none (integer arithmetic; points compared as affine points).
+Tolerance: none (integer arithmetic; points compared as affine points,
+``msm_reduce`` and ``msm_combine`` limb for limb).
 """
 
 import numpy as np
@@ -185,3 +186,77 @@ def test_worker_on_card_matches_cpu(dev):
     assert on_card.commitment is not None and on_card.proof is not None
     assert (on_card.commitment, on_card.eval_, on_card.proof) == \
         (on_cpu.commitment, on_cpu.eval_, on_cpu.proof)
+
+
+@pytest.fixture(scope="module")
+def path_buckets(dev):
+    """Bucket sums at the main path's shape: two MSMs of 2^16 scalars over
+    the same bases, 8 point groups → (512, 256, 3, 12)."""
+    n = 1 << 16
+    pts, _, _ = _instance(256, 5)
+    pts = tcv.g1_double_plain(pts).to(dev).repeat(n // 256, 1, 1)
+    rng = np.random.default_rng(6)
+    limbs = rng.integers(0, 1 << 16, (2, n, 16), dtype=np.uint32)
+    sc = FR.from_limbs16(limbs, dev)
+    runs = tmsm.bucket_runs(sc, tmsm._groups(n))
+    return kernels.msm_buckets(pts, *runs)
+
+
+@pytest.mark.parametrize("rows", [256, 512])
+def test_msm_reduce_kernel_equals_plain_limb_for_limb(dev, path_buckets,
+                                                      rows):
+    assert path_buckets.shape == (512, 256, 3, 12)
+    bk = path_buckets[:rows]
+    got = kernels.msm_reduce(bk)
+    assert got.shape == (rows, 3, 12)
+    assert torch.equal(got, tmsm.msm_reduce_plain(bk))
+    assert torch.equal(got.cpu(), tmsm.msm_reduce_plain(bk.cpu()))
+    assert torch.equal(got, tmsm.msm_reduce(bk))
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+def test_msm_combine_kernel_equals_plain_limb_for_limb(dev, path_buckets,
+                                                       chains):
+    sums = tmsm.msm_reduce(path_buckets)[:64].view(2, 32, 3, 12)
+    wins = sums[0] if chains == 1 else sums
+    got = tmsm.msm_combine(wins)
+    assert got.shape == wins.shape[:-3] + (3, 12)
+    assert torch.equal(got, tmsm.msm_combine_plain(wins))
+    assert torch.equal(got.cpu(), tmsm.msm_combine_plain(wins.cpu()))
+
+
+def test_msm_kernels_refuse_what_they_do_not_take(dev):
+    bk = tcv.g1_infinity((4, 256), dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.msm_reduce(bk.cpu())
+    with pytest.raises(ValueError):
+        kernels.msm_reduce(bk[:, :, :, :8])                # not (..., 3, 12)
+    with pytest.raises(ValueError):
+        kernels.msm_reduce(bk[0])                          # no rows
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.msm_reduce(bk[:, :24].contiguous())        # 3 lanes a row
+    wins = tcv.g1_infinity((2, 32), dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.msm_combine(wins.cpu(), 8)
+    with pytest.raises(ValueError):
+        kernels.msm_combine(wins[0, 0], 8)                 # no windows
+    with pytest.raises(ValueError):
+        kernels.msm_combine(wins[..., :8], 8)              # not (..., 3, 12)
+    assert tcv.g1_affine(tmsm.msm_combine(wins)) == [None, None]
+    assert tcv.g1_affine(tmsm.msm_reduce(bk)) == [None] * 4
+
+
+def test_msm_many_on_card_matches_msm_and_oracle(dev, monkeypatch):
+    monkeypatch.setattr(tmsm, "MIN_GROUP_POINTS", 128)
+    pts, dlogs, ks = _instance(1000, 7)
+    all_ks = [ks, ks[::-1]]
+    sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in all_ks]).to(dev)
+    before = dict(kernels.LAUNCHES)
+    got = tmsm.msm_many(pts.to(dev), sc)
+    used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert (used["msm_buckets"], used["msm_reduce"], used["msm_combine"]) \
+        == (1, 1, 1)
+    for j, scalars in enumerate(all_ks):
+        assert torch.equal(got[j], tmsm.msm(pts.to(dev), sc[j]))
+        want = sum(a * k for a, k in zip(dlogs, scalars)) % o.R
+        assert tcv.g1_affine(got[j]) == [o.G1.to_affine(o.G1.mul(G, want))]

@@ -44,44 +44,64 @@ __device__ __forceinline__ void g1_set_infinity(G1& P) {
   }
 }
 
+// The field operations the point formulas below are written over. FqInline
+// expands every operation in place (K1 and the bucket kernel: all operands
+// in registers); a caller may pass another policy with the same three
+// functions, e.g. one whose operations are real calls (csrc/msm.cu).
+struct FqInline {
+  static __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
+                                             const uint32_t* b) {
+    fq::mul(r, a, b);
+  }
+  static __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
+                                             const uint32_t* b) {
+    fq::add(r, a, b);
+  }
+  static __device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a,
+                                             const uint32_t* b) {
+    fq::sub(r, a, b);
+  }
+};
+
 // R = P + Q (RCB15 Algorithm 7: 14 multiplications, 2 of them by b3). R may alias
 // P or Q.
-__device__ __forceinline__ void g1_add(G1& R, const G1& P, const G1& Q) {
+template <class F>
+__device__ __forceinline__ void g1_add_with(G1& R, const G1& P, const G1& Q) {
   uint32_t t0[fq::L], t1[fq::L], t2[fq::L], t3[fq::L], t4[fq::L];
   uint32_t X3[fq::L], Y3[fq::L], Z3[fq::L];
-  fq::mul(t0, P.X, Q.X);   // X1·X2
-  fq::mul(t1, P.Y, Q.Y);   // Y1·Y2
-  fq::mul(t2, P.Z, Q.Z);   // Z1·Z2
-  fq::add(t3, P.X, P.Y);
-  fq::add(t4, Q.X, Q.Y);
-  fq::mul(t3, t3, t4);
-  fq::add(t4, t0, t1);
-  fq::sub(t3, t3, t4);     // X1·Y2 + X2·Y1
-  fq::add(t4, P.Y, P.Z);
-  fq::add(X3, Q.Y, Q.Z);
-  fq::mul(t4, t4, X3);
-  fq::add(X3, t1, t2);
-  fq::sub(t4, t4, X3);     // Y1·Z2 + Y2·Z1
-  fq::add(X3, P.X, P.Z);
-  fq::add(Y3, Q.X, Q.Z);
-  fq::mul(X3, X3, Y3);
-  fq::add(Y3, t0, t2);
-  fq::sub(Y3, X3, Y3);     // X1·Z2 + X2·Z1
-  fq::add(X3, t0, t0);
-  fq::add(t0, X3, t0);     // 3·X1·X2
-  fq::mul(t2, fq::B3, t2);
-  fq::add(Z3, t1, t2);
-  fq::sub(t1, t1, t2);
-  fq::mul(Y3, fq::B3, Y3);
-  fq::mul(X3, t4, Y3);
-  fq::mul(t2, t3, t1);
-  fq::sub(X3, t2, X3);
-  fq::mul(Y3, Y3, t0);
-  fq::mul(t1, t1, Z3);
-  fq::add(Y3, t1, Y3);
-  fq::mul(t0, t0, t3);
-  fq::mul(Z3, Z3, t4);
-  fq::add(Z3, Z3, t0);
+  F::mul(t0, P.X, Q.X);   // X1·X2
+  F::mul(t1, P.Y, Q.Y);   // Y1·Y2
+  F::mul(t2, P.Z, Q.Z);   // Z1·Z2
+  F::add(t3, P.X, P.Y);
+  F::add(t4, Q.X, Q.Y);
+  F::mul(t3, t3, t4);
+  F::add(t4, t0, t1);
+  F::sub(t3, t3, t4);     // X1·Y2 + X2·Y1
+  F::add(t4, P.Y, P.Z);
+  F::add(X3, Q.Y, Q.Z);
+  F::mul(t4, t4, X3);
+  F::add(X3, t1, t2);
+  F::sub(t4, t4, X3);     // Y1·Z2 + Y2·Z1
+  F::add(X3, P.X, P.Z);
+  F::add(Y3, Q.X, Q.Z);
+  F::mul(X3, X3, Y3);
+  F::add(Y3, t0, t2);
+  F::sub(Y3, X3, Y3);     // X1·Z2 + X2·Z1
+  F::add(X3, t0, t0);
+  F::add(t0, X3, t0);     // 3·X1·X2
+  F::mul(t2, fq::B3, t2);
+  F::add(Z3, t1, t2);
+  F::sub(t1, t1, t2);
+  F::mul(Y3, fq::B3, Y3);
+  F::mul(X3, t4, Y3);
+  F::mul(t2, t3, t1);
+  F::sub(X3, t2, X3);
+  F::mul(Y3, Y3, t0);
+  F::mul(t1, t1, Z3);
+  F::add(Y3, t1, Y3);
+  F::mul(t0, t0, t3);
+  F::mul(Z3, Z3, t4);
+  F::add(Z3, Z3, t0);
 #pragma unroll
   for (int j = 0; j < fq::L; j++) {
     R.X[j] = X3[j];
@@ -90,32 +110,41 @@ __device__ __forceinline__ void g1_add(G1& R, const G1& P, const G1& Q) {
   }
 }
 
+__device__ __forceinline__ void g1_add(G1& R, const G1& P, const G1& Q) {
+  g1_add_with<FqInline>(R, P, Q);
+}
+
 // R = 2P (RCB15 Algorithm 9: 9 multiplications, 1 of them by b3). R may alias P.
-__device__ __forceinline__ void g1_double(G1& R, const G1& P) {
+template <class F>
+__device__ __forceinline__ void g1_double_with(G1& R, const G1& P) {
   uint32_t t0[fq::L], t1[fq::L], t2[fq::L];
   uint32_t X3[fq::L], Y3[fq::L], Z3[fq::L];
-  fq::mul(t0, P.Y, P.Y);
-  fq::add(Z3, t0, t0);
-  fq::add(Z3, Z3, Z3);
-  fq::add(Z3, Z3, Z3);     // 8·Y²
-  fq::mul(t1, P.Y, P.Z);
-  fq::mul(t2, P.Z, P.Z);
-  fq::mul(t2, fq::B3, t2); // 3b·Z²
-  fq::mul(X3, t2, Z3);
-  fq::add(Y3, t0, t2);
-  fq::mul(Z3, t1, Z3);
-  fq::add(t1, t2, t2);
-  fq::add(t2, t1, t2);     // 9b·Z²
-  fq::sub(t0, t0, t2);
-  fq::mul(Y3, t0, Y3);
-  fq::add(Y3, X3, Y3);
-  fq::mul(t1, P.X, P.Y);
-  fq::mul(X3, t0, t1);
-  fq::add(X3, X3, X3);
+  F::mul(t0, P.Y, P.Y);
+  F::add(Z3, t0, t0);
+  F::add(Z3, Z3, Z3);
+  F::add(Z3, Z3, Z3);     // 8·Y²
+  F::mul(t1, P.Y, P.Z);
+  F::mul(t2, P.Z, P.Z);
+  F::mul(t2, fq::B3, t2); // 3b·Z²
+  F::mul(X3, t2, Z3);
+  F::add(Y3, t0, t2);
+  F::mul(Z3, t1, Z3);
+  F::add(t1, t2, t2);
+  F::add(t2, t1, t2);     // 9b·Z²
+  F::sub(t0, t0, t2);
+  F::mul(Y3, t0, Y3);
+  F::add(Y3, X3, Y3);
+  F::mul(t1, P.X, P.Y);
+  F::mul(X3, t0, t1);
+  F::add(X3, X3, X3);
 #pragma unroll
   for (int j = 0; j < fq::L; j++) {
     R.X[j] = X3[j];
     R.Y[j] = Y3[j];
     R.Z[j] = Z3[j];
   }
+}
+
+__device__ __forceinline__ void g1_double(G1& R, const G1& P) {
+  g1_double_with<FqInline>(R, P);
 }

@@ -3,6 +3,9 @@
 Port of ``zkp_subnet_tpu/models/kzg.py``: commit = MSM(SRS, coefficients),
 open = the suffix-sum quotient + MSM over the same bases, verify = one
 pairing-product check through the native library (``utils/native.py``).
+``commit_open`` is both for one row: its two MSMs share their bases and
+need nothing of each other, so they run as one batched MSM, as the JAX
+package's worker holds them in one jitted program.
 """
 
 from __future__ import annotations
@@ -28,6 +31,16 @@ def open_(bases: torch.Tensor, coeffs: torch.Tensor,
     is zero-padded to N scalars (q[N−1] = 0), as in the JAX package."""
     y, scalars = tpoly.poly_open_scalars(coeffs, x)
     return y, tmsm.msm_auto(bases, scalars)
+
+
+def commit_open(bases: torch.Tensor, coeffs: torch.Tensor, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(``commit(bases, coeffs)``, ``*open_(bases, coeffs, x)``), limb for
+    limb, by one batched MSM over the shared bases."""
+    y, quotient = tpoly.poly_open_scalars(coeffs, x)
+    scalars = torch.stack([tpoly.from_mont_wide(coeffs), quotient])
+    com, prf = tmsm.msm_auto_many(bases, scalars)
+    return com, y, prf
 
 
 def verify(commitment, x: int, y: int, proof, g2_gen, g2_tau,

@@ -29,6 +29,8 @@ import time
 
 import torch
 
+from . import msm_rounds
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -127,7 +129,7 @@ def _load() -> ctypes.CDLL:
             "zkp_g1_double": [p, p, i64, p],
             "zkp_msm_buckets": [p, p, p, p, p, i32, i32, i32, p],
             "zkp_msm_reduce": [p, p, i32, i32, p],
-            "zkp_msm_combine": [p, p, i32, i32, p],
+            "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
             "zkp_fr_mul": [p, p, p, i64, i32, i32, p],
             "zkp_fr_add": [p, p, p, i64, i32, i32, p],
             "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
@@ -208,7 +210,8 @@ def msm_buckets(points, perm, starts, counts) -> torch.Tensor:
     sorted-digit order; ``starts``/``counts`` (rows, B) int32 run offsets
     into a row and run lengths. Replaces zkp_subnet_tpu/ops/msm.py:
     _chunk_bucket_sums (XLA around pfield∘ZFQ). Bound: serial point adds
-    per run (integer multiplies); one thread per (row, bucket)."""
+    per run (integer multiplies); one thread per (row, bucket). The rows of
+    K MSMs over the same points go through one launch."""
     _check(points, "points", tail=(3, 12))
     _check(perm, "perm")
     _check(starts, "starts")
@@ -230,8 +233,13 @@ def msm_buckets(points, perm, starts, counts) -> torch.Tensor:
 def msm_reduce(buckets: torch.Tensor) -> torch.Tensor:
     """Σ_d d·B_d per row of (rows, B, 3, 12) buckets → (rows, 3, 12).
 
-    Replaces zkp_subnet_tpu/ops/msm.py:_weighted_window_sums. Bound: a
-    serial chain of 2·(B−1) adds per row (latency); one thread per row."""
+    Replaces zkp_subnet_tpu/ops/msm.py:_weighted_window_sums. Bound on this
+    card: the chain of dependent point adds (latency), not bytes or
+    multiplies. B / 8 lanes share a row: each walks a segment of 8 buckets
+    with the running sum, then a suffix scan and tree sums across the lanes
+    through shared memory (``ops/msm.py:reduce_depth`` point operations
+    deep, 27 at 256 buckets; the running sum over a whole row is 510). B / 8
+    must be a power of two in 2..128, or the launch is refused."""
     _check(buckets, "buckets", tail=(3, 12))
     if buckets.dim() != 4:
         raise ValueError("msm_reduce: expected (rows, B, 3, 12)")
@@ -245,17 +253,29 @@ def msm_reduce(buckets: torch.Tensor) -> torch.Tensor:
 
 
 def msm_combine(window_sums: torch.Tensor, window_bits: int) -> torch.Tensor:
-    """Horner over (W, 3, 12) window sums, window W−1 first → (3, 12).
+    """Horner over the windows, window W−1 first, for K chains at once:
+    (K, W, 3, 12) → (K, 3, 12), or (W, 3, 12) → (3, 12).
 
     Replaces the Horner scan of zkp_subnet_tpu/ops/msm.py:msm (:384-392).
-    Bound: one serial chain of W·(wb + 1) point ops (latency); one thread."""
+    Bound: one chain of W·(wb + 1) dependent point operations per MSM
+    (latency); the chain's length is inherent, so one warp per chain makes
+    each step short: in every round of the schedule of
+    ``ops/msm_rounds.py`` up to six lanes do one Fq operation each, two
+    rounds of products a point operation."""
     _check(window_sums, "window_sums", tail=(3, 12))
-    if window_sums.dim() != 3:
-        raise ValueError("msm_combine: expected (W, 3, 12)")
-    out = torch.empty((3, 12), dtype=torch.int32, device=window_sums.device)
-    _launch("msm_combine", _load().zkp_msm_combine,
-            window_sums.data_ptr(), out.data_ptr(), window_sums.shape[0],
-            int(window_bits))
+    if window_sums.dim() not in (3, 4):
+        raise ValueError("msm_combine: expected (W, 3, 12) or (K, W, 3, 12)")
+    prog = msm_rounds.program(window_sums.device)
+    chains = window_sums.shape[0] if window_sums.dim() == 4 else 1
+    out = torch.empty(window_sums.shape[:-3] + (3, 12), dtype=torch.int32,
+                      device=window_sums.device)
+    if chains:
+        _launch("msm_combine", _load().zkp_msm_combine,
+                window_sums.data_ptr(), out.data_ptr(),
+                prog.table.data_ptr(), chains, window_sums.shape[-3],
+                int(window_bits), prog.double_rounds,
+                prog.table.shape[0] - prog.double_rounds,
+                prog.table.shape[1], prog.slots)
     return out
 
 

@@ -26,10 +26,11 @@ log = logging.getLogger("zkp_subnet_tpu_torch.worker")
 
 
 def prove_row(bases: torch.Tensor, row: torch.Tensor, x: torch.Tensor):
-    """(bases, Montgomery row, Montgomery x) → (commitment, f(x), proof)."""
-    com = kzg.commit(bases, row)
-    y, prf = kzg.open_(bases, row, x)
-    return com, y, prf
+    """(bases, Montgomery row, Montgomery x) → (commitment, f(x), proof):
+    the row's scalars and the quotient's first, then both MSMs as one
+    (``zkp_subnet_tpu/runtime/worker.py:35-42`` jits both into one
+    program)."""
+    return kzg.commit_open(bases, row, x)
 
 
 class Worker:
