@@ -9,24 +9,29 @@ Phases (each prints a line; any failure exits non-zero):
 
 1. device: the card's name, and ``name, power.limit`` from nvidia-smi;
 2. build: the CUDA sources under ``zkp_subnet_tpu_torch/csrc/`` with nvcc
-   for sm_90a, one process per source (registers and spills from
-   ``-Xptxas -v``);
+   for sm_90a, one process per source (registers, stack and spills of every
+   kernel from ``-Xptxas -v``);
 3. kernels vs plain: every kernel on the card against its plain PyTorch
    version on CPU copies of the same inputs, random and edge cases, with
    tolerance zero (integer arithmetic: canonical integers and affine points
-   must be equal; ``msm_reduce`` and ``msm_combine`` limb for limb); then
-   each kernel's time beside its plain version's, both on the card, at the
-   shapes the paths below give it (CUDA events around a loop of launches:
-   for a short kernel that is the host's cost a launch) and the least time
-   the card could take for the same work (``bound_ms``); for the two chains
-   of K2, the depth of the dependency chain and ms ÷ depth;
+   must be equal; the three K2 kernels limb for limb; ``msm_buckets`` also
+   on edge cases at the main path's 2^16 points, runs across its tiles and
+   one bucket holding a whole row, against the plain version on the card);
+   then each kernel's time beside its plain version's, both on the card, at
+   the shapes the paths below give it (CUDA events around a loop of
+   launches: for a short kernel that is the host's cost a launch) and the
+   least time the card could take for the same work (``bound_ms``); for
+   K2, the depth of the dependency chain and ms ÷ depth, and
+   ``msm_buckets`` on scalars that are all 1 beside uniform ones;
 4. ``[main]``, the worker's path: a 2^16-base SRS slice [τ^j]G1 built on the
    card, a ``Worker`` over it, and three 2^16-coefficient ``Prove`` requests
    (two with a challenge point, one commit-only), each checked by the
    trapdoor τ and the pairing verify, with kernel launch counts (one launch
    of each K2 kernel a request: the commit's and the opening's MSMs run as
-   one batched MSM); then the
-   median of warm commit+open requests and the peak device memory;
+   one batched MSM); then the median of warm commit+open requests and the
+   peak device memory; then skewed rows, as Pianist wire polynomials are
+   (three of 90% zeros and ones, one of all ones), each checked the same
+   way, and their median;
 5. ``[round]``, the coordinator's side of one Pianist round at the row width
    of the reference mainnet (2^16 coefficients a worker) with 16 workers
    (scale 20, machines_scale 4; mainnet has 256 workers, and the other 240
@@ -134,6 +139,18 @@ KERNELS = {
 }
 
 
+# the kernel function each wrapper launches, as kernels.ptxas_usage keys
+# nvcc's register report (K3/K4: the instantiation of the Op it launches,
+# MUL = 0, ADD = 1, SUB = 2 in csrc/fr.cu and csrc/fq.cu)
+KERNEL_FUNCTIONS = {
+    "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel",
+    "msm_buckets": "msm_buckets_kernel", "msm_reduce": "msm_reduce_kernel",
+    "msm_combine": "msm_combine_kernel", "fr_mul": "fr_binary_kernel<0>",
+    "fr_add": "fr_binary_kernel<1>", "fr_sub": "fr_binary_kernel<2>",
+    "fq_mul": "fq_binary_kernel<0>", "fq_add": "fq_binary_kernel<1>",
+    "fq_sub": "fq_binary_kernel<2>", "fr_butterfly": "fr_butterfly_kernel"}
+
+
 def say(*args):
     print(*args, flush=True)
 
@@ -205,6 +222,13 @@ def random_scalar_limbs(rng, n) -> np.ndarray:
     limbs = rng.integers(0, 1 << 16, (n, 16), dtype=np.uint32)
     limbs[:, 15] = rng.integers(0, 0x73ED, n, dtype=np.uint32)
     return limbs
+
+
+def byte_limbs(values: np.ndarray) -> np.ndarray:
+    """(n, 16) uint32 16-bit limbs of scalars whose 32 bytes all equal
+    values[i] (so every 8-bit window's digit is values[i])."""
+    v = values.astype(np.uint32)[:, None]
+    return np.repeat(v | v << 8, 16, axis=1)
 
 
 def limbs_to_ints(limbs: np.ndarray):
@@ -324,6 +348,9 @@ def path_inputs(rng, dev):
                          dev)
     runs = tmsm.bucket_runs(sc, tmsm._groups(n))
     runs1 = tmsm.bucket_runs(sc[0], tmsm._groups(n))
+    ones = np.zeros((2, n, 16), np.uint32)
+    ones[..., 0] = 1
+    runs_ones = tmsm.bucket_runs(FR.from_limbs16(ones, dev), tmsm._groups(n))
     bk = kernels.msm_buckets(p, *runs)
     sk = tmsm.msm_reduce(bk)
     wins = sk[:2 * tmsm.NUM_WINDOWS].view(2, tmsm.NUM_WINDOWS, 3, 12)
@@ -337,7 +364,17 @@ def path_inputs(rng, dev):
     qb = qa.roll(1, 0).contiguous()
     return types.SimpleNamespace(n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
                                  sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
-                                 runs1=runs1, bk=bk, wins=wins)
+                                 runs1=runs1, runs_ones=runs_ones, bk=bk,
+                                 wins=wins)
+
+
+def bucket_add_count(digits: torch.Tensor) -> int:
+    """Point adds that sorted digit rows need: every entry of digit ≠ 0
+    but the first of its bucket."""
+    nz = digits != 0
+    first = torch.ones_like(nz)
+    first[:, 1:] = digits[:, 1:] != digits[:, :-1]
+    return int(nz.sum()) - int((nz & first).sum())
 
 
 def path_calls(x):
@@ -348,8 +385,8 @@ def path_calls(x):
     p, q, a, b, sa, sb, qa, qb = x.p, x.q, x.a, x.b, x.sa, x.sb, x.qa, x.qb
     runs, bk, wins = x.runs, x.bk, x.wins
     pts, limbs, fr, fq = same_points, same_limbs, same_fr, same_fq
-    rows_b, nb = runs[1].shape
-    bucket_adds = int(runs[2][:, 1:].sum())        # this run's data
+    rows_b, nb = bk.shape[:2]
+    bucket_adds = bucket_add_count(runs[1])        # this run's data
     windows = tmsm.NUM_WINDOWS
     return {
         "g1_add": (lambda: kernels.g1_add(p, q),
@@ -377,9 +414,8 @@ def path_calls(x):
                    lambda: fq_sub_plain(qa, qb), 20, fq,
                    3 * FQ_BYTES * n_srs, OPS_FQ_LIN * n_srs),
         "msm_buckets": (lambda: kernels.msm_buckets(p, *runs),
-                        lambda: tmsm.msm_buckets_plain(p, *runs), 5, pts,
-                        G1_BYTES * n + 4 * (runs[0].numel()
-                                            + 2 * rows_b * nb)
+                        lambda: tmsm.msm_buckets_plain(p, *runs), 5, limbs,
+                        G1_BYTES * n + 5 * runs[0].numel()
                         + G1_BYTES * rows_b * nb,
                         OPS_G1_ADD * bucket_adds),
         "msm_reduce": (lambda: kernels.msm_reduce(bk),
@@ -473,13 +509,16 @@ def phase_kernels(rng, dev, int_ops_per_s):
 
     # K2: each kernel against its plain version, two MSMs side by side as
     # the main path launches them (the second takes the scalars in reverse
-    # order), on random scalars at 4096 points and on edge cases at 512:
-    # buckets against the plain version on CPU copies; reduce (every row)
-    # and combine (K = 2 and K = 1) limb for limb; then the batched MSM against two single ones and
-    # against the oracle via the known dlogs.
+    # order), on random scalars at 4096 points and on edge cases at 512 and
+    # 2^16 (the main path's rows: 8 groups of 8192 entries, tiles of 32):
+    # buckets against the plain version limb for limb (on CPU copies, at
+    # 2^16 on the card); at 4096 and 512 reduce (every row) and combine
+    # (K = 2 and K = 1) limb for limb too; then the batched MSM against two
+    # single ones and against the oracle via the known dlogs.
     pts, dlogs = random_points(rng, n, dev)
     k = random_scalar_limbs(rng, 1)
     rand512 = random_scalar_limbs(rng, 512)
+    big = 1 << LOG_N
     cases = [("random", n, random_scalar_limbs(rng, n), None),
              ("zero", 512, np.zeros((512, 16), np.uint32), None),
              ("all-equal", 512, np.repeat(k, 512, axis=0), None),
@@ -490,26 +529,44 @@ def phase_kernels(rng, dev, int_ops_per_s):
               None),
              ("only bucket 1", 512, np.full((512, 16), 0x0101, np.uint32),
               None),
-             ("every point the same", 512, rand512, 0)]
+             ("every point the same", 512, rand512, 0),
+             # every digit of point i is (i // 3) % 255 + 1: runs of 3
+             # entries across the tiles of 2
+             ("runs that cross tile edges", 512, byte_limbs(
+                 np.arange(512) // 3 % 255 + 1), None),
+             ("one bucket holds a whole row", 512, byte_limbs(
+                 np.full(512, 7)), None),
+             # runs of 37 across the tiles of 32
+             ("runs that cross tile edges", big, byte_limbs(
+                 np.arange(big) // 37 % 255 + 1), None),
+             ("one bucket holds a whole row", big, byte_limbs(
+                 np.full(big, 7)), None)]
     for label, m, limbs, repeat in cases:
-        if repeat is None:
-            pp, logs = pts[:m].contiguous(), dlogs[:m]
-        else:
+        if repeat is not None:
             pp = pts[repeat:repeat + 1].repeat(m, 1, 1)
             logs = [dlogs[repeat]] * m
+        else:
+            pp = pts[:min(m, n)].repeat(-(-m // n), 1, 1)[:m].contiguous()
+            logs = (dlogs * -(-m // n))[:m]
         both = np.stack([limbs, limbs[::-1]])
         sc = FR.from_limbs16(both, dev)                    # (2, m, 8)
         groups = tmsm._groups(m)
         runs = tmsm.bucket_runs(sc, groups)
         bk = kernels.msm_buckets(pp, *runs)
-        bp = tmsm.msm_buckets_plain(pp.cpu(), *(t.cpu() for t in runs))
-        record("msm_buckets", same_points(bk, bp))
-        sk = kernels.msm_reduce(bk)
-        record("msm_reduce", same_limbs(sk, tmsm.msm_reduce_plain(bk)))
-        wins = sk[:2 * tmsm.NUM_WINDOWS].view(2, tmsm.NUM_WINDOWS, 3, 12)
-        wp = tmsm.msm_combine_plain(wins.cpu())
-        record("msm_combine", same_limbs(tmsm.msm_combine(wins), wp))
-        record("msm_combine", same_limbs(tmsm.msm_combine(wins[1]), wp[1]))
+        if m > n:              # the plain version on the card
+            record("msm_buckets", same_limbs(
+                bk, tmsm.msm_buckets_plain(pp, *runs)))
+        else:
+            record("msm_buckets", same_limbs(bk, tmsm.msm_buckets_plain(
+                pp.cpu(), *(t.cpu() for t in runs))))
+            sk = kernels.msm_reduce(bk)
+            record("msm_reduce", same_limbs(sk, tmsm.msm_reduce_plain(bk)))
+            wins = sk[:2 * tmsm.NUM_WINDOWS].view(2, tmsm.NUM_WINDOWS, 3,
+                                                  12)
+            wp = tmsm.msm_combine_plain(wins.cpu())
+            record("msm_combine", same_limbs(tmsm.msm_combine(wins), wp))
+            record("msm_combine", same_limbs(tmsm.msm_combine(wins[1]),
+                                             wp[1]))
         many = tmsm.msm_many(pp, sc)
         g = o.G1.from_affine(o.G1_GEN)
         for j in range(2):
@@ -521,19 +578,23 @@ def phase_kernels(rng, dev, int_ops_per_s):
                   == o.G1.to_affine(o.G1.mul(g, total)),
                   f"msm_many ({label}): chain {j} != oracle")
         say(f"[kernels] K2 msm ({label}; 2 x {m} scalars, {groups} "
-            f"groups, {bk.shape[0]} rows): buckets equal to plain; reduce "
-            "and combine (K = 2, K = 1) equal to "
-            "plain limb for limb; msm_many equals two msm calls and the "
-            "oracle")
+            f"groups, {bk.shape[0]} rows of {runs[0].shape[1]}, tiles of "
+            f"{tmsm.bucket_tile(runs[0].shape[1])}): buckets equal to "
+            "plain limb for limb"
+            + ("" if m > n else "; reduce and combine (K = 2, K = 1) equal "
+               "to plain limb for limb")
+            + "; msm_many equals two msm calls and the oracle")
 
     # the paths' shapes: kernel and plain both on the card, timed, and
     # their results compared
     x = path_inputs(rng, dev)
     timings = path_calls(x)
-    nb, windows = x.runs[1].shape[1], tmsm.NUM_WINDOWS
-    # the longest chain of dependent point operations in the two kernels
-    # that are bound by it
-    depth = {"msm_reduce": tmsm.reduce_depth(nb),
+    nb, windows = x.bk.shape[1], tmsm.NUM_WINDOWS
+    # the longest chain of dependent point operations in the K2 kernels:
+    # what the two chains are bound by, and the walk's bound whatever the
+    # digits
+    depth = {"msm_buckets": tmsm.bucket_depth(x.runs[0].shape[1]),
+             "msm_reduce": tmsm.reduce_depth(nb),
              "msm_combine": windows * (tmsm.WINDOW_BITS + 1)}
     for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
         r = res[name]
@@ -552,6 +613,7 @@ def phase_kernels(rng, dev, int_ops_per_s):
                 "each")
     # the same kernels at one MSM (the shapes a lone commit gives them)
     p, runs1, bk, wins = x.p, x.runs1, x.bk, x.wins
+    ones = x.runs_ones
     bk1 = kernels.msm_buckets(p, *runs1)
     groups = tmsm._groups(x.n)
     limbs = same_limbs
@@ -559,6 +621,9 @@ def phase_kernels(rng, dev, int_ops_per_s):
                lambda: kernels.msm_buckets(p, *runs1),    # the batched launch
                lambda: bk.view(groups, 2, windows, nb, 3, 12)[:, 0].reshape(
                    -1, nb, 3, 12)),
+              ("msm_buckets", "all-ones scalars", limbs,   # 2 MSMs, every
+               lambda: kernels.msm_buckets(p, *ones),      # scalar 1
+               lambda: tmsm.msm_buckets_plain(p, *ones)),
               ("msm_reduce", "one MSM", limbs,
                lambda: kernels.msm_reduce(bk1),
                lambda: tmsm.msm_reduce_plain(bk1)),
@@ -696,8 +761,8 @@ def phase_main_path(rng, dev):
         f"{time.perf_counter() - t0:.2f} s; 5 bases match the oracle")
     worker = Worker(srs)
 
-    def request(commit_only):
-        limbs = random_scalar_limbs(rng, n)
+    def request(commit_only, limbs=None):
+        limbs = random_scalar_limbs(rng, n) if limbs is None else limbs
         x_int = None if commit_only else \
             int.from_bytes(rng.bytes(32), "little") % o.R
         syn = Prove(index=0, poly=enc.limbs_to_b64(limbs),
@@ -746,6 +811,40 @@ def phase_main_path(rng, dev):
         f"commit+open of a 2^{LOG_N} row: median {med:.2f} ms over "
         f"{len(times)} ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms); "
         f"peak device memory {peak / 2**20:.1f} MiB")
+
+    # skewed rows, as Pianist wire polynomials are (most witness values 0
+    # or 1): three with 90% zeros and ones and 10% random coefficients, and
+    # one of all ones; each checked like the requests above
+    def skewed():
+        limbs = np.zeros((n, 16), np.uint32)
+        kind = rng.random(n)
+        limbs[kind < 0.45, 0] = 1                          # 45% ones
+        rand = kind >= 0.9                                 # 10% random
+        limbs[rand] = random_scalar_limbs(rng, int(rand.sum()))
+        return limbs                                       # 45% zeros
+
+    ones = np.zeros((n, 16), np.uint32)
+    ones[:, 0] = 1
+    skew_times = []
+    for label, limbs in [("90% zeros and ones", skewed()) for _ in range(3)
+                         ] + [("all ones", ones)]:
+        before = dict(kernels.LAUNCHES)
+        resp, limbs, x_int, dt = request(False, limbs)
+        used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        selfcheck(resp, limbs_to_ints(limbs), x_int, False)
+        check(worker.worker_verify(0, resp.proof, resp.alpha, resp.eval_,
+                                   resp.commitment),
+              f"worker_verify rejected the {label} request's proof")
+        for k in ("msm_buckets", "msm_reduce", "msm_combine"):
+            check(used[k] == 1, f"{label} request: {used[k]} {k} launches")
+        skew_times.append(dt)
+        say(f"[main] skewed request ({label}): {dt * 1e3:.2f} ms, trapdoor "
+            "self-check PASS, pairing verify PASS; one launch of each K2 "
+            "kernel")
+    say(f"[main] skewed 2^{LOG_N} rows: median "
+        f"{statistics.median(skew_times) * 1e3:.2f} ms over "
+        f"{len(skew_times)} ({', '.join(f'{t * 1e3:.2f}' for t in skew_times)}"
+        f" ms) beside the random rows' median {med:.2f} ms")
     return launches
 
 
@@ -984,12 +1083,13 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     info = kernels.build(force=True)
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
+    usage = kernels.ptxas_usage(info["log"])
     say(f"[build] nvcc sm_90a, {len(kernels.SOURCES)} sources: "
         f"{info['seconds']:.1f} s")
-    for ln in regs:
-        say(f"[build]   {ln}")
+    for fn, u in usage.items():
+        say(f"[build]   {fn}: {u['registers']} registers, {u['stack']} B "
+            f"stack, {u['spill_stores']} B spill stores, "
+            f"{u['spill_loads']} B spill loads")
 
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1021,6 +1121,7 @@ def main() -> int:
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
               "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
               "library_ms": None, "device_ms": res[k]["device_ms"],
+              "registers": usage[KERNEL_FUNCTIONS[k]]["registers"],
               "profiler_ms": res[k]["profiler_ms"],
               "other_ms": res[k].get("other_ms")}
              for k, (src, rep) in KERNELS.items()]

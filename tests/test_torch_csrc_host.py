@@ -1,0 +1,198 @@
+"""The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
+fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
+integers and the port's plain point formulas.
+
+The headers' carry chains are PTX (csrc/ptx.cuh), which only the card runs.
+Here ptx.cuh is replaced by an emulation of its functions with one global
+carry flag, which is what the card's CC.CF is to a thread, so that a change
+to the chains can be checked without the card. The card tests
+(tests/test_torch_cuda.py) hold the kernels themselves to the plain
+versions. Skipped where there is no g++. Tolerance: none (integer
+arithmetic).
+"""
+
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from zkp_subnet_tpu_torch.ops import curve as tcv
+from zkp_subnet_tpu_torch.ops import kernels
+from zkp_subnet_tpu_torch.utils import oracle as o
+
+# ptx.cuh's functions on the host: CF is the carry of an add, the borrow
+# of a subtract, as on the card
+PTX_EMULATION = r"""
+#pragma once
+#include <cstdint>
+namespace ptx {
+inline uint32_t cf = 0;
+inline uint32_t set(uint64_t s) { cf = (uint32_t)(s >> 32); return (uint32_t)s; }
+inline uint32_t mul_lo(uint32_t a, uint32_t b) { return a * b; }
+inline uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return set((uint64_t)(a * b) + c);
+}
+inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return set((uint64_t)(a * b) + c + cf);
+}
+inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return set((uint64_t)mul_hi(a, b) + c + cf);
+}
+inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  return mul_hi(a, b) + c + cf;
+}
+inline uint32_t add_cc(uint32_t a, uint32_t b) { return set((uint64_t)a + b); }
+inline uint32_t addc_cc(uint32_t a, uint32_t b) {
+  return set((uint64_t)a + b + cf);
+}
+inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + cf; }
+inline uint32_t sub_cc(uint32_t a, uint32_t b) { cf = a < b; return a - b; }
+inline uint32_t subc_cc(uint32_t a, uint32_t b) {
+  const uint64_t s = (uint64_t)a - b - cf;
+  cf = (uint32_t)(s >> 63);
+  return (uint32_t)s;
+}
+inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
+}  // namespace ptx
+"""
+
+# reads records "op word...", writes the result's words a line each:
+# ops 0-2 Fr mul/add/sub, 3-5 Fq mul/add/sub, 6 g1_add, 7 g1_double
+HOST_MAIN = r"""
+#include <cstdint>
+#include <cstdio>
+#define __device__
+#define __forceinline__ inline
+#define __noinline__
+#define __constant__
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return {x, y, z, w};
+}
+#include "fr.cuh"
+#include "g1.cuh"
+
+static void read(uint32_t* w, int n) {
+  for (int j = 0; j < n; j++) scanf("%x", &w[j]);
+}
+static void write(const uint32_t* w, int n) {
+  for (int j = 0; j < n; j++) printf("%08x%c", w[j], j + 1 < n ? ' ' : '\n');
+}
+
+int main() {
+  int op;
+  while (scanf("%d", &op) == 1) {
+    uint32_t a[36], b[36], r[36];
+    if (op < 6) {
+      const int n = op < 3 ? fr::L : fq::L;
+      read(a, n);
+      read(b, n);
+      switch (op) {
+        case 0: fr::mul(r, a, b); break;
+        case 1: fr::add(r, a, b); break;
+        case 2: fr::sub(r, a, b); break;
+        case 3: fq::mul(r, a, b); break;
+        case 4: fq::add(r, a, b); break;
+        case 5: fq::sub(r, a, b); break;
+      }
+      write(r, n);
+    } else {
+      G1 P, Q, R;
+      read(a, G1_WORDS);
+      g1_load(P, a);
+      if (op == 6) {
+        read(b, G1_WORDS);
+        g1_load(Q, b);
+        g1_add(R, P, Q);
+      } else {
+        g1_double(R, P);
+      }
+      g1_store(r, R);
+      write(r, G1_WORDS);
+    }
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_binary(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine")
+    d = tmp_path_factory.mktemp("csrc_host")
+    for name in ("mont.cuh", "fq.cuh", "fr.cuh", "g1.cuh"):
+        shutil.copy(os.path.join(kernels.CSRC, name), d / name)
+    (d / "ptx.cuh").write_text(PTX_EMULATION)
+    (d / "main.cpp").write_text(HOST_MAIN)
+    exe = d / "fields"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-o", str(exe),
+                    str(d / "main.cpp")], check=True)
+    return str(exe)
+
+
+def _run(exe, records):
+    """records: (op, [word arrays]) → one uint32 array per record."""
+    text = "\n".join(f"{op} " + " ".join(f"{int(w):x}" for a in arrays
+                                          for w in a)
+                     for op, arrays in records)
+    out = subprocess.run([exe], input=text, capture_output=True, text=True,
+                         check=True).stdout
+    return [np.array([int(w, 16) for w in line.split()], np.uint32)
+            for line in out.splitlines()]
+
+
+def _words(x: int, n: int):
+    return [(x >> (32 * j)) & 0xFFFFFFFF for j in range(n)]
+
+
+def _int(words) -> int:
+    return sum(int(w) << (32 * j) for j, w in enumerate(words))
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mont_carry_chains_match_python_integers(host_binary, name):
+    """mont::mul/add/sub for Fr (8 limbs) and Fq (12) on edge values and
+    random ones, against a·b·2^(−32N), a + b and a − b mod p."""
+    p, n, base = (o.R, 8, 0) if name == "fr" else (o.Q, 12, 3)
+    rng = np.random.default_rng(7)
+    vals = [0, 1, 2, p - 1, p - 2, (1 << (32 * (n - 1))) - 1, p >> 1] + [
+        int.from_bytes(rng.bytes(4 * n + 8), "little") % p
+        for _ in range(60)]
+    pairs = [(x, y) for x in vals[:7] for y in vals[:7]] + list(
+        zip(vals[7:], vals[::-1][:60]))
+    r_inv = pow(1 << (32 * n), -1, p)
+    refs = (lambda x, y: x * y * r_inv, lambda x, y: x + y,
+            lambda x, y: x - y)
+    records = [(base + k, (_words(x, n), _words(y, n)))
+               for x, y in pairs for k in range(3)]
+    got = _run(host_binary, records)
+    want = [refs[k](x, y) % p for x, y in pairs for k in range(3)]
+    assert [_int(g) for g in got] == want
+
+
+def test_point_formulas_match_plain(host_binary):
+    """g1_add / g1_double of g1.cuh (b3 = 12 as an add chain) against the
+    plain RCB15 formulas, limb for limb, on general projective points,
+    infinity, P + P and P + (−P)."""
+    rng = np.random.default_rng(11)
+    dlogs = [int.from_bytes(rng.bytes(40), "little") % (o.R - 1) + 1
+             for _ in range(6)]
+    G = o.G1.from_affine(o.G1_GEN)
+    p = tcv.g1_double(tcv.g1_encode([o.G1.mul(G, d) for d in dlogs]))
+    inf = tcv.g1_infinity((1,))
+    lhs = torch.cat([p, inf, p[:1], p[:1], inf])
+    rhs = torch.cat([p.roll(1, 0), p[:1], p[:1], tcv.g1_neg(p[:1]), inf])
+    words = lambda t: t.numpy().view(np.uint32).reshape(-1, 36)  # noqa: E731
+    records = [(6, (a, b)) for a, b in zip(words(lhs), words(rhs))]
+    records += [(7, (a,)) for a in words(lhs)]
+    got = np.stack(_run(host_binary, records)).view(np.int32)
+    want = torch.cat([tcv.g1_add_plain(lhs, rhs), tcv.g1_double_plain(lhs)])
+    assert np.array_equal(got.reshape(-1, 3, 12), want.numpy())

@@ -6,7 +6,7 @@ The module imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: none (integer arithmetic; points compared as affine points,
-``msm_reduce`` and ``msm_combine`` limb for limb).
+``msm_buckets``, ``msm_reduce`` and ``msm_combine`` limb for limb).
 """
 
 import numpy as np
@@ -146,9 +146,12 @@ def test_g1_kernels_match_plain(dev):
     p, _, _ = _instance(300, 2)
     p = tcv.g1_double_plain(p)                 # Z ≠ 1
     q = torch.roll(p, 1, 0)
-    q[0] = p[0]
-    q[1] = tcv.g1_neg(p[1:2])[0]
-    p[2] = tcv.g1_infinity(())
+    q[0] = p[0]                                # P + P
+    q[1] = tcv.g1_neg(p[1:2])[0]               # P + (−P)
+    p[2] = tcv.g1_infinity(())                 # ∞ + Q
+    q[3] = tcv.g1_infinity(())                 # P + ∞
+    p[4] = q[4] = tcv.g1_infinity(())          # ∞ + ∞
+    p[5] = p[6] = q[6]                         # equal projective
     got = kernels.g1_add(p.to(dev), q.to(dev)).cpu()
     assert torch.equal(got, tcv.g1_add_plain(p, q))
     got = kernels.g1_double(p.to(dev)).cpu()
@@ -260,3 +263,84 @@ def test_msm_many_on_card_matches_msm_and_oracle(dev, monkeypatch):
         assert torch.equal(got[j], tmsm.msm(pts.to(dev), sc[j]))
         want = sum(a * k for a, k in zip(dlogs, scalars)) % o.R
         assert tcv.g1_affine(got[j]) == [o.G1.to_affine(o.G1.mul(G, want))]
+
+
+def _sorted_rows(case, n, rows, rng):
+    """(perm int32, digits uint8) of `rows` digit-sorted rows of n entries
+    over 2^16 points, for one case."""
+    if case == "uniform":
+        d = rng.integers(0, 256, (rows, n))
+    elif case == "all-ones":
+        d = np.ones((rows, n), int)
+    elif case == "runs that cross tile edges":
+        lengths = np.resize([1, 33, 7, 64, 31, 97, 2, 300], n)
+        d = np.tile(np.repeat(np.arange(1, n + 1) % 256, lengths)[:n],
+                    (rows, 1))
+    else:
+        assert case == "one bucket holds a whole row"
+        d = np.concatenate([np.zeros((rows, 5), int),
+                            np.full((rows, n - 5), 200)], axis=1)
+    perm = rng.integers(0, 1 << 16, (rows, n))
+    return (torch.tensor(perm, dtype=torch.int32),
+            torch.tensor(np.sort(d, axis=1), dtype=torch.uint8))
+
+
+@pytest.fixture(scope="module")
+def path_points(dev):
+    n = 1 << 16
+    pts, _, _ = _instance(256, 5)
+    return tcv.g1_double_plain(pts).to(dev).repeat(n // 256, 1, 1)
+
+
+@pytest.mark.parametrize("case", ["uniform", "all-ones",
+                                  "runs that cross tile edges",
+                                  "one bucket holds a whole row"])
+@pytest.mark.parametrize("n", [512, 8192])
+def test_msm_buckets_kernel_equals_plain_limb_for_limb(dev, path_points,
+                                                       case, n):
+    """512 rows of n entries (8192: the main path's rows, 2 MSMs of 2^16
+    scalars in 8 point groups) against the plain version on the card."""
+    perm, digits = _sorted_rows(case, n, 512, np.random.default_rng(8))
+    perm, digits = perm.to(dev), digits.to(dev)
+    got = kernels.msm_buckets(path_points, perm, digits)
+    assert got.shape == (512, 256, 3, 12)
+    assert torch.equal(got, tmsm.msm_buckets_plain(path_points, perm,
+                                                   digits))
+    assert torch.equal(got[:, 0], tcv.g1_infinity((512,), dev))
+
+
+def test_msm_buckets_kernel_on_short_and_padded_rows(dev):
+    """Rows shorter than the block (37 points, 2 groups of 19: one entry a
+    thread, most threads idle) and the padded last group, against the
+    plain version on the CPU."""
+    pts, dlogs, ks = _instance(37, 9)
+    ks[20:] = [0x0101] * 17
+    perm, digits = tmsm.bucket_runs(tcv.fr_to_scalar_limbs(ks), 2)
+    got = kernels.msm_buckets(pts.to(dev), perm.to(dev), digits.to(dev))
+    assert torch.equal(got.cpu(), tmsm.msm_buckets_plain(pts, perm, digits))
+
+
+def test_point_kernels_refuse_what_they_do_not_take(dev, path_points):
+    p = path_points[:8].contiguous()
+    perm = torch.zeros((4, 16), dtype=torch.int32, device=dev)
+    digits = torch.zeros((4, 16), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.g1_add(p.cpu(), p.cpu())
+    with pytest.raises(ValueError):
+        kernels.g1_add(p, p[:4])                           # shapes differ
+    with pytest.raises(ValueError):
+        kernels.g1_double(p[..., :8].contiguous())         # not (..., 3, 12)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.msm_buckets(p, perm.cpu(), digits.cpu())
+    with pytest.raises(ValueError):
+        kernels.msm_buckets(p, perm, digits.to(torch.int32))   # not uint8
+    with pytest.raises(ValueError):
+        kernels.msm_buckets(p, perm, digits[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        kernels.msm_buckets(p, perm.t(), digits.t())       # not contiguous
+    # K1 and K2 read points as 4-byte words: a view 4 bytes into its
+    # storage is taken, and computed right
+    flat = torch.zeros(8 * 36 + 1, dtype=torch.int32, device=dev)
+    skewed = flat[1:].view(8, 3, 12)
+    skewed.copy_(p)
+    assert torch.equal(kernels.g1_add(skewed, p), kernels.g1_add(p, p))

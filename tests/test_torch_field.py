@@ -157,7 +157,6 @@ def test_kernel_constants_match_the_fields():
     R = 1 << 384
     assert _cuda_array("fq.cuh", "P") == o.Q
     assert _cuda_array("fq.cuh", "ONE") == R % o.Q
-    assert _cuda_array("fq.cuh", "B3") == 12 * R % o.Q
     assert _cuda_scalar("fq.cuh", "INV") == (-pow(o.Q, -1, 1 << 32)) % (1 << 32)
     assert _cuda_array("fr.cuh", "P") == o.R
     assert _cuda_scalar("fr.cuh", "INV") == (-pow(o.R, -1, 1 << 32)) % (1 << 32)
@@ -187,3 +186,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ["g1_add", "g1_double", "msm_buckets", "msm_reduce", "msm_combine",
          "fr_mul", "fr_add", "fr_sub", "fq_mul", "fq_add", "fq_sub",
          "fr_butterfly"])
+
+
+def test_ptxas_usage_keys_each_template_instantiation():
+    """nvcc's -Xptxas -v report: a kernel under its plain name, a template
+    kernel once for each instantiation (fr_binary_kernel<Op>), and the
+    spills of the kernel the registers belong to."""
+    ns = "_ZN37_GLOBAL__N__72530e89_5_fr_cu_3d88d23f"
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {m}\n"
+        f"    {stack} bytes stack frame, {spill} bytes spill stores, "
+        f"{spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 0 barriers\n"
+        for m, regs, stack, spill in (
+            (ns + "16fr_binary_kernelILNS_2OpE0EEEvPKjS3_Pjxii", 46, 0, 0),
+            (ns + "16fr_binary_kernelILNS_2OpE2EEEvPKjS3_Pjxii", 26, 0, 0),
+            (ns + "13g1_add_kernelEPKjS1_Pjx", 128, 120, 12),
+            ("_Z10tpl_kernelILin3EEvv", 8, 0, 0)))
+    usage = kernels.ptxas_usage(log)
+    assert sorted(usage) == ["fr_binary_kernel<0>", "fr_binary_kernel<2>",
+                             "g1_add_kernel", "tpl_kernel<-3>"]
+    assert usage["fr_binary_kernel<0>"]["registers"] == 46
+    assert usage["fr_binary_kernel<2>"]["registers"] == 26
+    assert usage["g1_add_kernel"] == {"registers": 128, "stack": 120,
+                                      "spill_stores": 12, "spill_loads": 12}

@@ -96,9 +96,13 @@ def test_msm_point_groups_fold(monkeypatch):
     monkeypatch.setattr(tmsm, "MIN_GROUP_POINTS", 32)
     assert tmsm._groups(250) == 4
     sc = tcv.fr_to_scalar_limbs(ks)
-    perm, starts, counts = tmsm.bucket_runs(sc, 4)
-    assert perm.shape == (4 * 32, 63) and counts.sum(1).tolist() == \
-        [63] * (3 * 32) + [61 + 2] * 32
+    perm, digits = tmsm.bucket_runs(sc, 4)
+    assert perm.shape == digits.shape == (4 * 32, 63)
+    assert digits.dtype == torch.uint8
+    assert bool((digits[:, 1:] >= digits[:, :-1]).all())        # sorted
+    # the last group's 2 padded entries: digit 0, index clamped to n − 1
+    assert bool(((digits[96:] == 0).sum(1) >= 2).all())
+    assert int(perm.max()) == 249
     assert tcv.g1_affine(tmsm.msm(pts, sc))[0] == _want(dlogs, ks)
 
 
@@ -270,12 +274,12 @@ def test_msm_many_matches_msm_and_oracle(monkeypatch):
     assert tmsm._groups(37) == 2
     all_ks = [ks, [0] * 20 + [ks[0]] * 17]
     sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in all_ks])
-    perm, starts, counts = tmsm.bucket_runs(sc, 2)
-    assert perm.shape == (2 * 2 * 32, 19) and starts.shape == (128, 256)
+    perm, digits = tmsm.bucket_runs(sc, 2)
+    assert perm.shape == digits.shape == (2 * 2 * 32, 19)
     for k in range(2):                  # rows are (group, MSM, window)
         single = tmsm.bucket_runs(sc[k], 2)
         rows = [g * 64 + k * 32 + w for g in range(2) for w in range(32)]
-        for both, one in zip((perm, starts, counts), single):
+        for both, one in zip((perm, digits), single):
             assert torch.equal(both[rows], one)
     got = tmsm.msm_many(pts, sc)
     assert got.shape == (2, 3, 12)
@@ -297,3 +301,124 @@ def test_prove_row_matches_commit_and_open(monkeypatch):
     y_ref, prf_ref = kzg.open_(bases, row, x)
     assert torch.equal(com, kzg.commit(bases, row))
     assert torch.equal(y, y_ref) and torch.equal(prf, prf_ref)
+
+
+# -- the bucket kernel's tiles: plain version against a per-bucket walk --------
+
+def _per_bucket_walk(points, perm, digits):
+    """Each bucket ≠ 0 summed alone, from infinity along its sorted run: the
+    bucket kernel's design before tiles, kept as the reference."""
+    rows, n = perm.shape
+    d = digits.long()
+    counts = torch.zeros((rows, tmsm.NUM_BUCKETS), dtype=torch.long)
+    counts.scatter_add_(1, d, torch.ones_like(d))
+    starts = (torch.cumsum(counts, 1) - counts).reshape(-1)
+    counts[:, 0] = 0                                    # bucket 0: unused
+    counts = counts.reshape(-1)
+    base = torch.arange(rows).repeat_interleave(tmsm.NUM_BUCKETS) * n
+    acc = tcv.g1_infinity((counts.numel(),))
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        on = torch.nonzero(counts > k).squeeze(-1)
+        idx = perm.reshape(-1).long()[base[on] + starts[on] + k]
+        acc[on] = tcv.g1_add_plain(acc[on], points[idx])
+    return acc.view(rows, tmsm.NUM_BUCKETS, 3, 12)
+
+
+def _digit_rows(case, n, rng):
+    """Three sorted digit rows of n entries for one case."""
+    if case == "random":
+        rows = [rng.integers(0, 256, n) for _ in range(3)]
+    elif case == "all zero":
+        rows = [np.zeros(n, int)] * 3
+    elif case == "all equal":
+        rows = [np.full(n, v) for v in (7, 200, 77)]
+    elif case == "only bucket 1":
+        rows = [np.full(n, 1)] * 3
+    elif case == "only bucket 255":
+        rows = [np.full(n, 255)] * 3
+    elif case == "runs crossing every tile edge":
+        # runs of 1, 5, 3, 9, 2, ... entries: at tiles of 2 to 8 they start
+        # and end at every offset, and some span several tiles
+        lengths = np.resize([1, 5, 3, 9, 2, 7, 4, 11, 6], n)
+        rows = [np.repeat(np.arange(1, n + 1) % 256, lengths)[:n]
+                for _ in range(3)]
+    else:
+        assert case == "one bucket holds the whole row"
+        rows = [np.concatenate([np.zeros(z, int), np.full(n - z, 9)])
+                for z in (0, 3, n - 1)]
+    return torch.tensor(np.sort(np.stack(rows), axis=1), dtype=torch.uint8)
+
+
+_TILE_CASES = ["random", "all zero", "all equal", "only bucket 1",
+               "only bucket 255", "runs crossing every tile edge",
+               "one bucket holds the whole row"]
+
+
+@pytest.fixture(scope="module")
+def toy_points():
+    pts, dlogs, _ = _instance(40, 21)
+    return tcv.g1_double_plain(pts), [2 * a % o.R for a in dlogs]  # Z ≠ 1
+
+
+def _oracle_buckets(perm, digits, dlogs):
+    want = []
+    for p_row, d_row in zip(perm.tolist(), digits.tolist()):
+        sums = {}
+        for i, d in zip(p_row, d_row):
+            if d:
+                sums[d] = (sums.get(d, 0) + dlogs[i]) % o.R
+        want.append([o.G1.to_affine(o.G1.mul(G, sums[b])) if b in sums
+                     else None for b in range(tmsm.NUM_BUCKETS)])
+    return want
+
+
+@pytest.mark.parametrize("case", _TILE_CASES)
+def test_buckets_plain_tiles_match_per_bucket_walk(toy_points, case):
+    """The tiled bucket sums at tiles of 2, 3 and 8 (toy rows of 29
+    entries) and at the kernel's own tile (29 < 256 threads: one entry a
+    thread), against the per-bucket walk and the oracle, as points."""
+    pts, dlogs = toy_points
+    rng = np.random.default_rng(22)
+    n = 29
+    digits = _digit_rows(case, n, rng)
+    perm = torch.tensor(np.stack([rng.permutation(40)[:n] for _ in range(3)]),
+                        dtype=torch.int32)
+    want = _oracle_buckets(perm, digits, dlogs)
+    ref = _per_bucket_walk(pts, perm, digits)
+    assert [tcv.g1_affine(r) for r in ref] == want
+    assert tmsm.bucket_tile(n) == 1
+    for tile in (2, 3, 8, None):
+        got = tmsm.msm_buckets_plain(pts, perm, digits, tile)
+        assert got.shape == (3, 256, 3, 12)
+        assert [tcv.g1_affine(r) for r in got] == want, tile
+        assert torch.equal(got[:, 0], tcv.g1_infinity((3,)))
+
+
+def test_buckets_plain_padded_last_group(toy_points):
+    """Rows from bucket_runs with a padded last group (37 points in 2
+    groups of 19): the padding (digit 0, index clamped) is never added."""
+    pts, dlogs = toy_points
+    rng = np.random.default_rng(23)
+    ks = _ints(37, rng)
+    ks[30:] = [0x0101] * 7                  # a run of bucket 1 in the last group
+    perm, digits = tmsm.bucket_runs(tcv.fr_to_scalar_limbs(ks), 2)
+    assert perm.shape == (64, 19)
+    rows = [0, 1, 31, 32, 33, 63]
+    perm, digits = perm[rows].contiguous(), digits[rows].contiguous()
+    # group 1 holds points 19..36 and one padded entry: index 36 twice
+    assert ((perm[3:] == 36).sum(1) == 2).all()
+    assert int((digits[3:] == 0).sum(1).min()) >= 1
+    want = _oracle_buckets(perm, digits, dlogs)
+    for tile in (4, None):
+        got = tmsm.msm_buckets_plain(pts, perm, digits, tile)
+        assert [tcv.g1_affine(r) for r in got] == want
+
+
+def test_bucket_depth_bounded_whatever_the_digits():
+    """The longest chain of dependent adds depends on the row length only:
+    at the path's 8192 entries a row, tiles of 32, 31 + 8 + 1 = 40 (a run
+    of 8192 equal digits was 8192 in one thread)."""
+    assert tmsm.bucket_tile(8192) == 32
+    assert tmsm.bucket_depth(8192) == 40
+    assert tmsm.bucket_depth(29, 8) == 7 + 2 + 1
+    assert tmsm.bucket_depth(300) == 1 + 8 + 1

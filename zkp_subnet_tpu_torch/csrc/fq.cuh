@@ -21,12 +21,6 @@ static __constant__ uint32_t ONE[L] = {
     0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
     0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
 
-// 3b = 12 for y^2 = x^3 + 4, in Montgomery form (12·R mod q).
-static __constant__ uint32_t B3[L] = {
-    0x0027552eu, 0x44760000u, 0x43480020u, 0xdcb8009au,
-    0x4a6e8b59u, 0x6f7ee9ceu, 0xc0a95bc6u, 0xb10330b7u,
-    0xfb1e54b7u, 0x6140b1fcu, 0x7f0bb4e1u, 0x0381be09u};
-
 __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b) {
   mont::mul<L>(r, a, b, P, INV);

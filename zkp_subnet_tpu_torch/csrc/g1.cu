@@ -11,18 +11,27 @@
 // intermediate ever leaves the SM.
 //
 // Bound on the H100: integer multiply throughput, not bytes. An add reads
-// 288 bytes and writes 144, but runs 14 Fq products of 2·144 32x32->64
-// multiply-adds each (~4,000 wide multiplies). The design keeps every operand in
-// registers and fully unrolls the limb loops so the multiplies issue back
-// to back; one thread per point gives enough independent warps at the
-// MSM's and the scalar multiplication's widths (N >= 2^15) to cover latency.
+// 288 bytes and writes 144, but runs 12 Fq products of 2·144 32-bit
+// multiply-adds each (b3 = 12 is an add chain, csrc/g1.cuh), ~4,100
+// operations. The design: the field operations as the card's carry chains
+// (csrc/mont.cuh), every operand in registers, and the add at <= 128
+// registers a thread (__launch_bounds__(ADD_THREADS, ADD_MIN_BLOCKS)), so
+// that 16 warps share an SM to cover the chains' latency and 2^16 adds
+// (512 blocks) fit the card's 132·4 block slots in one wave. Measured
+// against 168 registers (12 warps) and no cap (202, 8 warps), and against
+// the field operations as calls: all slower (zkp_subnet_tpu_torch/
+// kernel_ab.py over copies of the sources with that one choice changed;
+// PERF.md has the times).
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+constexpr int ADD_THREADS = 128;
+constexpr int ADD_MIN_BLOCKS = 4;  // 65536 / (128·4) = 128 registers
+
+__global__ void __launch_bounds__(ADD_THREADS, ADD_MIN_BLOCKS)
 g1_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
               uint32_t* __restrict__ out, long long n) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -34,7 +43,9 @@ g1_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   g1_store(out + G1_WORDS * i, P);
 }
 
-__global__ void __launch_bounds__(128)
+constexpr int DOUBLE_THREADS = 128;
+
+__global__ void __launch_bounds__(DOUBLE_THREADS)
 g1_double_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
                  long long n) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -45,15 +56,14 @@ g1_double_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
   g1_store(out + G1_WORDS * i, P);
 }
 
-constexpr int THREADS = 128;
-
 }  // namespace
 
 extern "C" int zkp_g1_add(const void* p, const void* q, void* out,
                           long long n, void* stream) {
   if (n > 0) {
-    const long long blocks = (n + THREADS - 1) / THREADS;
-    g1_add_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (n + ADD_THREADS - 1) / ADD_THREADS;
+    g1_add_kernel<<<(unsigned)blocks, ADD_THREADS, 0,
+                    (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
@@ -62,8 +72,9 @@ extern "C" int zkp_g1_add(const void* p, const void* q, void* out,
 extern "C" int zkp_g1_double(const void* p, void* out, long long n,
                              void* stream) {
   if (n > 0) {
-    const long long blocks = (n + THREADS - 1) / THREADS;
-    g1_double_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (n + DOUBLE_THREADS - 1) / DOUBLE_THREADS;
+    g1_double_kernel<<<(unsigned)blocks, DOUBLE_THREADS, 0,
+                       (cudaStream_t)stream>>>(
         (const uint32_t*)p, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();

@@ -45,9 +45,11 @@ __device__ __forceinline__ void g1_set_infinity(G1& P) {
 }
 
 // The field operations the point formulas below are written over. FqInline
-// expands every operation in place (K1 and the bucket kernel: all operands
-// in registers); a caller may pass another policy with the same three
-// functions, e.g. one whose operations are real calls (csrc/msm.cu).
+// expands every operation in place (K1 and the bucket kernel: many warps of
+// independent adds, all operands in registers; as calls they ran 1.6-1.8x
+// slower); csrc/msm.cu passes a policy whose operations are real calls
+// (FqCall) to the two chain kernels, few warps on one dependent chain,
+// where one copy of the product in the instruction cache halves a step.
 struct FqInline {
   static __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
                                              const uint32_t* b) {
@@ -63,36 +65,52 @@ struct FqInline {
   }
 };
 
-// R = P + Q (RCB15 Algorithm 7: 14 multiplications, 2 of them by b3). R may alias
-// P or Q.
+// r = b3·v = 12·v as the add chain 2v, 4v, 8v, 8v + 4v (the product by the
+// constant it replaces costs 288 multiply-adds; these four adds 96 simple
+// operations). r may alias v.
+template <class F>
+__device__ __forceinline__ void times_b3(uint32_t* r, const uint32_t* v) {
+  uint32_t v4[fq::L];
+  F::add(v4, v, v);
+  F::add(v4, v4, v4);
+  F::add(r, v4, v4);
+  F::add(r, r, v4);
+}
+
+// R = P + Q (RCB15 Algorithm 7, a = 0: 12 products and the two by b3 as
+// add chains). R may alias P or Q. The six independent products are taken
+// in the order that lets the inputs die early (the X's, then the Y's, then
+// the Z's), so that at most seven Fq values are live beside a product's
+// operands; fully reduced values make the result the same limbs in any
+// order.
 template <class F>
 __device__ __forceinline__ void g1_add_with(G1& R, const G1& P, const G1& Q) {
   uint32_t t0[fq::L], t1[fq::L], t2[fq::L], t3[fq::L], t4[fq::L];
   uint32_t X3[fq::L], Y3[fq::L], Z3[fq::L];
-  F::mul(t0, P.X, Q.X);   // X1·X2
-  F::mul(t1, P.Y, Q.Y);   // Y1·Y2
-  F::mul(t2, P.Z, Q.Z);   // Z1·Z2
   F::add(t3, P.X, P.Y);
   F::add(t4, Q.X, Q.Y);
-  F::mul(t3, t3, t4);
-  F::add(t4, t0, t1);
-  F::sub(t3, t3, t4);     // X1·Y2 + X2·Y1
-  F::add(t4, P.Y, P.Z);
-  F::add(X3, Q.Y, Q.Z);
-  F::mul(t4, t4, X3);
-  F::add(X3, t1, t2);
-  F::sub(t4, t4, X3);     // Y1·Z2 + Y2·Z1
+  F::mul(t3, t3, t4);     // (X1 + Y1)(X2 + Y2)
+  F::mul(t0, P.X, Q.X);   // X1·X2
   F::add(X3, P.X, P.Z);
   F::add(Y3, Q.X, Q.Z);
-  F::mul(X3, X3, Y3);
-  F::add(Y3, t0, t2);
-  F::sub(Y3, X3, Y3);     // X1·Z2 + X2·Z1
+  F::mul(Y3, X3, Y3);     // (X1 + Z1)(X2 + Z2)
+  F::mul(t1, P.Y, Q.Y);   // Y1·Y2
+  F::add(t4, P.Y, P.Z);
+  F::add(X3, Q.Y, Q.Z);
+  F::mul(t4, t4, X3);     // (Y1 + Z1)(Y2 + Z2)
+  F::mul(t2, P.Z, Q.Z);   // Z1·Z2
+  F::add(X3, t0, t1);
+  F::sub(t3, t3, X3);     // X1·Y2 + X2·Y1
+  F::add(X3, t1, t2);
+  F::sub(t4, t4, X3);     // Y1·Z2 + Y2·Z1
+  F::add(X3, t0, t2);
+  F::sub(Y3, Y3, X3);     // X1·Z2 + X2·Z1
   F::add(X3, t0, t0);
   F::add(t0, X3, t0);     // 3·X1·X2
-  F::mul(t2, fq::B3, t2);
+  times_b3<F>(t2, t2);
   F::add(Z3, t1, t2);
   F::sub(t1, t1, t2);
-  F::mul(Y3, fq::B3, Y3);
+  times_b3<F>(Y3, Y3);
   F::mul(X3, t4, Y3);
   F::mul(t2, t3, t1);
   F::sub(X3, t2, X3);
@@ -114,7 +132,8 @@ __device__ __forceinline__ void g1_add(G1& R, const G1& P, const G1& Q) {
   g1_add_with<FqInline>(R, P, Q);
 }
 
-// R = 2P (RCB15 Algorithm 9: 9 multiplications, 1 of them by b3). R may alias P.
+// R = 2P (RCB15 Algorithm 9: 8 products and the one by b3 as an add
+// chain). R may alias P.
 template <class F>
 __device__ __forceinline__ void g1_double_with(G1& R, const G1& P) {
   uint32_t t0[fq::L], t1[fq::L], t2[fq::L];
@@ -125,7 +144,7 @@ __device__ __forceinline__ void g1_double_with(G1& R, const G1& P) {
   F::add(Z3, Z3, Z3);     // 8·Y²
   F::mul(t1, P.Y, P.Z);
   F::mul(t2, P.Z, P.Z);
-  F::mul(t2, fq::B3, t2); // 3b·Z²
+  times_b3<F>(t2, t2);    // 3b·Z²
   F::mul(X3, t2, Z3);
   F::add(Y3, t0, t2);
   F::mul(Z3, t1, Z3);

@@ -2,20 +2,30 @@
 //
 // One thread owns one field element in registers (every loop below is
 // unrolled at compile time). Multiplication is CIOS (coarsely integrated
-// operand scanning) with 64-bit accumulators: each step a[j]*b[i] + t[j] + c
-// stays below 2^64, so no carry is lost. Inputs must be < p; every result
-// is < p (one conditional subtract), so a value has exactly one
-// representation and results are bit-identical to the JAX package's and
-// the plain PyTorch versions'.
+// operand scanning) on 32-bit words, written as the card's carry chains
+// (csrc/ptx.cuh): each limb product is one multiply-add of its low half and
+// one of its high half, each reading and setting the carry flag, with the
+// even and odd limbs' products in two accumulators so that the halves never
+// collide (mul_row). Adds, subtracts and the conditional subtract are carry
+// (borrow) chains too. On the H100 a point add (K1) and the bucket kernel
+// take less time than with 64-bit accumulators, adds and shifts (the form
+// before; zkp_subnet_tpu_torch/kernel_ab.py times both, PERF.md has the
+// times). tests/test_torch_csrc_host.py compiles these headers for the
+// host against an emulation of ptx.cuh. Inputs must be < p;
+// every result is < p (one conditional subtract), so a value has exactly
+// one representation and results are bit-identical to the JAX package's
+// and the plain PyTorch versions', whatever the order of the operations.
 //
 // This replaces the TPU's two encodings of the same math: the f32 byte-limb
 // engine (zkp_subnet_tpu/ops/lane8.py) and the lazy signed-digit engine
 // (zkp_subnet_tpu/ops/lazy8.py). Both exist to suit the TPU vector unit,
-// which has no 32x32->64 multiply; Hopper's IMAD.WIDE does it in one
-// instruction, so plain u32 limbs are the native form here.
+// which has no 32x32->64 multiply; Hopper multiplies 32-bit words with a
+// carry chain, so plain u32 limbs are the native form here.
 #pragma once
 
 #include <cstdint>
+
+#include "ptx.cuh"
 
 namespace mont {
 
@@ -41,93 +51,123 @@ __device__ __forceinline__ void store(uint32_t* p, const uint32_t* x) {
         make_uint4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
 }
 
-// r = t - p if (hi:t) >= p else t, for a value (hi:t) < 2p.
+// r = t - p if t >= p else t, for t < 2p: the subtraction as one borrow
+// chain, its final borrow choosing t or t - p.
 template <int N>
-__device__ __forceinline__ void sub_p_if_ge(uint32_t* r, const uint32_t* t,
-                                            uint32_t hi, const uint32_t* p) {
+__device__ __forceinline__ void reduce_once(uint32_t* r, const uint32_t* t,
+                                            const uint32_t* p) {
   uint32_t d[N];
-  uint32_t borrow = 0;
+  d[0] = ptx::sub_cc(t[0], p[0]);
 #pragma unroll
-  for (int j = 0; j < N; j++) {
-    uint64_t s = (uint64_t)t[j] - p[j] - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  const bool use_d = (hi != 0) || (borrow == 0);
+  for (int j = 1; j < N; j++) d[j] = ptx::subc_cc(t[j], p[j]);
+  const uint32_t keep_t = ptx::subc(0, 0);  // all ones where t < p
 #pragma unroll
-  for (int j = 0; j < N; j++) r[j] = use_d ? d[j] : t[j];
+  for (int j = 0; j < N; j++) r[j] = keep_t ? t[j] : d[j];
 }
 
-// r = a*b*2^(-32N) mod p. r may alias a or b.
+// acc[j], acc[j+1] += lo, hi of x[j]·y for every even j < N, as one carry
+// chain (x = a or p: the even limbs; a + 1 or p + 1: the odd ones). The
+// carry out is left in the flag.
+template <int N>
+__device__ __forceinline__ void mad_pairs(uint32_t* acc, const uint32_t* x,
+                                          uint32_t y) {
+  acc[0] = ptx::mad_lo_cc(x[0], y, acc[0]);
+  acc[1] = ptx::madc_hi_cc(x[0], y, acc[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    acc[j] = ptx::madc_lo_cc(x[j], y, acc[j]);
+    acc[j + 1] = ptx::madc_hi_cc(x[j], y, acc[j + 1]);
+  }
+}
+
+// One row of the CIOS product: T = (T + a·bi + m·p) / 2^32 with m chosen
+// to clear the low word. T is held as E + 2^32·O, where E and O each hold
+// the products of a's even (E) or odd (O) limbs, so that the lo and hi
+// halves of one row's products never land on the same word and each half
+// is one carry chain. Afterwards O plays E's part and E (shifted by a word)
+// O's: the caller swaps them from row to row. A value stays < 2p < 2^(32N)
+// when p < 2^(32N−1) (both of this repo's moduli), so the carries the
+// chains drop are always 0.
+template <int N>
+__device__ __forceinline__ void mul_row(uint32_t* E, uint32_t* O,
+                                        const uint32_t* a, uint32_t bi,
+                                        const uint32_t* p, uint32_t inv,
+                                        bool first) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      O[j] = ptx::mul_lo(a[j + 1], bi);
+      O[j + 1] = ptx::mul_hi(a[j + 1], bi);
+      E[j] = ptx::mul_lo(a[j], bi);
+      E[j + 1] = ptx::mul_hi(a[j], bi);
+    }
+  } else {
+    // the previous row's division by 2^32: E's word 1 joins O's word 0
+    // (the new low word), and E's words 2.. become the new O
+    E[0] = ptx::add_cc(E[0], O[1]);
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {
+      O[j] = ptx::madc_lo_cc(a[j + 1], bi, O[j + 2]);
+      O[j + 1] = ptx::madc_hi_cc(a[j + 1], bi, O[j + 3]);
+    }
+    O[N - 2] = ptx::madc_lo_cc(a[N - 1], bi, 0);
+    O[N - 1] = ptx::madc_hi(a[N - 1], bi, 0);
+    mad_pairs<N>(E, a, bi);
+    O[N - 1] = ptx::addc(O[N - 1], 0);
+  }
+  const uint32_t m = E[0] * inv;
+  mad_pairs<N>(O, p + 1, m);
+  mad_pairs<N>(E, p, m);
+  O[N - 1] = ptx::addc(O[N - 1], 0);
+}
+
+// r = a*b*2^(-32N) mod p, for a, b < p < 2^(32N−1). r may alias a or b.
+// CIOS with 32-bit words: two rows a step, E and O trading places, then
+// one carry chain merges them and one conditional subtract reduces.
 template <int N>
 __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b, const uint32_t* p,
                                     uint32_t inv) {
-  uint32_t t[N + 2];
+  static_assert(N % 2 == 0, "rows go in pairs");
+  uint32_t even[N], odd[N];
 #pragma unroll
-  for (int j = 0; j < N + 2; j++) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < N; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; j++) {
-      c += (uint64_t)a[j] * b[i] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[N];
-    t[N] = (uint32_t)c;
-    t[N + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * inv;
-    c = ((uint64_t)m * p[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < N; j++) {
-      c += (uint64_t)m * p[j] + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[N];
-    t[N - 1] = (uint32_t)c;
-    t[N] = t[N + 1] + (uint32_t)(c >> 32);
+  for (int i = 0; i < N; i += 2) {
+    mul_row<N>(even, odd, a, b[i], p, inv, i == 0);
+    mul_row<N>(odd, even, a, b[i + 1], p, inv, false);
   }
-  sub_p_if_ge<N>(r, t, t[N], p);
+  even[0] = ptx::add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int j = 1; j < N - 1; j++) even[j] = ptx::addc_cc(even[j], odd[j + 1]);
+  even[N - 1] = ptx::addc(even[N - 1], 0);
+  reduce_once<N>(r, even, p);
 }
 
-// r = a + b mod p. r may alias a or b.
+// r = a + b mod p, for a, b < p < 2^(32N−1) (so a + b has no carry out).
+// r may alias a or b.
 template <int N>
 __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b, const uint32_t* p) {
   uint32_t t[N];
-  uint32_t carry = 0;
+  t[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < N; j++) {
-    uint64_t s = (uint64_t)a[j] + b[j] + carry;
-    t[j] = (uint32_t)s;
-    carry = (uint32_t)(s >> 32);
-  }
-  sub_p_if_ge<N>(r, t, carry, p);
+  for (int j = 1; j < N; j++) t[j] = ptx::addc_cc(a[j], b[j]);
+  reduce_once<N>(r, t, p);
 }
 
-// r = a - b mod p. r may alias a or b.
+// r = a - b mod p: one borrow chain, then p added back, masked by the
+// final borrow, in one carry chain. r may alias a or b.
 template <int N>
 __device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b, const uint32_t* p) {
   uint32_t t[N];
-  uint32_t borrow = 0;
+  t[0] = ptx::sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < N; j++) {
-    uint64_t s = (uint64_t)a[j] - b[j] - borrow;
-    t[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  const uint32_t mask = 0u - borrow;  // add p back on underflow
-  uint32_t carry = 0;
+  for (int j = 1; j < N; j++) t[j] = ptx::subc_cc(a[j], b[j]);
+  const uint32_t mask = ptx::subc(0, 0);  // all ones where a < b
+  r[0] = ptx::add_cc(t[0], p[0] & mask);
 #pragma unroll
-  for (int j = 0; j < N; j++) {
-    uint64_t s = (uint64_t)t[j] + (p[j] & mask) + carry;
-    r[j] = (uint32_t)s;
-    carry = (uint32_t)(s >> 32);
-  }
+  for (int j = 1; j < N - 1; j++) r[j] = ptx::addc_cc(t[j], p[j] & mask);
+  r[N - 1] = ptx::addc(t[N - 1], p[N - 1] & mask);
 }
 
 }  // namespace mont

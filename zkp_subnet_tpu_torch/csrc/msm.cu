@@ -3,20 +3,22 @@
 // Replaces the XLA graph around pfield∘ZFQ in zkp_subnet_tpu/ops/msm.py:
 // _chunk_bucket_sums (:202-300: sort, prefix scan, one-hot run-end
 // matmuls, forward fill, bucket differences), _weighted_window_sums
-// (:303-316) and the Horner sweep (:384-392). On Hopper a thread can walk
-// a variable-length run, so the scan/one-hot machinery the TPU needed to
-// stay branch-free is gone: each bucket is summed directly.
+// (:303-316) and the Horner sweep (:384-392).
 //
 // Three kernels over the complete add/double of g1.cuh, all deterministic
 // (no atomics, fixed order). A row is one window of one point group of one
 // MSM; K MSMs over the same bases share every launch.
 //
-//  (a) msm_buckets: one thread per (row, bucket != 0) walks its sorted run
-//      (the glue in ops/msm.py sorts each row's digits and computes run
-//      starts and lengths) and adds the gathered points serially. Bucket 0
-//      and empty buckets stay at infinity. Bound: integer multiplies (an
-//      add is ~4,000 wide multiply-adds); at a 2^16 row with 8 point groups
-//      it runs 8·32·255 threads of ~32 serial adds for each MSM.
+//  (a) msm_buckets: the sum of the points in every bucket != 0 of a row
+//      (the glue in ops/msm.py sorts each row's digits). Bound on this card:
+//      integer multiplies (a point add is ~4,100 32-bit multiply-adds) and,
+//      when one thread walks a whole run, the longest run: a row of equal
+//      digits was 8192 dependent adds in one thread. So the work is cut by
+//      position, not by digit, as the TPU's prefix scan over the sorted row
+//      does: one block a row, each thread a fixed tile of the sorted
+//      entries (T = 32 at the path's 8192 points a row), with a segmented
+//      scan across the tiles for the runs that cross them. The adds are
+//      expanded in place (csrc/g1.cuh), in registers, 8 warps an SM.
 //
 //  (b) msm_reduce: sum_d d·B_d per row. Bound on this card: the length of
 //      the chain of dependent point adds, not bytes or multiplies (a row
@@ -39,7 +41,7 @@
 //      each of up to 6 lanes does one Fq operation of the RCB15 formulas
 //      (their independent products side by side, b3 = 12 as an add chain),
 //      passing values through shared memory: two dependent products a
-//      point operation where one thread runs 9 (double) or 14 (add). The
+//      point operation where one thread runs 8 (double) or 12 (add). The
 //      rounds are a table that the wrapper passes in (ops/msm_rounds.py
 //      holds the one schedule, and the CPU tests run the same table), so
 //      the field values, and with them the limbs of the result, are those
@@ -47,37 +49,140 @@
 //
 // (b) and (c) run few warps, so what a step costs is latency, instruction
 // fetch included: their point and field operations are real calls (one
-// copy of the Fq product in the instruction cache) where K1 and (a) expand
-// every product in place.
+// copy of the Fq product in the instruction cache). K1 and (a) run many
+// warps of independent adds and expand every product in place.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(128)
+// (a) msm_buckets: one block a row, BUCKET_THREADS threads, and the
+// compiler's own register count (BUCKET_MIN_BLOCKS = 1: no cap, 8 warps an
+// SM). Chosen by measurement (zkp_subnet_tpu_torch/kernel_ab.py over
+// copies of the sources with that one choice changed; PERF.md has the
+// times): capped at 128 registers for 16 warps the walk spills and runs
+// slower, and so do other block shapes and an L1 prefetch of the next
+// point.
+constexpr int BUCKET_THREADS = 256;  // ops/msm.py:BUCKET_THREADS is its mirror
+constexpr int BUCKET_MIN_BLOCKS = 1;
+constexpr int BUCKETS = 256;  // a row's buckets: every value of a uint8 digit
+
+// A point in shared memory, word j of thread t at sh[j·BUCKET_THREADS + t]
+// (threads of a warp on consecutive banks).
+__device__ __forceinline__ void g1_store_shared(uint32_t* sh, int t,
+                                                const G1& P) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++) {
+    sh[j * BUCKET_THREADS + t] = P.X[j];
+    sh[(fq::L + j) * BUCKET_THREADS + t] = P.Y[j];
+    sh[(2 * fq::L + j) * BUCKET_THREADS + t] = P.Z[j];
+  }
+}
+
+__device__ __forceinline__ void g1_load_shared(G1& P, const uint32_t* sh,
+                                               int t) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++) {
+    P.X[j] = sh[j * BUCKET_THREADS + t];
+    P.Y[j] = sh[(fq::L + j) * BUCKET_THREADS + t];
+    P.Z[j] = sh[(2 * fq::L + j) * BUCKET_THREADS + t];
+  }
+}
+
+// One block a row: the row's n digit-sorted entries in tiles of
+// T = ceil(n / BUCKET_THREADS), thread t owning entries [tT, tT + T).
+//  1. Every bucket of the row is set to infinity.
+//  2. Walk: the thread sums each run of equal digits ≠ 0 in its tile with
+//     one running sum (the run's first point, then adds in order) and
+//     stores it to the run's bucket when the digit changes. A run wholly
+//     inside the tile is then final. The tile's first run may have begun
+//     in the tile before (a head piece H: stored now, finished in 4), its
+//     last run may go on into the next (a piece V kept in registers): if
+//     the whole tile is one such run, V covers the tile and continues a
+//     run; otherwise V starts one.
+//  3. A segmented inclusive scan of the V's across the block
+//     (Hillis–Steele through shared memory, V_t = V_{t−d} + V_t while t's
+//     segment reaches back past t − d; it stops when no segment is open):
+//     V_t becomes the sum of its run's pieces up to tile t.
+//  4. A thread with H adds V_{t−1} to it: the run's sum.
+// No thread adds more than T − 1 points in its walk, whatever the digits,
+// and the row's longest chain of dependent adds is T − 1 + log2(threads)
+// + 1. Uniform digits do about n + BUCKET_THREADS adds a row; a row of one
+// digit n + BUCKET_THREADS·log2(BUCKET_THREADS). Entries of digit 0 (and
+// the glue's padding, which has digit 0) are never added.
+// ops/msm.py:msm_buckets_plain does the same adds in the same order.
+__global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS)
 msm_buckets_kernel(const uint32_t* __restrict__ points,
                    const int32_t* __restrict__ perm,
-                   const int32_t* __restrict__ starts,
-                   const int32_t* __restrict__ counts,
-                   uint32_t* __restrict__ buckets, int rows, int row_len,
-                   int nbuckets) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= (long long)rows * nbuckets) return;
-  const int row = (int)(t / nbuckets);
-  const int bucket = (int)(t % nbuckets);
+                   const uint8_t* __restrict__ digits,
+                   uint32_t* __restrict__ buckets, int row_len) {
+  __shared__ uint32_t sh[G1_WORDS * BUCKET_THREADS];
+  __shared__ int sh_flag[BUCKET_THREADS];
+  const int t = threadIdx.x;
+  const long long row = blockIdx.x;
+  const int32_t* idx = perm + row * row_len;
+  const uint8_t* dig = digits + row * row_len;
+  uint32_t* out = buckets + G1_WORDS * row * BUCKETS;
+  const int T = (row_len + BUCKET_THREADS - 1) / BUCKET_THREADS;
+  const int s = min(t * T, row_len), e = min(s + T, row_len);
+
   G1 acc;
   g1_set_infinity(acc);
-  if (bucket != 0) {
-    const int32_t* idx = perm + (long long)row * row_len + starts[t];
-    const int n = counts[t];
-    for (int k = 0; k < n; k++) {
+  for (int b = t; b < BUCKETS; b += BUCKET_THREADS)
+    g1_store(out + G1_WORDS * b, acc);
+  __syncthreads();
+
+  int first = 0, cur = -1;
+  bool open_left = false, open_right = false, single = false;
+  if (s < e) {
+    first = dig[s];
+    const int last = dig[e - 1];
+    open_left = first != 0 && s > 0 && dig[s - 1] == first;
+    open_right = last != 0 && e < row_len && dig[e] == last;
+    single = first == last;
+  }
+  for (int k = s; k < e; k++) {
+    const int d = dig[k];
+    const uint32_t* src = points + G1_WORDS * (long long)idx[k];
+    if (d != cur) {
+      if (cur > 0) g1_store(out + G1_WORDS * cur, acc);
+      cur = d;
+      if (d != 0) g1_load(acc, src);
+    } else if (d != 0) {
       G1 P;
-      g1_load(P, points + (long long)G1_WORDS * idx[k]);
+      g1_load(P, src);
       g1_add(acc, acc, P);
     }
   }
-  g1_store(buckets + G1_WORDS * t, acc);
+  const bool has_v = cur > 0 && open_right;
+  if (cur > 0 && !open_right) g1_store(out + G1_WORDS * cur, acc);
+  const bool has_h = open_left && !(single && open_right);
+  // flag 1: V starts a segment (or there is no V); 0: V continues one
+  int flag = !(has_v && single && open_left);
+
+  for (int d = 1; d < BUCKET_THREADS; d *= 2) {
+    if (!__syncthreads_or(!flag)) break;
+    g1_store_shared(sh, t, acc);
+    sh_flag[t] = flag;
+    __syncthreads();
+    if (!flag && t >= d) {
+      G1 prev;
+      g1_load_shared(prev, sh, t - d);
+      flag = sh_flag[t - d];
+      g1_add(acc, prev, acc);
+    }
+  }
+  __syncthreads();
+  g1_store_shared(sh, t, acc);
+  __syncthreads();
+  if (has_h) {
+    G1 S, H;
+    g1_load_shared(S, sh, t - 1);
+    g1_load(H, out + G1_WORDS * first);
+    g1_add(H, S, H);
+    g1_store(out + G1_WORDS * first, H);
+  }
 }
 
 // Fq operations as calls: operands anywhere (local or shared memory), one
@@ -251,23 +356,18 @@ msm_combine_kernel(const uint32_t* __restrict__ window_sums,
     out[(long long)G1_WORDS * blockIdx.x + j] = slots[j];
 }
 
-constexpr int THREADS = 128;
-
 }  // namespace
 
+// perm (rows, row_len) int32 point indices and digits (rows, row_len) uint8
+// in ascending digit order within each row; buckets (rows, 256, 3, 12).
 extern "C" int zkp_msm_buckets(const void* points, const void* perm,
-                               const void* starts, const void* counts,
-                               void* buckets, int rows, int row_len,
-                               int nbuckets, void* stream) {
-  const long long n = (long long)rows * nbuckets;
-  if (n > 0) {
-    const long long blocks = (n + THREADS - 1) / THREADS;
-    msm_buckets_kernel<<<(unsigned)blocks, THREADS, 0,
-                         (cudaStream_t)stream>>>(
+                               const void* digits, void* buckets, int rows,
+                               int row_len, void* stream) {
+  if (row_len < 0) return (int)cudaErrorInvalidValue;
+  if (rows > 0)
+    msm_buckets_kernel<<<rows, BUCKET_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)points, (const int32_t*)perm,
-        (const int32_t*)starts, (const int32_t*)counts, (uint32_t*)buckets,
-        rows, row_len, nbuckets);
-  }
+        (const uint8_t*)digits, (uint32_t*)buckets, row_len);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,252 @@
+"""K1 ``g1_add``/``g1_double`` and K2 ``msm_buckets`` of several checkouts
+of this repository, timed in turns on one card on the same inputs.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python -m zkp_subnet_tpu_torch.kernel_ab DIR [DIR ...]
+
+Each DIR is the root of a checkout: an earlier commit unpacked with ``git
+archive``, or a copy whose sources were edited to try one design choice.
+Each is driven through its own package, in a process of its own: its
+``kernels.build()`` compiles its sources into its own ``build/`` (all
+checkouts at once), and its wrappers ``g1_add``, ``g1_double`` and
+``msm_buckets(points, *msm.bucket_runs(scalars, groups))`` are timed. The
+inputs are made once, from a seed, by this checkout's package: 2^16 points
+with Z ≠ 1, and the scalars of two MSMs of 2^16 points (8 point groups:
+512 rows of 8192 entries, the main path's shape), uniform, and all equal
+to 1. Device ms: CUDA events around the replay of a CUDA graph of several
+launches. Every checkout is timed twice, in the order given and then in
+the reverse order. Its outputs must equal the first checkout's: the adds
+limb for limb, the bucket sums as points. Then, for each checkout, the
+registers and spills of the three kernels (``-Xptxas -v``) and the SASS
+instruction mix of ``g1_add_kernel`` (``cuobjdump -sass``; a static count,
+which for a kernel without loops is what each thread executes). The last
+lines are the card (``nvidia-smi`` name and power limit) and one JSON
+object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+LOG_N = 16
+SEED = 20261016
+#: launches a graph replays: (g1_add, g1_double) and msm_buckets
+REPS_POINT, REPS_BUCKETS = 100, 5
+KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel")
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """ms a launch of ``fn`` by CUDA-graph replay of ``reps`` launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _same_points(kernels, a, b) -> bool:
+    """(..., 3, 12) a and b are the same projective points: X1·Z2 = X2·Z1,
+    Y1·Z2 = Y2·Z1 (K4 ``fq_mul``) and infinity alike."""
+    import torch
+
+    a, b = a.reshape(-1, 3, 12), b.reshape(-1, 3, 12)
+    za, zb = a[:, 2].contiguous(), b[:, 2].contiguous()
+    for c in (0, 1):
+        if not torch.equal(kernels.fq_mul(a[:, c].contiguous(), zb),
+                           kernels.fq_mul(b[:, c].contiguous(), za)):
+            return False
+    return torch.equal((za == 0).all(-1), (zb == 0).all(-1))
+
+
+def child_build() -> dict:
+    """In a checkout's process: build its kernels."""
+    from zkp_subnet_tpu_torch.ops import kernels
+
+    info = kernels.build(force=True)
+    return {"seconds": info["seconds"], "log": info["log"],
+            "lib": kernels.LIB_PATH}
+
+
+def child_time(inputs: str, reference: str) -> dict:
+    """In a checkout's process: time its kernels on the inputs, and hold
+    the outputs to ``reference`` (written here if it does not exist)."""
+    import torch
+    from zkp_subnet_tpu_torch.ops import kernels
+    from zkp_subnet_tpu_torch.ops import msm as tmsm
+
+    dev = torch.device("cuda", 0)
+    data = torch.load(inputs)
+    p, q = data["p"].to(dev), data["q"].to(dev)
+    fns = {"g1_add": (lambda: kernels.g1_add(p, q), REPS_POINT),
+           "g1_double": (lambda: kernels.g1_double(p), REPS_POINT)}
+    for label, scalars in data["scalars"].items():
+        scalars = scalars.to(dev)
+        runs = tmsm.bucket_runs(scalars, tmsm._groups(scalars.shape[1]))
+        fns[f"msm_buckets {label}"] = (
+            lambda runs=runs: kernels.msm_buckets(p, *runs), REPS_BUCKETS)
+    outs = {name: fn() for name, (fn, _) in fns.items()}
+    torch.cuda.synchronize()
+    ms = {name: _graph_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if not os.path.exists(reference):
+        torch.save({k: v.cpu() for k, v in outs.items()}, reference)
+    ref = {k: v.to(dev) for k, v in torch.load(reference).items()}
+    equal = {k: (torch.equal(v, ref[k]) if k.startswith("g1_")
+                 else _same_points(kernels, v, ref[k]))
+             for k, v in outs.items()}
+    return {"ms": ms, "equal": equal, "package": kernels.CSRC}
+
+
+def _inputs(path: str) -> None:
+    """The inputs, from SEED, by this checkout's package."""
+    import numpy as np
+    import torch
+    from .ops import curve as cv
+    from .ops import kernels
+    from .ops.field import FR
+
+    dev = torch.device("cuda", 0)
+    n = 1 << LOG_N
+    base = kernels.g1_double(cv.g1_fixed_base_tables(device=dev).reshape(
+        -1, 3, 12).contiguous())
+    p = base.repeat(-(-n // base.shape[0]), 1, 1)[:n].contiguous()
+    rng = np.random.default_rng(SEED)
+    limbs = rng.integers(0, 1 << 16, (2, n, 16), dtype=np.uint32)
+    limbs[..., 15] = rng.integers(0, 0x73ED, (2, n), dtype=np.uint32)
+    ones = np.zeros((2, n, 16), np.uint32)
+    ones[..., 0] = 1
+    torch.save({"p": p.cpu(), "q": p.roll(1, 0).cpu(), "scalars": {
+        "uniform": FR.from_limbs16(limbs, dev).cpu(),
+        "all-ones": FR.from_limbs16(ones, dev).cpu()}}, path)
+
+
+def _spawn(root: str, *args: str) -> subprocess.Popen:
+    """This file as ``__main__`` in a process whose imports start at the
+    checkout ``root`` (so that it imports that checkout's package)."""
+    code = ("import runpy, sys; sys.argv = sys.argv[1:]; "
+            "runpy.run_path(sys.argv[0], run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.Popen([sys.executable, "-c", code,
+                             os.path.abspath(__file__), *args], cwd=root,
+                            env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+
+def _result(proc: subprocess.Popen, what: str) -> dict:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed ({proc.returncode}):\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def sass_mix(lib: str, kernel: str) -> dict:
+    """Instructions of one kernel in a built library, by opcode."""
+    from .ops import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function : " in line:
+            inside = kernel in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("checkouts", nargs="+", metavar="DIR",
+                        help="roots of the checkouts, the first the "
+                        "reference for the outputs")
+    args = parser.parse_args(argv)
+    import torch
+    from .ops import kernels
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    roots = [os.path.abspath(d) for d in args.checkouts]
+    work = os.path.join(kernels.BUILD_DIR, "ab")
+    os.makedirs(work, exist_ok=True)
+    inputs = os.path.join(work, "inputs.pt")
+    reference = os.path.join(work, "reference.pt")
+    if os.path.exists(reference):
+        os.remove(reference)
+    _inputs(inputs)
+
+    unique = list(dict.fromkeys(roots))
+    builds = {root: _spawn(root, "--build") for root in unique}
+    built = {root: _result(proc, f"build of {root}")
+             for root, proc in builds.items()}
+    runs = {root: [] for root in unique}
+    for turn, root in enumerate(roots + roots[::-1]):
+        res = _result(_spawn(root, "--time", inputs, reference),
+                      f"turn {turn} of {root}")
+        if not res["package"].startswith(root + os.sep):
+            raise RuntimeError(f"{root}: imported {res['package']}")
+        runs[root].append(res)
+        print(f"[turn {turn}] {root}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in res["ms"].items()), flush=True)
+        if not all(res["equal"].values()):
+            print(f"kernel_ab: {root} differs from {roots[0]}: "
+                  f"{res['equal']}", file=sys.stderr)
+            return 1
+    report = []
+    for root in unique:
+        usage = kernels.ptxas_usage(built[root]["log"])
+        mix = sass_mix(built[root]["lib"], "g1_add_kernel")
+        row = {"checkout": root,
+               "ms": {k: statistics.fmean(r["ms"][k] for r in runs[root])
+                      for k in runs[root][0]["ms"]},
+               "runs_ms": [r["ms"] for r in runs[root]],
+               "kernels": {k: usage.get(k) for k in KERNELS},
+               "g1_add_sass": mix}
+        report.append(row)
+        print(f"[checkout] {root}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row["ms"].items()) + "; " + "; ".join(
+            f"{k} {u['registers']} registers, {u['spill_stores']} B spill "
+            f"stores" for k, u in row["kernels"].items() if u)
+            + f"; g1_add_kernel {sum(mix.values())} SASS instructions ("
+            + ", ".join(f"{op} {c}" for op, c in list(mix.items())[:6])
+            + ")", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi,
+                      "checkouts": report}))
+    return 0
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--build"]:
+    print(json.dumps(child_build()))
+elif __name__ == "__main__" and sys.argv[1:2] == ["--time"]:
+    print(json.dumps(child_time(*sys.argv[2:4])))
+elif __name__ == "__main__":
+    sys.exit(main())

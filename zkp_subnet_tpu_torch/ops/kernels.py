@@ -2,7 +2,7 @@
 
 Sources live in ``zkp_subnet_tpu_torch/csrc/`` (K1 ``g1.cu``, K2 ``msm.cu``,
 K3 ``fr.cu``, K4 ``fq.cu``, K5 ``ntt.cu``, headers ``mont.cuh``/``fq.cuh``/
-``fr.cuh``/``g1.cuh``). On first CUDA use they are compiled with ``nvcc`` for
+``fr.cuh``/``g1.cuh``/``ptx.cuh``). On first CUDA use they are compiled with ``nvcc`` for
 ``sm_90a``, one process per source and all started together, and linked into
 ``build/zkp_subnet_tpu_torch/libzkp_kernels.so`` (a plain C interface, no
 PyTorch headers) that is loaded with ``ctypes``. A stamp of the sources' hash
@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,7 +38,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "zkp_subnet_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libzkp_kernels.so")
 SOURCES = ("g1.cu", "msm.cu", "fr.cu", "fq.cu", "ntt.cu")
-HEADERS = ("mont.cuh", "fq.cuh", "fr.cuh", "g1.cuh")
+HEADERS = ("ptx.cuh", "mont.cuh", "fq.cuh", "fr.cuh", "g1.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,6 +119,54 @@ def build(force: bool = False) -> dict:
     return {"built": True, "seconds": seconds, "log": log}
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    nvcc's ``-Xptxas -v`` report. A kernel is keyed by its plain name, with
+    the values of its template arguments where it has some:
+    ``fr_binary_kernel<0>`` is ``fr_binary_kernel<MUL>``."""
+    def plain(mangled):
+        # the length-prefixed names of _ZN<len><name>...: the one that
+        # ends in _kernel, then its template arguments I L<type><value>E ... E
+        pos = 3 if mangled.startswith("_ZN") else 2
+        while pos < len(mangled) and mangled[pos].isdigit():
+            end = pos
+            while mangled[end].isdigit():
+                end += 1
+            size = int(mangled[pos:end])
+            name, pos = mangled[end:end + size], end + size
+            if name.endswith("_kernel"):
+                args = re.match(r"I((?:L(?:N\w*?E|\d+[A-Za-z_]\w*?|[a-z])"
+                                r"n?\d+E)+)E", mangled[pos:])
+                if args:
+                    values = re.findall(r"(n?\d+)E", args.group(1))
+                    name += "<" + ", ".join(
+                        v.replace("n", "-") for v in values) + ">"
+                return name
+        return mangled
+
+    usage, props, entry = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = plain(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = plain(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            props[name] = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            stack, stores, loads = props.get(entry, (0, 0, 0))
+            usage[entry] = {"registers": int(m.group(1)), "stack": stack,
+                            "spill_stores": stores, "spill_loads": loads}
+    return usage
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -127,7 +176,7 @@ def _load() -> ctypes.CDLL:
         sigs = {
             "zkp_g1_add": [p, p, p, i64, p],
             "zkp_g1_double": [p, p, i64, p],
-            "zkp_msm_buckets": [p, p, p, p, p, i32, i32, i32, p],
+            "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
             "zkp_msm_reduce": [p, p, i32, i32, p],
             "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
             "zkp_fr_mul": [p, p, p, i64, i32, i32, p],
@@ -172,9 +221,9 @@ def g1_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Complete RCB15 add of two (N, 3, 12) point tensors.
 
     Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ (via
-    dispatch_ladd). Bound: integer multiply throughput (~4,000 wide
-    multiplies per add); one thread per point keeps the whole add in
-    registers."""
+    dispatch_ladd). Bound: integer multiply throughput (~4,100 32-bit
+    multiply-adds per add); one thread per point keeps the whole add in
+    registers, the field operations as carry chains, at 16 warps an SM."""
     _check(p, "p", tail=(3, 12))
     _check(q, "q", tail=(3, 12))
     if p.shape != q.shape or p.device != q.device:
@@ -203,30 +252,28 @@ def g1_double(p: torch.Tensor) -> torch.Tensor:
 
 # -- K2: csrc/msm.cu -----------------------------------------------------------
 
-def msm_buckets(points, perm, starts, counts) -> torch.Tensor:
-    """Bucket sums (rows, B, 3, 12) from sorted runs.
+def msm_buckets(points, perm, digits) -> torch.Tensor:
+    """Bucket sums (rows, 256, 3, 12) from digit-sorted rows.
 
-    ``points`` (N, 3, 12); ``perm`` (rows, row_len) int32 point indices in
-    sorted-digit order; ``starts``/``counts`` (rows, B) int32 run offsets
-    into a row and run lengths. Replaces zkp_subnet_tpu/ops/msm.py:
-    _chunk_bucket_sums (XLA around pfield∘ZFQ). Bound: serial point adds
-    per run (integer multiplies); one thread per (row, bucket). The rows of
-    K MSMs over the same points go through one launch."""
+    ``points`` (N, 3, 12); ``perm`` (rows, n) int32 point indices and
+    ``digits`` (rows, n) uint8, each row in ascending digit order. Replaces
+    zkp_subnet_tpu/ops/msm.py:_chunk_bucket_sums (XLA around pfield∘ZFQ).
+    Bound: integer multiplies (point adds). One block a row, each thread a
+    fixed tile of ceil(n / 256) entries, then a segmented scan across the
+    tiles: no thread's work depends on the digits. The rows of K MSMs over
+    the same points go through one launch."""
     _check(points, "points", tail=(3, 12))
     _check(perm, "perm")
-    _check(starts, "starts")
-    _check(counts, "counts")
-    if perm.dim() != 2 or starts.dim() != 2 or starts.shape != counts.shape \
-            or starts.shape[0] != perm.shape[0]:
-        raise ValueError("msm_buckets: perm (rows, row_len) and "
-                         "starts/counts (rows, B) expected")
-    rows, nb = starts.shape
-    out = torch.empty((rows, nb, 3, 12), dtype=torch.int32,
+    _check(digits, "digits", dtype=torch.uint8)
+    if perm.dim() != 2 or digits.shape != perm.shape:
+        raise ValueError("msm_buckets: perm and digits (rows, n) expected")
+    rows, n = perm.shape
+    out = torch.empty((rows, 256, 3, 12), dtype=torch.int32,
                       device=points.device)
-    if rows * nb:
+    if rows:
         _launch("msm_buckets", _load().zkp_msm_buckets,
-                points.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-                counts.data_ptr(), out.data_ptr(), rows, perm.shape[1], nb)
+                points.data_ptr(), perm.data_ptr(), digits.data_ptr(),
+                out.data_ptr(), rows, n)
     return out
 
 

@@ -14,9 +14,14 @@ shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
 
 1. glue: the points are split into G contiguous groups (``_groups``), each
    scalar into 32 byte digits; every (group, MSM, window) row is sorted by
-   digit, and run starts and lengths come from a bincount and a cumsum;
-2. K2 ``msm_buckets``: one thread per (row, bucket) sums its run
-   (replaces ``_chunk_bucket_sums``, msm.py:202);
+   digit (``bucket_runs``);
+2. K2 ``msm_buckets``: the sum of every bucket of every row (replaces
+   ``_chunk_bucket_sums``, msm.py:202). Like the TPU's prefix scan over the
+   sorted row, the work is cut by position, not by digit: one block a row,
+   each thread a fixed tile of ``bucket_tile(n)`` sorted entries walked with
+   one running sum, then a segmented scan across the tiles for the runs
+   that cross them. No thread adds more than the tile's length, whatever
+   the digits (a row of one digit was n dependent adds in one thread);
 3. K2 ``msm_reduce``: Σ_d d·B_d per row (replaces
    ``_weighted_window_sums``, msm.py:303). On the card this is bound by the
    chain of dependent point adds, so a row is cut into segments of
@@ -33,9 +38,9 @@ shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
 
 Each kernel has its plain version here (``msm_buckets_plain``,
 ``msm_reduce_plain``, ``msm_combine_plain``), taken for CPU tensors only;
-the plain reduce does the kernel's adds in the kernel's order, so the two
-agree limb for limb, and the combine's fully reduced field values are the
-same in any schedule. All point math is the fully reduced CIOS of
+the plain buckets and reduce do the kernel's adds in the kernel's order, so
+the two agree limb for limb, and the combine's fully reduced field values
+are the same in any schedule. All point math is the fully reduced CIOS of
 ``csrc/g1.cuh``; the lazy signed-digit engine of ``ops/lazy8.py`` that the
 TPU MSM runs on has no counterpart. Not ported (TPU workarounds):
 ``MAX_PROGRAM_N`` slicing, ``_msm_wide``, ``ops/lane.py``, the
@@ -67,6 +72,10 @@ NAIVE_THRESHOLD = 2048
 MAX_GROUPS = 8
 MIN_GROUP_POINTS = 2048
 
+#: threads of an ``msm_buckets`` block, which sums one row; the mirror of
+#: ``csrc/msm.cu:BUCKET_THREADS``, for the plain version
+BUCKET_THREADS = 256
+
 #: buckets a lane of ``msm_reduce`` walks serially; a row's 256 buckets are
 #: 256 / REDUCE_SEGMENT lanes. The mirror of ``csrc/msm.cu:REDUCE_SEGMENT``,
 #: for the plain version.
@@ -76,8 +85,8 @@ REDUCE_SEGMENT = 8
 def _groups(n: int) -> int:
     """Point groups for an n-point MSM: the largest power of two ≤
     MAX_GROUPS that leaves ≥ MIN_GROUP_POINTS points per group. At a 2^16
-    row that is 8 groups, so the bucket kernel runs 8·32·255 threads of ~32
-    adds for each MSM instead of 32·255 threads of ~256."""
+    row that is 8 groups, so the bucket kernel runs 8·32 rows of 8192
+    entries for each MSM, tiles of 32 entries a thread."""
     g = 1
     while g < MAX_GROUPS and n // (2 * g) >= MIN_GROUP_POINTS:
         g *= 2
@@ -85,14 +94,14 @@ def _groups(n: int) -> int:
 
 
 def bucket_runs(scalars: torch.Tensor, groups: int):
-    """Sorted runs of every (group, MSM, window) row.
+    """Every (group, MSM, window) row in digit order.
 
     ``scalars`` is (N, 8) or (K, N, 8). Returns ``perm`` (rows, n_g) int32
-    point indices in digit order (K MSMs address the same N points), and
-    ``starts``/``counts`` (rows, 256) int32, rows = groups·K·32 with the
-    group outermost, so that the halves of the rows are the halves of the
-    groups. Points past N (the padding of the last group) carry digit 0 and
-    never reach a bucket that is summed."""
+    point indices (K MSMs address the same N points) and ``digits`` (rows,
+    n_g) uint8, both in ascending digit order within a row, rows =
+    groups·K·32 with the group outermost, so that the halves of the rows
+    are the halves of the groups. Points past N (the padding of the last
+    group) carry digit 0 and are never added."""
     if scalars.dim() == 2:
         scalars = scalars[None]
     k, n = scalars.shape[:2]
@@ -107,13 +116,22 @@ def bucket_runs(scalars: torch.Tensor, groups: int):
     offset = torch.arange(groups, device=scalars.device).repeat_interleave(
         k * NUM_WINDOWS) * n_g
     perm = (order + offset[:, None]).clamp_(max=n - 1)
-    counts = torch.zeros((rows.shape[0], NUM_BUCKETS), dtype=torch.int64,
-                         device=scalars.device)
-    counts.scatter_add_(1, sorted_d, torch.ones_like(sorted_d))
-    starts = torch.cumsum(counts, dim=1) - counts
     return (perm.to(torch.int32).contiguous(),
-            starts.to(torch.int32).contiguous(),
-            counts.to(torch.int32).contiguous())
+            sorted_d.to(torch.uint8).contiguous())
+
+
+def bucket_tile(n: int) -> int:
+    """Sorted entries each thread of ``msm_buckets`` walks, at rows of n."""
+    return -(-n // BUCKET_THREADS)
+
+
+def bucket_depth(n: int, tile: int | None = None) -> int:
+    """Longest chain of dependent point adds in ``msm_buckets`` at rows of
+    n entries, whatever the digits: a tile's walk, the scan across the
+    tiles, the head piece's add."""
+    tile = tile or bucket_tile(n)
+    threads = -(-n // tile)
+    return (tile - 1) + (threads - 1).bit_length() + 1
 
 
 def run_rounds_plain(table: Sequence[Sequence[int]],
@@ -131,29 +149,73 @@ def run_rounds_plain(table: Sequence[Sequence[int]],
 
 # -- plain versions of K2 ----------------------------------------------------
 
-def msm_buckets_plain(points, perm, starts, counts) -> torch.Tensor:
-    """Plain version of K2 ``msm_buckets``: bucket sums (rows, B, 3, 12).
+def msm_buckets_plain(points, perm, digits, tile: int | None = None):
+    """Plain version of K2 ``msm_buckets``: bucket sums (rows, 256, 3, 12),
+    by the kernel's adds in the kernel's order, every (row, thread) at once.
 
-    Steps over run position k; at each step every (row, bucket ≠ 0) whose
-    run is longer than k adds its k-th point, all pairs at once, in the
-    kernel's order."""
-    rows, nb = starts.shape
-    acc = g1_infinity((rows * nb,), points.device)
-    starts = starts.reshape(-1).long()
-    counts = counts.reshape(-1).long().clone()
-    counts.view(rows, nb)[:, 0] = 0                       # bucket 0: unused
-    row_base = torch.arange(rows, device=points.device).repeat_interleave(
-        nb) * perm.shape[1]
-    flat_perm = perm.reshape(-1).long()
-    k = 0
-    while True:
-        active = torch.nonzero(counts > k).squeeze(-1)
-        if active.numel() == 0:
+    Thread t of a row walks the sorted entries [t·tile, (t+1)·tile) (tile =
+    ``bucket_tile(n)`` unless given: the CPU tests run toy rows in tiles of
+    2–8). A run of digit ≠ 0 inside the tile is summed in order from its
+    first point and stored. The tile's first run may have begun in the tile
+    before (head piece H: stored, finished last); its last run may go on
+    into the next (piece V): V covers the whole tile and continues a run, or
+    starts one. A segmented Hillis–Steele scan makes each V the sum of its
+    run up to its tile (V_t = V_{t−d} + V_t while t's run reaches back past
+    t − d), and a thread with H stores V_{t−1} + H."""
+    rows, n = perm.shape
+    dev = points.device
+    out = g1_infinity((rows, NUM_BUCKETS), dev)
+    if rows == 0 or n == 0:
+        return out
+    tile = tile or bucket_tile(n)
+    threads = -(-n // tile)
+    pad = (rows, threads * tile - n)
+    dig = torch.cat([digits.long(), digits.new_zeros(pad).long()], 1)
+    idx = torch.cat([perm.long(), perm.new_zeros(pad).long()], 1)
+    t = torch.arange(threads, device=dev)
+    start, end = t * tile, torch.clamp(t * tile + tile, max=n)
+    first, last = dig[:, start], dig[:, end - 1]
+    open_left = (first != 0) & (start > 0) & (
+        dig[:, (start - 1).clamp(min=0)] == first)
+    open_right = (last != 0) & (end < n) & (
+        dig[:, end.clamp(max=n - 1)] == last)
+    single = first == last
+    r = torch.arange(rows, device=dev)[:, None].expand(rows, threads)
+
+    acc = g1_infinity((rows, threads), dev)
+    cur = torch.full((rows, threads), -1, dtype=torch.long, device=dev)
+    for k in range(tile):
+        live = (start + k < n)[None]
+        d, src = dig[:, start + k], idx[:, start + k]
+        change = live & (d != cur)
+        done = change & (cur > 0)
+        out[r[done], cur[done]] = acc[done]
+        begin = change & (d != 0)
+        acc[begin] = points[src[begin]]
+        step = live & (d == cur) & (d != 0)
+        acc[step] = g1_add_plain(acc[step], points[src[step]])
+        cur = torch.where(change, d, cur)
+    has_v = (cur > 0) & open_right
+    done = (cur > 0) & ~open_right
+    out[r[done], cur[done]] = acc[done]
+    has_h = open_left & ~(single & open_right)
+    flag = ~(has_v & single & open_left)      # False: V continues a run
+
+    d = 1
+    while d < threads:
+        need = ~flag & (t >= d)
+        if not bool(need.any()):
             break
-        idx = flat_perm[row_base[active] + starts[active] + k]
-        acc[active] = g1_add_plain(acc[active], points[idx])
-        k += 1
-    return acc.view(rows, nb, 3, 12)
+        rr, tt = need.nonzero(as_tuple=True)
+        acc_next, flag_next = acc.clone(), flag.clone()
+        acc_next[rr, tt] = g1_add_plain(acc[rr, tt - d], acc[rr, tt])
+        flag_next[rr, tt] = flag[rr, tt - d]
+        acc, flag = acc_next, flag_next
+        d *= 2
+    rr, tt = has_h.nonzero(as_tuple=True)
+    b = first[rr, tt]
+    out[rr, b] = g1_add_plain(acc[rr, tt - 1], out[rr, b])
+    return out
 
 
 def _reduce_lanes(nb: int, segment: int) -> int:
@@ -231,10 +293,10 @@ def msm_combine_plain(window_sums: torch.Tensor,
 
 # -- K2 dispatch -----------------------------------------------------------------
 
-def msm_buckets(points, perm, starts, counts):
+def msm_buckets(points, perm, digits):
     if points.is_cuda:
-        return kernels.msm_buckets(points, perm, starts, counts)
-    return msm_buckets_plain(points, perm, starts, counts)
+        return kernels.msm_buckets(points, perm, digits)
+    return msm_buckets_plain(points, perm, digits)
 
 
 def msm_reduce(buckets):
@@ -261,8 +323,8 @@ def msm_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
         return g1_infinity((k,), points.device)
     points = points.contiguous()
     groups = _groups(n)
-    perm, starts, counts = bucket_runs(scalars, groups)
-    buckets = msm_buckets(points, perm, starts, counts)
+    perm, digits = bucket_runs(scalars, groups)
+    buckets = msm_buckets(points, perm, digits)
     sums = msm_reduce(buckets)                         # (G·K·W, 3, 12)
     while groups > 1:                                  # fold groups: K1 adds
         half = sums.shape[0] // 2
