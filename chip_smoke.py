@@ -16,7 +16,13 @@ Phases (each prints a line; any failure exits non-zero):
    tolerance zero (integer arithmetic: canonical integers and affine points
    must be equal; the three K2 kernels limb for limb; ``msm_buckets`` also
    on edge cases at the main path's 2^16 points, runs across its tiles and
-   one bucket holding a whole row, against the plain version on the card);
+   one bucket holding a whole row, against the plain version on the card;
+   the opening's K3 kernels ``fr_inv``, ``fr_powers``, ``fr_suffix_scan``
+   and ``fr_open_quotient`` at x = 0, 1, r − 1 and random, on rows of
+   zeros and of a length that is no multiple of the tile, and the whole
+   opening with the host forbidden to wait for the card; the K1 ladder
+   ``g1_scalar_mul`` with scalars 0, 1, r − 1 and the point at infinity, at
+   16 and 2^16 points, also against the loop of K1 launches it replaces);
    then each kernel's time beside its plain version's, both on the card, at
    the shapes the paths below give it (CUDA events around a loop of
    launches: for a short kernel that is the host's cost a launch) and the
@@ -28,7 +34,9 @@ Phases (each prints a line; any failure exits non-zero):
    (two with a challenge point, one commit-only), each checked by the
    trapdoor τ and the pairing verify, with kernel launch counts (one launch
    of each K2 kernel a request: the commit's and the opening's MSMs run as
-   one batched MSM); then the median of warm commit+open requests and the
+   one batched MSM; the opening in four K3 launches, at most six K3-family
+   launches and no ``fr_add`` a request; the slice's setup one ladder
+   launch and no K1 double); then the median of warm commit+open requests and the
    peak device memory; then skewed rows, as Pianist wire polynomials are
    (three of 90% zeros and ones, one of all ones), each checked the same
    way, and their median;
@@ -41,7 +49,9 @@ Phases (each prints a line; any failure exits non-zero):
    coefficient rows by the inverse NTT, every row through
    ``Worker.forward`` at one α, ``pianist.aggregate`` at a β (its launch
    count, and its warm time after the path's counts are read) and
-   ``pianist.verify_aggregated`` (True, and False after tampering);
+   ``pianist.verify_aggregated`` (True, and False after tampering; the
+   aggregation launches ``fr_inv`` twice and the ladder twice, and the
+   path no K1 double);
 6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22;
 7. ``[device]``: each kernel's device time with no host work between
    launches (``device_ms``: CUDA events around the replay of a CUDA graph of
@@ -75,9 +85,11 @@ from zkp_subnet_tpu_torch.ops import curve as cv
 from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
 from zkp_subnet_tpu_torch.ops import ntt as tntt
+from zkp_subnet_tpu_torch.ops import poly as tpoly
 from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fq_add_plain,
                                             fq_mul_plain, fq_sub_plain,
-                                            fr_add_plain, fr_mul_plain,
+                                            fr_add_plain, fr_inv_plain,
+                                            fr_mul_plain, fr_powers_plain,
                                             fr_sub_plain)
 from zkp_subnet_tpu_torch.runtime.worker import Prove, Worker
 from zkp_subnet_tpu_torch.utils import encoding as enc
@@ -117,6 +129,15 @@ OPS_FQ_MUL, OPS_FQ_LIN = 2 * 12 * 12, 2 * 12
 OPS_G1_ADD = 12 * OPS_FQ_MUL + 27 * OPS_FQ_LIN
 OPS_G1_DOUBLE = 8 * OPS_FQ_MUL + 13 * OPS_FQ_LIN
 G1_BYTES, FQ_BYTES, FR_BYTES = 144, 48, 32
+# Fermat's inverse: 254 squarings and 163 products, one dependent chain
+INV_CHAIN = (o.R - 2).bit_length() - 2 + bin(o.R - 2).count("1")
+# the K3 kernels of one opening, and K3's elementwise ones
+K3_FAMILY = ("fr_mul", "fr_add", "fr_sub", "fr_inv", "fr_powers",
+             "fr_suffix_scan", "fr_open_quotient")
+LADDER_BITS = 256
+# the kernels that time far above the rest at the path's shape: the plain
+# version runs once (no warm-up call) and the kernel a few times
+SLOW_PLAIN = ("g1_scalar_mul",)
 
 _PALLAS = "zkp_subnet_tpu/ops/pallas_g1.py"
 
@@ -126,12 +147,21 @@ KERNELS = {
     # name: (source, TPU kernel it replaces)
     "g1_add": (_CSRC + "g1.cu", _PALLAS + ":181"),
     "g1_double": (_CSRC + "g1.cu", _PALLAS + ":181"),
+    # pfield over lazy8.ZFQ via dispatch_ldouble/dispatch_ladd, as
+    # curve.g1_scalar_mul reaches it
+    "g1_scalar_mul": (_CSRC + "g1.cu", _PALLAS + ":181"),
     "msm_buckets": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:202"),
     "msm_reduce": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:303"),
     "msm_combine": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:384"),
     "fr_mul": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_add": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_sub": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    # pfield over lane8.BFR as field.pow_static/powers and poly._fmul/_fadd
+    # reach it
+    "fr_inv": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    "fr_powers": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    "fr_suffix_scan": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    "fr_open_quotient": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fq_mul": (_CSRC + "fq.cu", _PALLAS + ":181"),
     "fq_add": (_CSRC + "fq.cu", _PALLAS + ":181"),
     "fq_sub": (_CSRC + "fq.cu", _PALLAS + ":181"),
@@ -144,6 +174,9 @@ KERNELS = {
 # MUL = 0, ADD = 1, SUB = 2 in csrc/fr.cu and csrc/fq.cu)
 KERNEL_FUNCTIONS = {
     "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel",
+    "g1_scalar_mul": "g1_scalar_mul_kernel", "fr_inv": "fr_inv_kernel",
+    "fr_powers": "fr_powers_kernel", "fr_suffix_scan": "fr_suffix_scan_kernel",
+    "fr_open_quotient": "fr_open_quotient_kernel",
     "msm_buckets": "msm_buckets_kernel", "msm_reduce": "msm_reduce_kernel",
     "msm_combine": "msm_combine_kernel", "fr_mul": "fr_binary_kernel<0>",
     "fr_add": "fr_binary_kernel<1>", "fr_sub": "fr_binary_kernel<2>",
@@ -203,7 +236,8 @@ def random_points(rng, n, device):
 
 def random_field(F, rng, n, device):
     vals = [int.from_bytes(rng.bytes(56), "little") % F.p for _ in range(n)]
-    vals[:4] = [0, 1, F.p - 1, F.p - 2]
+    edges = [0, 1, F.p - 1, F.p - 2][:n]
+    vals[:len(edges)] = edges
     return F.encode(vals, device)
 
 
@@ -277,16 +311,28 @@ def same_fq(got, want) -> int:
     return same_field(FQ, got, want)
 
 
-def time_cuda(fn, reps):
+def same_fr_pair(got, want) -> int:
+    """same_fr over two pairs of tensors (the scan passes' two outputs)."""
+    return max(same_fr(got[0], want[0]), same_fr(got[1], want[1]))
+
+
+def shape_of(out):
+    return (tuple(tuple(t.shape) for t in out) if isinstance(out, tuple)
+            else tuple(out.shape))
+
+
+def time_cuda(fn, reps, warm=True):
     """(mean ms per call over ``reps`` calls after one warm-up call, the
-    warm-up call's result), timed with CUDA events."""
-    out = fn()
+    warm-up call's result), timed with CUDA events. ``warm=False``: no
+    warm-up call; the result is the first timed call's."""
+    out = fn() if warm else None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        last = fn()
+        out = last if out is None else out
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
@@ -362,10 +408,46 @@ def path_inputs(rng, dev):
     qa = random_field(FQ, rng, 4096, dev).repeat(n_srs // 4096 + 1, 1)[:n_srs]
     qa = qa.contiguous()
     qb = qa.roll(1, 0).contiguous()
+    # one opening at 2^16 (x random, its inverse, the first pass's output),
+    # and the ladders of build_srs (2^16 points) and of the aggregation's
+    # naive MSMs (16), with scalars 0, 1, r - 1 and the point at infinity
+    # in the first rows
+    x1 = random_fr(rng, 5, dev)[4].contiguous()
+    xi1 = kernels.fr_inv(x1)
+    local, totals = kernels.fr_suffix_scan(a)
+    lp = p.clone()
+    lp[3] = cv.g1_infinity((), dev)
+    ls = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
+    ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1], dev)
     return types.SimpleNamespace(n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
                                  sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
                                  runs1=runs1, runs_ones=runs_ones, bk=bk,
-                                 wins=wins)
+                                 wins=wins, x1=x1, xi1=xi1, local=local,
+                                 totals=totals, lp=lp, ls=ls,
+                                 lp16=lp[:16].contiguous(),
+                                 ls16=ls[:16].contiguous(),
+                                 diffs=FR.sub(x1, aggregation_dom(m, dev)))
+
+
+def aggregation_dom(m, dev):
+    """The domain points ω^i of ``pianist.aggregate`` for m workers."""
+    return pianist.aggregation_constants(m, dev)[0]
+
+
+def popcount(t: torch.Tensor) -> int:
+    """Set bits of an int32 tensor."""
+    return int(np.unpackbits(t.cpu().numpy().view(np.uint8)).sum())
+
+
+def ladder_by_launches(p, scalars):
+    """The ladder as the port ran it before it was one kernel: for each of
+    the 256 bits one K1 double, one K1 add and a select."""
+    acc = cv.g1_infinity(p.shape[:-2], p.device)
+    for bit in range(LADDER_BITS - 1, -1, -1):
+        b = (scalars[..., bit // 32] >> (bit % 32)) & 1
+        acc = kernels.g1_double(acc)
+        acc = cv.g1_select(b.bool(), kernels.g1_add(acc, p), acc)
+    return acc
 
 
 def bucket_add_count(digits: torch.Tensor) -> int:
@@ -388,7 +470,33 @@ def path_calls(x):
     rows_b, nb = bk.shape[:2]
     bucket_adds = bucket_add_count(runs[1])        # this run's data
     windows = tmsm.NUM_WINDOWS
+    x1, xi1, local, totals, lp, ls = x.x1, x.xi1, x.local, x.totals, x.lp, \
+        x.ls
+    tiles = totals.shape[0]
+    pow_bits = (n - 1).bit_length()
+    # the powers' products: a set bit of every k, the table's squarings
+    pow_products = sum(bin(k).count("1") for k in range(n)) + pow_bits - 1
     return {
+        "g1_scalar_mul": (lambda: kernels.g1_scalar_mul(lp, ls),
+                          lambda: cv.g1_scalar_mul_plain(lp, ls), 3, limbs,
+                          2 * G1_BYTES * n + FR_BYTES * n,
+                          LADDER_BITS * OPS_G1_DOUBLE * n
+                          + OPS_G1_ADD * popcount(ls)),
+        "fr_inv": (lambda: kernels.fr_inv(x1), lambda: fr_inv_plain(x1), 20,
+                   fr, 2 * FR_BYTES, INV_CHAIN * OPS_FR_MUL),
+        "fr_powers": (lambda: kernels.fr_powers(x1, n, a),
+                      lambda: fr_powers_plain(x1, n, a), 50, fr,
+                      FR_BYTES * (2 * n + 1),
+                      (pow_products + n) * OPS_FR_MUL),
+        "fr_suffix_scan": (lambda: kernels.fr_suffix_scan(a),
+                           lambda: tpoly.fr_suffix_scan_plain(a), 50,
+                           same_fr_pair, FR_BYTES * (2 * n + tiles),
+                           (n - 1) * OPS_FR_LIN),
+        "fr_open_quotient": (
+            lambda: kernels.fr_open_quotient(local, totals, x1, xi1, a),
+            lambda: tpoly.fr_open_quotient_plain(local, totals, x1, xi1, a),
+            50, same_fr_pair, FR_BYTES * (2 * n + tiles + 3),
+            n * (OPS_FR_LIN + 2 * OPS_FR_MUL) + tiles * OPS_FR_LIN),
         "g1_add": (lambda: kernels.g1_add(p, q),
                    lambda: cv.g1_add_plain(p, q), 20, pts,
                    3 * G1_BYTES * n, OPS_G1_ADD * n),
@@ -476,6 +584,23 @@ def phase_kernels(rng, dev, int_ops_per_s):
                                                        a.cpu())))
     say(f"[kernels] K3 fr_mul / fr_add / fr_sub: {n} elements incl. 0, 1, "
         "r-1, r-2, equal operands and broadcast operands: equal to plain")
+
+    phase_opening_kernels(rng, dev, record)
+
+    # the K1 ladder at the aggregation's 16 points: scalars 0, 1, r − 1,
+    # the point at infinity, random; against the plain version and the loop
+    # of K1 launches it replaces (2^16 points: at the path's shape below)
+    lp = cv.g1_double_plain(random_points(rng, 16, "cpu")[0])    # Z ≠ 1
+    lp[3] = cv.g1_infinity(())
+    ls = FR.from_limbs16(random_scalar_limbs(rng, 16))
+    ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1])
+    got = kernels.g1_scalar_mul(lp.to(dev), ls.to(dev))
+    record("g1_scalar_mul", same_limbs(got, cv.g1_scalar_mul_plain(lp, ls)))
+    record("g1_scalar_mul", same_limbs(got, ladder_by_launches(
+        lp.to(dev), ls.to(dev))))
+    say("[kernels] K1 g1_scalar_mul: 16 points, scalars 0, 1, r-1 and "
+        "random, the point at infinity: equal limb for limb to plain and to "
+        "the K1 launch loop")
 
     # K4: the same cases over Fq (0, 1, q−1, q−2, equal, broadcast)
     a = random_field(FQ, rng, n, dev)
@@ -593,24 +718,33 @@ def phase_kernels(rng, dev, int_ops_per_s):
     # the longest chain of dependent point operations in the K2 kernels:
     # what the two chains are bound by, and the walk's bound whatever the
     # digits
-    depth = {"msm_buckets": tmsm.bucket_depth(x.runs[0].shape[1]),
-             "msm_reduce": tmsm.reduce_depth(nb),
-             "msm_combine": windows * (tmsm.WINDOW_BITS + 1)}
+    depth = {"msm_buckets": (tmsm.bucket_depth(x.runs[0].shape[1]),
+                             "point operations"),
+             "msm_reduce": (tmsm.reduce_depth(nb), "point operations"),
+             "msm_combine": (windows * (tmsm.WINDOW_BITS + 1),
+                             "point operations"),
+             "fr_inv": (INV_CHAIN, "Fr products")}
     for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
         r = res[name]
         r["ms"], got = time_cuda(kern, reps)
-        r["plain_ms"], want = time_cuda(plain, 1)
+        r["plain_ms"], want = time_cuda(plain, 1, warm=name not in SLOW_PLAIN)
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops, int_ops_per_s)
         record(name, same(got, want))
         del want
-        say(f"[kernels] {name} at its path's shape {tuple(got.shape)}: "
+        say(f"[kernels] {name} at its path's shape {shape_of(got)}: "
             f"equal to plain; kernel {r['ms']:.4f} ms a launch on the "
             f"host's loop, plain {r['plain_ms']:.2f} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
         if name in depth:
-            say(f"[kernels] {name}: longest chain {depth[name]} dependent "
-                f"point operations, {r['ms'] / depth[name] * 1e3:.2f} us "
-                "each")
+            steps, unit = depth[name]
+            say(f"[kernels] {name}: longest chain {steps} dependent {unit}, "
+                f"{r['ms'] / steps * 1e3:.3f} us each")
+    # the ladder against the loop of K1 launches it replaces, at 2^16 points
+    record("g1_scalar_mul", same_limbs(kernels.g1_scalar_mul(x.lp, x.ls),
+                                       ladder_by_launches(x.lp, x.ls)))
+    say(f"[kernels] g1_scalar_mul at 2^{LOG_N} points (scalars 0, 1, r-1, "
+        "the point at infinity, random): equal limb for limb to the loop of "
+        f"{2 * LADDER_BITS} K1 launches it replaces")
     # the same kernels at one MSM (the shapes a lone commit gives them)
     p, runs1, bk, wins = x.p, x.runs1, x.bk, x.wins
     ones = x.runs_ones
@@ -629,19 +763,100 @@ def phase_kernels(rng, dev, int_ops_per_s):
                lambda: tmsm.msm_reduce_plain(bk1)),
               ("msm_combine", "one MSM", limbs,
                lambda: kernels.msm_combine(wins[0], 8),
-               lambda: tmsm.msm_combine_plain(wins[0]))]
+               lambda: tmsm.msm_combine_plain(wins[0])),
+              # the aggregation's shapes: 16 ladders, 16 inverses
+              ("g1_scalar_mul", "16 points", limbs,
+               lambda: kernels.g1_scalar_mul(x.lp16, x.ls16),
+               lambda: cv.g1_scalar_mul_plain(x.lp16, x.ls16)),
+              ("fr_inv", "16 elements", same_fr,
+               lambda: kernels.fr_inv(x.diffs),
+               lambda: fr_inv_plain(x.diffs)),
+              # one element: what each of the 418 launches of the inverse
+              # cost the host before fr_inv
+              ("fr_mul", "one element", same_fr,
+               lambda: kernels.fr_mul(x.x1, x.xi1),
+               lambda: fr_mul_plain(x.x1, x.xi1))]
     for name, label, same, kern, plain in others:
         ms, got = time_cuda(kern, 5)
         record(name, same(got, plain()))
         say(f"[kernels] {name}, {label}, {tuple(got.shape)}: equal to "
             f"plain; kernel {ms:.4f} ms")
         res[name].setdefault("other_ms", {})[label] = ms
+    step_ms = res["g1_scalar_mul"]["other_ms"]["16 points"] / LADDER_BITS
+    say(f"[kernels] g1_scalar_mul at 16 points: {LADDER_BITS} dependent "
+        f"double-and-add steps, {step_ms * 1e3:.2f} us each (msm_combine's "
+        "point operation, by a warp: PERF.md)")
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
     say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
         f"shape is {x.m}): "
         f"{time_cuda(lambda: kernels.fr_sub(x.a, x.b), 50)[0]:.4f} ms")
     return res
+
+
+def phase_opening_kernels(rng, dev, record):
+    """K3's opening kernels against their plain versions (on CPU copies;
+    at 2^16 on the card): ``fr_inv`` on 0, 1, r − 1, r − 2, the 16
+    differences β − ω^i of the aggregation and random values; ``fr_powers``
+    at x = 0, 1, r − 1 and random, n = 1, 1000 and 2^16, with and without
+    c; the two scan passes on a random row and a row of zeros at 2^16 and
+    a row of 3000 (no multiple of the tile), at the same points, both
+    quotient forms; and the whole opening (``poly_open_scalars``) against
+    the plain versions composed, while the host may not wait for the card
+    (``torch.cuda.set_sync_debug_mode("error")``: no value of x comes
+    back)."""
+    vals = random_fr(rng, 64, dev)                 # 0, 1, r−1, r−2, random
+    diffs = FR.sub(vals[10], aggregation_dom(1 << ROUND_MACHINES_SCALE, dev))
+    for t in (vals, diffs, vals[:1], vals[1:2]):
+        record("fr_inv", same_fr(kernels.fr_inv(t.contiguous()),
+                                 fr_inv_plain(t.cpu())))
+    xs = [vals[i].contiguous() for i in (0, 1, 2, 9)]
+    big = 1 << LOG_N
+    for n_pow in (1, 1000, big):
+        c = random_fr(rng, n_pow, dev)
+        host = n_pow < big
+        for x in xs:
+            xp, cp = (x.cpu(), c.cpu()) if host else (x, c)
+            record("fr_powers", same_fr(kernels.fr_powers(x, n_pow),
+                                        fr_powers_plain(xp, n_pow)))
+            record("fr_powers", same_fr(kernels.fr_powers(x, n_pow, c),
+                                        fr_powers_plain(xp, n_pow, cp)))
+    rows = (("random", random_fr(rng, big, dev)),
+            ("all zeros", FR.zeros((big,), dev)),
+            ("3000 coefficients", random_fr(rng, 3000, dev)))
+    for label, c in rows:
+        local, totals = kernels.fr_suffix_scan(c)
+        record("fr_suffix_scan", same_fr_pair(
+            (local, totals), tpoly.fr_suffix_scan_plain(c)))
+        for x in xs:
+            xi = kernels.fr_inv(x)
+            for canonical in (True, False):
+                record("fr_open_quotient", same_fr_pair(
+                    kernels.fr_open_quotient(local, totals, x, xi, c,
+                                             canonical),
+                    tpoly.fr_open_quotient_plain(local, totals, x, xi, c,
+                                                 canonical=canonical)))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = tpoly.poly_open_scalars(c, x)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            record("fr_open_quotient", same_fr_pair(
+                got, tpoly.open_pieces_plain(c, x)))
+        say(f"[kernels] K3 fr_suffix_scan / fr_open_quotient ({label}, "
+            f"{tuple(local.shape)} in tiles of {tpoly.SCAN_TILE}), at x = 0, "
+            "1, r-1 and random, canonical and Montgomery: equal to plain; "
+            "poly_open_scalars equals the plain versions composed, with no "
+            "wait for the card on the host")
+    x_int = FR.decode(xs[3])[0]
+    c = rows[2][1]
+    check(FR.decode(tpoly.poly_open_scalars(c, xs[3])[0])
+          == [o.poly_eval(FR.decode(c), x_int)], "opening: y != f(x)")
+    say("[kernels] K3 fr_inv (64 values incl. 0, 1, r-1, r-2; the 16 "
+        "aggregation differences) and fr_powers (x = 0, 1, r-1, random; "
+        "n = 1, 1000, 2^16, with and without c): equal to plain; y of the "
+        "3000-coefficient row equals the oracle's f(x)")
 
 
 def butterfly_inputs(rng, dev):
@@ -695,15 +910,28 @@ def phase_device_times(res, dev):
     ``torch.cuda.empty_cache()``, a profiler run for good), which the
     launch-bound phases would show."""
     rng = np.random.default_rng(SEED + 1)
-    calls = {name: call[0] for name, call in
-             path_calls(path_inputs(rng, dev)).items()}
+    x = path_inputs(rng, dev)
+    calls = {name: call[0] for name, call in path_calls(x).items()}
     v, tw = butterfly_inputs(rng, dev)
     calls["fr_butterfly"] = lambda: kernels.fr_butterfly(v, tw, LOG_N // 2)
     graph_launches = {"fq_mul": 20, "fq_add": 20, "fq_sub": 20,
-                      "msm_buckets": 5, "msm_reduce": 5, "msm_combine": 5}
+                      "msm_buckets": 5, "msm_reduce": 5, "msm_combine": 5,
+                      "g1_scalar_mul": 2, "fr_inv": 20}
     for name, r in res.items():
         r["device_ms"] = time_graph(calls[name],
                                     graph_launches.get(name, 100))
+    # the shapes of the aggregation and of one launch of the old inverse
+    others = {("g1_scalar_mul", "16 points, device"): (
+                  lambda: kernels.g1_scalar_mul(x.lp16, x.ls16), 5),
+              ("fr_inv", "16 elements, device"): (
+                  lambda: kernels.fr_inv(x.diffs), 20),
+              ("fr_mul", "one element, device"): (
+                  lambda: kernels.fr_mul(x.x1, x.xi1), 100)}
+    for (name, label), (fn, launches) in others.items():
+        ms = time_graph(fn, launches)
+        res[name].setdefault("other_ms", {})[label] = ms
+        say(f"[device] {name}, {label.split(',')[0]}: {ms:.4f} ms a launch "
+            "by graph replay")
     for name, r in res.items():
         r["profiler_ms"] = time_profiler(calls[name], 20)
         prof = ("no device time" if r["profiler_ms"] is None
@@ -715,7 +943,8 @@ def phase_device_times(res, dev):
 
 def build_srs(dev):
     """A one-worker SRS (scale 16, machines_scale 0) whose row is the
-    2^16-base slice [τ^j]G1: τ^j by K3, the points by g1_scalar_mul (K1)."""
+    2^16-base slice [τ^j]G1: τ^j by K3 ``fr_powers``, the points by one
+    launch of the K1 ladder ``g1_scalar_mul``."""
     n = 1 << LOG_N
     powers = FR.from_mont(FR.powers(FR.encode([TAU], dev)[0], n))
     gen = cv.g1_encode([o.G1.from_affine(o.G1_GEN)], dev)
@@ -751,14 +980,34 @@ def selfcheck(resp, row_ints, x_int, commit_only):
           == o.G1.to_affine(o.G1.mul(g, q_tau)), "proof != [q(tau)]G1")
 
 
+def check_request_launches(used, label):
+    """One request's launches: one of each K2 kernel (a batched commit +
+    opening), the opening in four K3 launches (one each of fr_inv,
+    fr_powers and the two scan passes; no fr_add), at most six K3-family
+    launches in all, and no K1 double or ladder."""
+    for k in ("msm_buckets", "msm_reduce", "msm_combine", "fr_inv",
+              "fr_powers", "fr_suffix_scan", "fr_open_quotient"):
+        check(used[k] == 1, f"{label}: {used[k]} {k} launches, not 1")
+    for k in ("fr_add", "g1_double", "g1_scalar_mul"):
+        check(used[k] == 0, f"{label}: {used[k]} {k} launches, not 0")
+    k3 = sum(used[k] for k in K3_FAMILY)
+    check(k3 <= 6, f"{label}: {k3} K3-family launches, more than 6")
+    check(used["g1_add"] > 0 and used["fr_mul"] > 0,
+          f"{label}: no g1_add or fr_mul launch")
+
+
 def phase_main_path(rng, dev):
     n = 1 << LOG_N
     kernels.reset_launches()
     t0 = time.perf_counter()
     srs = build_srs(dev)
     torch.cuda.synchronize()
+    setup = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(setup.get("g1_scalar_mul") == 1 and "g1_double" not in setup,
+          f"build_srs: not one ladder launch and no K1 double: {setup}")
     say(f"[main] SRS slice of {n} bases [tau^j]G1 built on the card in "
-        f"{time.perf_counter() - t0:.2f} s; 5 bases match the oracle")
+        f"{time.perf_counter() - t0:.2f} s; 5 bases match the oracle; "
+        f"setup launches {setup}")
     worker = Worker(srs)
 
     def request(commit_only, limbs=None):
@@ -772,7 +1021,7 @@ def phase_main_path(rng, dev):
         torch.cuda.synchronize()
         return resp, limbs, x_int, time.perf_counter() - t
 
-    first_s = None
+    first_s, per_request = None, None
     for i, commit_only in enumerate((False, False, True)):
         before = dict(kernels.LAUNCHES)
         resp, limbs, x_int, dt = request(commit_only)
@@ -783,25 +1032,27 @@ def phase_main_path(rng, dev):
             check(worker.worker_verify(0, resp.proof, resp.alpha, resp.eval_,
                                        resp.commitment),
                   "worker_verify rejected the proof")
-        for k in ("g1_add", "fr_mul", "fr_add"):
-            check(used[k] > 0, f"request {i}: no {k} launch")
-        for k in ("msm_buckets", "msm_reduce", "msm_combine"):
-            check(used[k] == 1, f"request {i}: {used[k]} {k} launches, "
-                  "not the one of a batched commit + opening")
+        check_request_launches(used, f"request {i}")
+        per_request = per_request or used
         kind = "commit-only" if commit_only else "commit+open"
         say(f"[main] request {i} ({kind}, {n} coefficients): {dt:.3f} s, "
             f"trapdoor self-check PASS"
             + ("" if commit_only else ", pairing verify PASS")
-            + f"; launches {used}")
+            + f"; launches {({k: v for k, v in used.items() if v})}")
     launches = dict(kernels.LAUNCHES)
-    for k in ("g1_add", "g1_double", "msm_buckets", "msm_reduce",
-              "msm_combine", "fr_mul", "fr_add"):
+    for k in ("g1_add", "g1_scalar_mul", "msm_buckets", "msm_reduce",
+              "msm_combine", "fr_mul", "fr_inv", "fr_powers",
+              "fr_suffix_scan", "fr_open_quotient"):
         check(launches[k] > 0, f"main path never launched {k}")
 
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(WARM_REQUESTS):
+    for i in range(WARM_REQUESTS):
+        before = dict(kernels.LAUNCHES)
         resp, _, _, dt = request(False)
+        check_request_launches(
+            {k: kernels.LAUNCHES[k] - before[k] for k in before},
+            f"warm request {i}")
         check(resp.commitment is not None and resp.proof is not None,
               "warm request failed")
         times.append(dt)
@@ -835,17 +1086,16 @@ def phase_main_path(rng, dev):
         check(worker.worker_verify(0, resp.proof, resp.alpha, resp.eval_,
                                    resp.commitment),
               f"worker_verify rejected the {label} request's proof")
-        for k in ("msm_buckets", "msm_reduce", "msm_combine"):
-            check(used[k] == 1, f"{label} request: {used[k]} {k} launches")
+        check_request_launches(used, f"{label} request")
         skew_times.append(dt)
         say(f"[main] skewed request ({label}): {dt * 1e3:.2f} ms, trapdoor "
             "self-check PASS, pairing verify PASS; one launch of each K2 "
-            "kernel")
+            "kernel, the opening in four K3 launches")
     say(f"[main] skewed 2^{LOG_N} rows: median "
         f"{statistics.median(skew_times) * 1e3:.2f} ms over "
         f"{len(skew_times)} ({', '.join(f'{t * 1e3:.2f}' for t in skew_times)}"
         f" ms) beside the random rows' median {med:.2f} ms")
-    return launches
+    return launches, setup, per_request
 
 
 def on_curve_defect(points: torch.Tensor) -> torch.Tensor:
@@ -881,7 +1131,7 @@ def check_srs(srs, lag, dev):
         check(cv.g1_affine(srs.lagrange_y[i])[0] == want(lag[i]),
               f"lagrange_y[{i}] != [R_{i}(tau_y)]G1")
 
-    # 256 of the comb's outputs against g1_scalar_mul (K1 double + add)
+    # 256 of the comb's outputs against g1_scalar_mul (the K1 ladder)
     idx = [(i, (977 * k + 31 * i) % t) for k in range(16) for i in range(m)]
     scalars = cv.fr_to_scalar_limbs(
         [lag[i] * pow(TAU, j, o.R) for i, j in idx], dev)
@@ -1005,6 +1255,11 @@ def phase_round(rng, dev):
     t_agg = time.perf_counter() - t0
     agg_launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                     if v - before[k]}
+    check(agg_launches.get("fr_inv") == 2
+          and agg_launches.get("g1_scalar_mul") == 2
+          and "g1_double" not in agg_launches,
+          f"aggregate: not 2 fr_inv and 2 ladders without a K1 double "
+          f"({agg_launches})")
     lag_b = _lagrange_coeffs_at(beta, m)
     check(FR.decode(agg.value)[0]
           == sum(a * b for a, b in zip(lag_b, ys)) % o.R,
@@ -1031,7 +1286,9 @@ def phase_round(rng, dev):
     # 5. launch counts of this path
     launches = dict(kernels.LAUNCHES)
     for k, v in launches.items():
-        check(v > 0, f"the round path never launched {k}")
+        # the double runs inside the ladder's kernel, never on its own
+        check(v == 0 if k == "g1_double" else v > 0,
+              f"the round path launched {k} {v} times")
     say(f"[round] launches {launches}")
 
     # after the counts are read: the aggregation warm, on the host's clock
@@ -1102,7 +1359,8 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         res = phase_kernels(rng, dev, int_ops_per_s)
-        main_launches = phase_main_path(rng, dev)
+        main_launches, setup_launches, request_launches = phase_main_path(
+            rng, dev)
         round_launches = phase_round(rng, dev)
         phase_ntt_cells(dev)
         phase_device_times(res, dev)
@@ -1116,6 +1374,8 @@ def main() -> int:
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": main_launches[k] + round_launches[k],
               "launches_main": main_launches[k],
+              "launches_main_setup": setup_launches.get(k, 0),
+              "launches_main_request": request_launches[k],
               "launches_round": round_launches[k],
               "max_abs_err": res[k]["max_abs_err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],

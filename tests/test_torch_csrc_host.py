@@ -1,6 +1,8 @@
 """The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
 fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
-integers and the port's plain point formulas.
+integers and the port's plain point formulas: the field operations, the
+inversion chain (fr::inv), the point add and double, and the
+double-and-add ladder (g1_scalar_mul).
 
 The headers' carry chains are PTX (csrc/ptx.cuh), which only the card runs.
 Here ptx.cuh is replaced by an emulation of its functions with one global
@@ -63,7 +65,8 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
 """
 
 # reads records "op word...", writes the result's words a line each:
-# ops 0-2 Fr mul/add/sub, 3-5 Fq mul/add/sub, 6 g1_add, 7 g1_double
+# ops 0-2 Fr mul/add/sub, 3-5 Fq mul/add/sub, 6 g1_add, 7 g1_double,
+# 8 Fr inverse, 9 the ladder (a point, then its scalar's 8 words)
 HOST_MAIN = r"""
 #include <cstdint>
 #include <cstdio>
@@ -89,7 +92,11 @@ int main() {
   int op;
   while (scanf("%d", &op) == 1) {
     uint32_t a[36], b[36], r[36];
-    if (op < 6) {
+    if (op == 8) {
+      read(a, fr::L);
+      fr::inv(r, a);
+      write(r, fr::L);
+    } else if (op < 6) {
       const int n = op < 3 ? fr::L : fq::L;
       read(a, n);
       read(b, n);
@@ -110,6 +117,9 @@ int main() {
         read(b, G1_WORDS);
         g1_load(Q, b);
         g1_add(R, P, Q);
+      } else if (op == 9) {
+        read(b, 8);
+        g1_scalar_mul(R, P, b);
       } else {
         g1_double(R, P);
       }
@@ -196,3 +206,37 @@ def test_point_formulas_match_plain(host_binary):
     got = np.stack(_run(host_binary, records)).view(np.int32)
     want = torch.cat([tcv.g1_add_plain(lhs, rhs), tcv.g1_double_plain(lhs)])
     assert np.array_equal(got.reshape(-1, 3, 12), want.numpy())
+
+
+def test_inverse_chain_matches_python_integers(host_binary):
+    """fr::inv (the chain of K3 fr_inv) on 0, 1, r − 1 and random values
+    against x^(r−2) mod r, limb for limb in Montgomery form."""
+    rng = np.random.default_rng(13)
+    vals = [0, 1, 2, o.R - 1] + [int.from_bytes(rng.bytes(40), "little")
+                                 % o.R for _ in range(12)]
+    mont = [v * (1 << 256) % o.R for v in vals]
+    got = _run(host_binary, [(8, (_words(m, 8),)) for m in mont])
+    assert [_int(g) for g in got] == [pow(v, o.R - 2, o.R) * (1 << 256)
+                                      % o.R for v in vals]
+
+
+def test_ladder_matches_plain_and_python_integers(host_binary):
+    """g1_scalar_mul of g1.cuh (the body of K1 g1_scalar_mul) with scalars
+    0, 1, r − 1 and a random one, on projective points and infinity:
+    limb for limb the plain ladder's, and [k]P as Python's integers say."""
+    rng = np.random.default_rng(17)
+    dlogs = [int.from_bytes(rng.bytes(40), "little") % (o.R - 1) + 1
+             for _ in range(3)]
+    G = o.G1.from_affine(o.G1_GEN)
+    p = tcv.g1_double(tcv.g1_encode([o.G1.mul(G, d) for d in dlogs]))
+    p = torch.cat([p, tcv.g1_infinity((1,))])
+    ks = [0, 1, o.R - 1, int.from_bytes(rng.bytes(40), "little") % o.R]
+    sc = tcv.fr_to_scalar_limbs(ks)
+    words = p.numpy().view(np.uint32).reshape(-1, 36)
+    got = np.stack(_run(host_binary, [
+        (9, (w, _words(k, 8))) for w, k in zip(words, ks)])).view(np.int32)
+    assert np.array_equal(got.reshape(-1, 3, 12),
+                          tcv.g1_scalar_mul_plain(p, sc).numpy())
+    want = [o.G1.to_affine(o.G1.mul(G, 2 * d * k % o.R))
+            for d, k in zip(dlogs, ks)] + [None]
+    assert tcv.g1_affine(torch.from_numpy(got.reshape(-1, 3, 12))) == want

@@ -6,7 +6,8 @@ The module imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: none (integer arithmetic; points compared as affine points,
-``msm_buckets``, ``msm_reduce`` and ``msm_combine`` limb for limb).
+``msm_buckets``, ``msm_reduce``, ``msm_combine`` and ``g1_scalar_mul``
+limb for limb).
 """
 
 import numpy as np
@@ -18,7 +19,9 @@ from zkp_subnet_tpu_torch.ops import curve as tcv
 from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
 from zkp_subnet_tpu_torch.ops import ntt as tntt
-from zkp_subnet_tpu_torch.ops.field import FQ, FR
+from zkp_subnet_tpu_torch.ops import poly as tpoly
+from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fr_inv_plain,
+                                            fr_powers_plain)
 from zkp_subnet_tpu_torch.runtime.worker import Prove, Worker
 from zkp_subnet_tpu_torch.utils import encoding as enc
 from zkp_subnet_tpu_torch.utils import oracle as o
@@ -344,3 +347,141 @@ def test_point_kernels_refuse_what_they_do_not_take(dev, path_points):
     skewed = flat[1:].view(8, 3, 12)
     skewed.copy_(p)
     assert torch.equal(kernels.g1_add(skewed, p), kernels.g1_add(p, p))
+
+
+# -- the opening's K3 kernels and the K1 ladder ---------------------------------
+
+def _edge_fr(seed, n):
+    """n Fr values (Montgomery) from a seed, the first three 0, 1, r − 1."""
+    return FR.encode(_field_values(FR.p, seed, max(n, 3))[:n])
+
+
+def test_fr_inv_kernel_matches_plain(dev):
+    """0, 1, r − 1, the 16 differences β − ω^i of the aggregation, and
+    random values, limb for limb against the plain chain and Fermat."""
+    from zkp_subnet_tpu_torch.models import pianist
+    a = _edge_fr(21, 200)
+    dom, _ = pianist.aggregation_constants(16)
+    diffs = FR.sub(a[100], dom)
+    for x in (a, diffs, a[1:2], a[:1]):
+        got = kernels.fr_inv(x.to(dev)).cpu()
+        assert torch.equal(got, fr_inv_plain(x))
+    assert FR.decode(kernels.fr_inv(a.to(dev))) == [
+        pow(v, o.R - 2, o.R) for v in FR.decode(a)]
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4097])
+def test_fr_powers_kernel_matches_plain(dev, n):
+    c = _edge_fr(22, n)
+    for x in _edge_fr(23, 4):                  # 0, 1, r − 1, random
+        xd = x.contiguous().to(dev)
+        assert torch.equal(kernels.fr_powers(xd, n).cpu(),
+                           fr_powers_plain(x, n))
+        assert torch.equal(kernels.fr_powers(xd, n, c.to(dev)).cpu(),
+                           fr_powers_plain(x, n, c))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 1 << 16])
+def test_opening_kernels_match_plain(dev, n):
+    """fr_suffix_scan and fr_open_quotient each against its plain version
+    on the same inputs (tiles of the kernel's 1024: one partial tile, one
+    full, three with a partial last, 64 full), at x 0, 1, r − 1 and random,
+    both quotient forms; and a row of zeros. The plain versions run on the
+    card."""
+    rows = [_edge_fr(24, n).to(dev), FR.zeros((n,), dev)]
+    for c in rows:
+        local, totals = kernels.fr_suffix_scan(c)
+        want = tpoly.fr_suffix_scan_plain(c)
+        assert torch.equal(local, want[0]) and torch.equal(totals, want[1])
+        for x in _edge_fr(25, 4).to(dev):
+            xi = kernels.fr_inv(x)
+            for canonical in (True, False):
+                got = kernels.fr_open_quotient(local, totals, x, xi, c,
+                                               canonical)
+                want = tpoly.fr_open_quotient_plain(local, totals, x, xi, c,
+                                                    canonical=canonical)
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+            if n <= 3000:      # against the CPU's composition
+                y, q = tpoly.poly_open_scalars(c, x)
+                wy, wq = tpoly.poly_open_scalars(c.cpu(), x.cpu())
+                assert torch.equal(y.cpu(), wy) and torch.equal(q.cpu(), wq)
+
+
+def test_opening_reads_nothing_back_and_launches_four_kernels(dev):
+    c = _edge_fr(26, 3000).to(dev)
+    x = _edge_fr(27, 4)[3].contiguous().to(dev)
+    before = dict(kernels.LAUNCHES)
+    y, q = tpoly.poly_open_scalars(c, x)
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+    assert used == {"fr_inv": 1, "fr_powers": 1, "fr_suffix_scan": 1,
+                    "fr_open_quotient": 1}
+    assert FR.decode(y) == [o.poly_eval(FR.decode(c), FR.decode(x)[0])]
+
+
+@pytest.mark.parametrize("n", [16, 1000])
+def test_g1_scalar_mul_kernel_matches_plain(dev, n):
+    """Scalars 0, 1, r − 1 and random ones, the point at infinity among the
+    bases, limb for limb against the plain ladder (on the card) and one
+    launch for the whole ladder."""
+    pts, dlogs, ks = _instance(n, 28)
+    pts = tcv.g1_double_plain(pts)              # Z ≠ 1
+    pts[3] = tcv.g1_infinity(())
+    ks[:3] = [0, 1, o.R - 1]
+    p, sc = pts.to(dev), tcv.fr_to_scalar_limbs(ks, dev)
+    before = dict(kernels.LAUNCHES)
+    got = tcv.g1_scalar_mul(p, sc)
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+    assert used == {"g1_scalar_mul": 1}
+    assert torch.equal(got, tcv.g1_scalar_mul_plain(p, sc))
+    want = [o.G1.to_affine(o.G1.mul(G, 2 * d * k % o.R))
+            for d, k in zip(dlogs[:8], ks[:8])]
+    want[3] = None
+    assert tcv.g1_affine(got[:8]) == want
+
+
+def test_new_kernels_refuse_what_they_do_not_take(dev):
+    """Misaligned (16-byte words), non-contiguous and wrongly typed tensors
+    are refused by the opening's kernels; the ladder reads 4-byte words, so
+    a view 4 bytes into its storage is taken and computed right."""
+    c = _edge_fr(29, 64).to(dev)
+    x = c[5].contiguous()
+    flat = torch.zeros(64 * 8 + 1, dtype=torch.int32, device=dev)
+    skewed = flat[1:].view(64, 8)
+    skewed.copy_(c)
+    strided = torch.zeros((64, 16), dtype=torch.int32, device=dev)[:, :8]
+    local, totals = kernels.fr_suffix_scan(c)
+    for bad in (skewed, strided, c.to(torch.int64)):
+        exc = ValueError
+        with pytest.raises(exc):
+            kernels.fr_inv(bad)
+        with pytest.raises(exc):
+            kernels.fr_suffix_scan(bad)
+        with pytest.raises(exc):
+            kernels.fr_powers(x, 64, bad)
+        with pytest.raises(exc):
+            kernels.fr_open_quotient(bad, totals, x, x, c)
+        with pytest.raises(exc):
+            kernels.fr_open_quotient(local, totals, x, x, bad)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.fr_powers(skewed[0], 64)
+    with pytest.raises(ValueError):
+        kernels.fr_powers(c[:2], 64)                       # two elements
+    with pytest.raises(ValueError):
+        kernels.fr_open_quotient(local, totals[:0], x, x, c)
+    p = tcv.g1_infinity((8,), dev)
+    sc = tcv.fr_to_scalar_limbs(list(range(8)), dev)
+    with pytest.raises(ValueError):
+        kernels.g1_scalar_mul(p, sc[:4])                   # shapes differ
+    with pytest.raises(ValueError):
+        kernels.g1_scalar_mul(p, sc.to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.g1_scalar_mul(p.transpose(1, 2), sc)       # not contiguous
+    pts = tcv.g1_double_plain(_instance(8, 30)[0]).to(dev)
+    pflat = torch.zeros(8 * 36 + 1, dtype=torch.int32, device=dev)
+    pskew = pflat[1:].view(8, 3, 12)
+    pskew.copy_(pts)
+    assert torch.equal(kernels.g1_scalar_mul(pskew, sc),
+                       kernels.g1_scalar_mul(pts, sc))

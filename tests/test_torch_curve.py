@@ -107,6 +107,20 @@ def test_scalar_mul_matches_oracle():
                             for a, k in zip(d, ks)]
 
 
+def test_scalar_mul_plain_matches_jax():
+    """The plain version of K1 g1_scalar_mul (the double-and-add loop)
+    against the JAX package's ladder, projectively limb for limb, with
+    scalars 0, 1, r − 1 and a random one, on projective points and the
+    point at infinity."""
+    p = tcv.g1_double(_points(_dlogs(3, 18)))            # Z ≠ 1
+    p = torch.cat([p, tcv.g1_infinity((1,))])
+    ks = [0, 1, o.R - 1, _dlogs(1, 19)[0]]
+    got = tcv.g1_scalar_mul_plain(p, tcv.fr_to_scalar_limbs(ks))
+    want = jcv.g1_scalar_mul(jnp.asarray(to_numpy_points(p)),
+                             jcv.fr_to_scalar_limbs(ks))
+    assert np.array_equal(to_numpy_points(got), np.asarray(want))
+
+
 def test_fixed_base_tables_match_jax():
     """tables[j, d] = [d·2^(8j)]G, limb for limb the JAX package's, at a few
     (j, d), and as affine points against the oracle."""

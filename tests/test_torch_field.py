@@ -105,6 +105,39 @@ def test_plain_ops_broadcast_a_single_operand(name):
     assert TF.decode(TF.add(c, a)) == [(x + xs[7]) % TF.p for x in xs]
 
 
+def test_fr_inv_plain_matches_jax_and_oracle():
+    """The plain version of K3 fr_inv (the kernel's left-to-right chain)
+    against the JAX package's inverse, limb for limb, 0 ↦ 0 included."""
+    xs = _values(tf.FR.p, 6, n=6)                  # JFR.inv's shape above
+    ja = JFR.encode(xs)
+    got = tf.fr_inv_plain(tf.FR.from_limbs16(np.asarray(ja)))
+    assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(JFR.inv(ja)))
+    assert tf.FR.decode(got) == [pow(x, o.R - 2, o.R) for x in xs]
+
+
+def test_fr_powers_plain_matches_jax_and_oracle():
+    """The plain version of K3 fr_powers (a table of x^(2^j), a product a
+    set bit) against the JAX package's powers, with and without the
+    termwise factor c, at x random, 0, 1 and r − 1 and a width that is no
+    power of two."""
+    n = 21
+    cs = _values(tf.FR.p, 8, n=n)
+    jc = JFR.encode(cs)
+    c = tf.FR.from_limbs16(np.asarray(jc))
+    for x in (_values(tf.FR.p, 7, n=5)[4], 0, 1, o.R - 1):
+        jx = JFR.encode([x])[0]
+        jpw = JFR.powers(jx, n)
+        xt = tf.FR.encode([x])[0]
+        got = tf.fr_powers_plain(xt, n)
+        assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(jpw)), x
+        assert tf.FR.decode(got) == [pow(x, k, o.R) for k in range(n)]
+        got = tf.fr_powers_plain(xt, n, c)
+        assert np.array_equal(tf.FR.to_limbs16(got),
+                              np.asarray(JFR.mont_mul(jc, jpw))), x
+        assert torch.equal(got, tf.FR.mont_mul(c, tf.FR.powers(xt, n)))
+    assert tf.FR.decode(tf.fr_powers_plain(tf.FR.encode([5])[0], 1)) == [1]
+
+
 def test_powers_select_is_zero():
     x = 0x1234567890ABCDEF
     pw = tf.FR.powers(tf.FR.encode([x])[0], 21)
@@ -178,14 +211,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             kern(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_butterfly(a, a[:1], 1)
-    assert (tf.FR._mul_kernel, tf.FR._add_kernel, tf.FR._sub_kernel) == \
-        (kernels.fr_mul, kernels.fr_add, kernels.fr_sub)
+    for call in (lambda: kernels.fr_inv(a), lambda: kernels.fr_powers(a[0], 4),
+                 lambda: kernels.fr_suffix_scan(a),
+                 lambda: kernels.fr_open_quotient(a, a[:1], a[0], a[0], a),
+                 lambda: kernels.g1_scalar_mul(
+                     torch.zeros((2, 3, 12), dtype=torch.int32), a)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (tf.FR._mul_kernel, tf.FR._add_kernel, tf.FR._sub_kernel,
+            tf.FR._inv_kernel, tf.FR._powers_kernel) == \
+        (kernels.fr_mul, kernels.fr_add, kernels.fr_sub, kernels.fr_inv,
+         kernels.fr_powers)
     assert (tf.FQ._mul_kernel, tf.FQ._add_kernel, tf.FQ._sub_kernel) == \
         (kernels.fq_mul, kernels.fq_add, kernels.fq_sub)
     assert sorted(kernels.LAUNCHES) == sorted(
-        ["g1_add", "g1_double", "msm_buckets", "msm_reduce", "msm_combine",
-         "fr_mul", "fr_add", "fr_sub", "fq_mul", "fq_add", "fq_sub",
-         "fr_butterfly"])
+        ["g1_add", "g1_double", "g1_scalar_mul", "msm_buckets",
+         "msm_reduce", "msm_combine", "fr_mul", "fr_add", "fr_sub",
+         "fr_inv", "fr_powers", "fr_suffix_scan", "fr_open_quotient",
+         "fq_mul", "fq_add", "fq_sub", "fr_butterfly"])
 
 
 def test_ptxas_usage_keys_each_template_instantiation():

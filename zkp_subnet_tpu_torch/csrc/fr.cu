@@ -1,20 +1,31 @@
-// K3: elementwise Fr Montgomery multiply, add and subtract over (N, 8)
-// elements, with one operand optionally broadcast (a single element, step 0).
+// K3: Fr over (N, 8) elements. Elementwise Montgomery multiply, add and
+// subtract, with one operand optionally broadcast (a single element, step
+// 0); and the pipeline of one KZG opening as four whole kernels: the
+// inverse, the powers, and a suffix scan in two passes whose second pass
+// also scales the quotient.
 //
 // Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lane8.BFR as reached
-// from poly._fmul/_fadd (zkp_subnet_tpu/ops/poly.py:37-47) and ntt._f8
-// (zkp_subnet_tpu/ops/ntt.py:136-143): the powers of x and 1/x, the termwise
-// products, the Hillis-Steele suffix sums, the quotient scaling and the
-// de-Montgomery multiply by 1 of one KZG opening; the 1/n scaling of the
-// inverse NTT; the differences, inverses and barycentric sum of the Pianist
-// aggregation.
+// from poly._fmul/_fadd (zkp_subnet_tpu/ops/poly.py:37-47), ntt._f8
+// (zkp_subnet_tpu/ops/ntt.py:136-143) and field.pow_static/powers
+// (zkp_subnet_tpu/ops/field.py:324-359): the powers of x and 1/x, the
+// termwise products, the Hillis-Steele suffix sums, the quotient scaling
+// and the de-Montgomery multiply by 1 of one KZG opening; the 1/n scaling
+// of the inverse NTT; the differences, inverses and barycentric sum of the
+// Pianist aggregation. On the TPU each of those chains is one jitted
+// program; run eagerly, the elementwise kernels cost an opening ~500
+// launches (418 for the inverse alone), each of a few microseconds on the
+// card and ~70 on the host.
 //
-// Bound on the H100: a multiply reads 64 bytes and writes 32 for 128 wide
-// multiply-adds, so at 2^16 elements it is launch-latency bound (~µs of
-// work); the Hillis-Steele suffix sum costs log2(N) launches of the add.
-// The design keeps one element per thread in registers (moved as two
-// 16-byte words each way); a one-pass scan kernel that replaces the log2(N)
-// launches is later work.
+// Bound on the H100. The elementwise kernels: a multiply reads 64 bytes and
+// writes 32 for 128 wide multiply-adds, so at 2^16 elements bytes bound
+// them (~2 us); one element per thread, moved as two 16-byte words each
+// way. The opening's kernels: fr_inv is one dependent chain of 417
+// products a thread (latency; no bytes to speak of); fr_powers (~9
+// products an element at 2^16) and the two scan passes (an add an element,
+// a few products in the second) are bound by operations and bytes at a
+// few microseconds, so what counts is that each is one launch and that no
+// value goes back to the host between them: x and 1/x are read from device
+// memory, and the x = 0 corner of the quotient is chosen on the card.
 #include <cuda_runtime.h>
 
 #include "fr.cuh"
@@ -40,6 +51,222 @@ fr_binary_kernel(const uint32_t* __restrict__ a,
 }
 
 constexpr int THREADS = 256;
+
+// -- the opening's pipeline ---------------------------------------------------
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// out_i = a_i^(r-2) = 1/a_i (0 for 0): one thread an element, the whole
+// chain (fr::inv) in registers.
+constexpr int INV_THREADS = 64;
+
+__global__ void __launch_bounds__(INV_THREADS)
+fr_inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+              long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[fr::L];
+  mont::load<fr::L>(x, a + i * fr::L);
+  fr::inv(x, x);
+  mont::store<fr::L>(out + i * fr::L, x);
+}
+
+// T[j] = x^(2^j) for j < bits, by one thread: a chain of bits - 1
+// squarings (16 at 2^16). T is in shared memory, 16-byte aligned.
+constexpr int MAX_POW_BITS = 32;
+
+__device__ __forceinline__ void square_table(uint32_t* T, const uint32_t* x,
+                                             int bits) {
+  uint32_t t[fr::L];
+  mont::load<fr::L>(t, x);
+  for (int j = 0; j < bits; j++) {
+    mont::store<fr::L>(T + j * fr::L, t);
+    if (j + 1 < bits) fr::mul(t, t, t);
+  }
+}
+
+// out_k = x^k * c_k (c optional), k < n <= 2^bits: one thread a k. Each
+// block squares x into its table of x^(2^j) once; a thread then multiplies
+// the entries of the bits set in k (the same limbs as the JAX package's
+// log-depth doubling: a fully reduced value has one representation).
+constexpr int POW_THREADS = 256;
+
+__global__ void __launch_bounds__(POW_THREADS)
+fr_powers_kernel(const uint32_t* __restrict__ x,
+                 const uint32_t* __restrict__ c, uint32_t* __restrict__ out,
+                 long long n, int bits) {
+  __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
+  if (threadIdx.x == 0) square_table(T, x, bits);
+  __syncthreads();
+  const long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  uint32_t r[fr::L];
+  fr::pow_from_table(r, T, (unsigned long long)k, bits);
+  if (c != nullptr) {
+    uint32_t t[fr::L];
+    mont::load<fr::L>(t, c + k * fr::L);
+    fr::mul(r, r, t);
+  }
+  mont::store<fr::L>(out + k * fr::L, r);
+}
+
+// The suffix scan S_j = sum_{k >= j} t_k in two passes over tiles of
+// SCAN_TILE elements, SCAN_PER_THREAD consecutive ones a thread. Modular
+// addition is associative and a sum has one representation, so the sums
+// are the Hillis-Steele scan's limb for limb.
+constexpr int SCAN_THREADS = 256;
+constexpr int SCAN_PER_THREAD = 4;
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_PER_THREAD;
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+
+__device__ __forceinline__ void shfl_down(uint32_t* r, const uint32_t* v,
+                                          int d) {
+#pragma unroll
+  for (int j = 0; j < fr::L; j++) r[j] = __shfl_down_sync(FULL_MASK, v[j], d);
+}
+
+__device__ __forceinline__ void set_zero(uint32_t* r) {
+#pragma unroll
+  for (int j = 0; j < fr::L; j++) r[j] = 0;
+}
+
+// Pass 1: each block's tile, from the right. A thread sums its elements
+// serially, a warp scans its lanes' sums by shuffles (8 limbs a step), the
+// warps' totals meet in shared memory. Writes the tile's local inclusive
+// suffix sums and the tile's total.
+__global__ void __launch_bounds__(SCAN_THREADS)
+fr_suffix_scan_kernel(const uint32_t* __restrict__ terms,
+                      uint32_t* __restrict__ local,
+                      uint32_t* __restrict__ totals, long long n) {
+  __shared__ __align__(16) uint32_t warp_total[SCAN_WARPS * fr::L];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first =
+      blockIdx.x * (long long)SCAN_TILE + threadIdx.x * SCAN_PER_THREAD;
+  uint32_t s[SCAN_PER_THREAD][fr::L], acc[fr::L];
+  set_zero(acc);
+#pragma unroll
+  for (int e = SCAN_PER_THREAD - 1; e >= 0; e--) {
+    if (first + e < n) {
+      uint32_t t[fr::L];
+      mont::load<fr::L>(t, terms + (first + e) * fr::L);
+      fr::add(acc, acc, t);
+    }
+    fr::copy(s[e], acc);
+  }
+  // inclusive suffix over the warp's lanes of the threads' sums
+  uint32_t inc[fr::L], o[fr::L], carry[fr::L];
+  fr::copy(inc, acc);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    shfl_down(o, inc, d);
+    if (lane + d < 32) fr::add(inc, inc, o);
+  }
+  // the carry into a thread: the lanes above it in its warp, then the
+  // warps above its warp
+  shfl_down(carry, inc, 1);
+  if (lane == 31) set_zero(carry);
+  if (lane == 0) mont::store<fr::L>(warp_total + warp * fr::L, inc);
+  __syncthreads();
+  for (int w = warp + 1; w < SCAN_WARPS; w++) {
+    uint32_t t[fr::L];
+    mont::load<fr::L>(t, warp_total + w * fr::L);
+    fr::add(carry, carry, t);
+  }
+#pragma unroll
+  for (int e = 0; e < SCAN_PER_THREAD; e++) {
+    fr::add(s[e], s[e], carry);
+    if (first + e < n) mont::store<fr::L>(local + (first + e) * fr::L, s[e]);
+  }
+  if (threadIdx.x == 0) mont::store<fr::L>(totals + blockIdx.x * fr::L, s[0]);
+}
+
+// Pass 2, fused with the rest of the opening. One warp adds the totals of
+// the tiles to the right (at most 63 at 2^16) into the tile's carry, while
+// another squares 1/x into the table of (1/x)^(2^j). Then S_j = local_j +
+// carry, y = S_0 (block 0), and q_j = S_{j+1} * (1/x)^(j+1) for j < n
+// (S_n = 0, so q_{n-1} = 0); S_{j+1} of a tile's last element is the carry
+// alone. canonical: q leaves Montgomery form (the power is made canonical
+// once, and a canonical value times a Montgomery one stays canonical). At
+// x = 0 the quotient is c[1:] and a 0 (canonical: from Montgomery form),
+// chosen here on the card.
+__global__ void __launch_bounds__(SCAN_THREADS)
+fr_open_quotient_kernel(const uint32_t* __restrict__ local,
+                        const uint32_t* __restrict__ totals,
+                        const uint32_t* __restrict__ x,
+                        const uint32_t* __restrict__ xi,
+                        const uint32_t* __restrict__ coeffs,
+                        uint32_t* __restrict__ y, uint32_t* __restrict__ q,
+                        long long n, int blocks, int bits, int canonical) {
+  __shared__ __align__(16) uint32_t carry_s[fr::L];
+  __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t v[fr::L], carry[fr::L];
+  mont::load<fr::L>(v, x);
+  const bool at_zero = fr::is_zero(v);
+  if (warp == 0) {
+    uint32_t o[fr::L];
+    set_zero(carry);
+    for (int b = blockIdx.x + 1 + lane; b < blocks; b += 32) {
+      mont::load<fr::L>(o, totals + (long long)b * fr::L);
+      fr::add(carry, carry, o);
+    }
+#pragma unroll
+    for (int d = 16; d >= 1; d >>= 1) {
+      shfl_down(o, carry, d);
+      if (lane < d) fr::add(carry, carry, o);
+    }
+    if (lane == 0) mont::store<fr::L>(carry_s, carry);
+  } else if (threadIdx.x == 32 && !at_zero) {
+    square_table(T, xi, bits);
+  }
+  __syncthreads();
+  mont::load<fr::L>(carry, carry_s);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    mont::load<fr::L>(v, local);
+    fr::add(v, v, carry);
+    mont::store<fr::L>(y, v);
+  }
+  const long long first =
+      blockIdx.x * (long long)SCAN_TILE + threadIdx.x * SCAN_PER_THREAD;
+  if (first >= n) return;
+  uint32_t one[fr::L] = {1};  // the integer 1: a product by it is from_mont
+  if (at_zero) {
+#pragma unroll
+    for (int e = 0; e < SCAN_PER_THREAD; e++) {
+      const long long j = first + e;
+      if (j >= n) break;
+      set_zero(v);
+      if (j + 1 < n) {
+        mont::load<fr::L>(v, coeffs + (j + 1) * fr::L);
+        if (canonical) fr::mul(v, v, one);
+      }
+      mont::store<fr::L>(q + j * fr::L, v);
+    }
+    return;
+  }
+  const long long tile_end =
+      min(n, (blockIdx.x + 1) * (long long)SCAN_TILE);
+  uint32_t pw[fr::L], step[fr::L];
+  fr::pow_from_table(pw, T, (unsigned long long)(first + 1), bits);
+  if (canonical) fr::mul(pw, pw, one);
+  mont::load<fr::L>(step, xi);
+#pragma unroll
+  for (int e = 0; e < SCAN_PER_THREAD; e++) {
+    const long long j = first + e;
+    if (j >= n) break;
+    if (j + 1 < tile_end) {
+      mont::load<fr::L>(v, local + (j + 1) * fr::L);
+      fr::add(v, v, carry);
+    } else {
+      fr::copy(v, carry);
+    }
+    fr::mul(v, v, pw);
+    mont::store<fr::L>(q + j * fr::L, v);
+    if (e + 1 < SCAN_PER_THREAD) fr::mul(pw, pw, step);
+  }
+}
+
+constexpr int REFUSED = (int)cudaErrorInvalidValue;
 
 // a_step / b_step: fr::L for a full operand, 0 for a broadcast single one.
 template <Op OP>
@@ -70,4 +297,63 @@ extern "C" int zkp_fr_add(const void* a, const void* b, void* out,
 extern "C" int zkp_fr_sub(const void* a, const void* b, void* out,
                           long long n, int a_step, int b_step, void* stream) {
   return launch<SUB>(a, b, out, n, a_step, b_step, stream);
+}
+
+extern "C" int zkp_fr_inv(const void* a, void* out, long long n,
+                          void* stream) {
+  if (n > 0) {
+    const long long blocks = (n + INV_THREADS - 1) / INV_THREADS;
+    fr_inv_kernel<<<(unsigned)blocks, INV_THREADS, 0,
+                    (cudaStream_t)stream>>>((const uint32_t*)a,
+                                            (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// c may be null (x^k alone). bits: 1 <= bits <= MAX_POW_BITS, n <= 2^bits.
+extern "C" int zkp_fr_powers(const void* x, const void* c, void* out,
+                             long long n, int bits, void* stream) {
+  if (bits < 1 || bits > MAX_POW_BITS || n > (1LL << bits)) return REFUSED;
+  if (n > 0) {
+    const long long blocks = (n + POW_THREADS - 1) / POW_THREADS;
+    fr_powers_kernel<<<(unsigned)blocks, POW_THREADS, 0,
+                       (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)c, (uint32_t*)out, n, bits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// tile: the caller's idea of SCAN_TILE, refused unless it is this one;
+// totals holds ceil(n / tile) elements.
+extern "C" int zkp_fr_suffix_scan(const void* terms, void* local,
+                                  void* totals, long long n, int tile,
+                                  void* stream) {
+  if (tile != SCAN_TILE) return REFUSED;
+  if (n > 0) {
+    const long long blocks = (n + SCAN_TILE - 1) / SCAN_TILE;
+    fr_suffix_scan_kernel<<<(unsigned)blocks, SCAN_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+        (const uint32_t*)terms, (uint32_t*)local, (uint32_t*)totals, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// bits: (1/x)^(j+1) for j + 1 <= n needs n < 2^bits.
+extern "C" int zkp_fr_open_quotient(const void* local, const void* totals,
+                                    const void* x, const void* xi,
+                                    const void* coeffs, void* y, void* q,
+                                    long long n, int tile, int bits,
+                                    int canonical, void* stream) {
+  if (tile != SCAN_TILE || bits < 1 || bits > MAX_POW_BITS ||
+      n >= (1LL << bits))
+    return REFUSED;
+  if (n > 0) {
+    const long long blocks = (n + SCAN_TILE - 1) / SCAN_TILE;
+    fr_open_quotient_kernel<<<(unsigned)blocks, SCAN_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+        (const uint32_t*)local, (const uint32_t*)totals, (const uint32_t*)x,
+        (const uint32_t*)xi, (const uint32_t*)coeffs, (uint32_t*)y,
+        (uint32_t*)q, n, (int)blocks, bits, canonical);
+  }
+  return (int)cudaGetLastError();
 }

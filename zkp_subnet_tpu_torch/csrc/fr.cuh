@@ -14,6 +14,17 @@ static __constant__ uint32_t P[L] = {
     0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
     0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 
+// R mod r: the Montgomery one.
+static __constant__ uint32_t ONE[L] = {
+    0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+    0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
+
+// r - 2, the exponent of Fermat's inverse: 255 bits, 164 of them set.
+static __constant__ uint32_t INV_EXPONENT[L] = {
+    0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u,
+    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+constexpr int INV_EXPONENT_BITS = 255;
+
 __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b) {
   mont::mul<L>(r, a, b, P, INV);
@@ -27,6 +38,50 @@ __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
 __device__ __forceinline__ void sub(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b) {
   mont::sub<L>(r, a, b, P);
+}
+
+__device__ __forceinline__ void copy(uint32_t* r, const uint32_t* a) {
+#pragma unroll
+  for (int j = 0; j < L; j++) r[j] = a[j];
+}
+
+__device__ __forceinline__ bool is_zero(const uint32_t* a) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int j = 0; j < L; j++) any |= a[j];
+  return any == 0;
+}
+
+// r = a^(r-2) = 1/a (0 for a = 0): left-to-right square-and-multiply over
+// the exponent's bits below the top one, 254 squarings and 163 products,
+// all in registers. The bits are the same for every thread, so a warp
+// never diverges. r may alias a.
+__device__ __forceinline__ void inv(uint32_t* r, const uint32_t* a) {
+  uint32_t base[L], acc[L];
+  copy(base, a);
+  copy(acc, a);
+#pragma unroll 1
+  for (int bit = INV_EXPONENT_BITS - 2; bit >= 0; bit--) {
+    mul(acc, acc, acc);
+    if ((INV_EXPONENT[bit >> 5] >> (bit & 31)) & 1) mul(acc, acc, base);
+  }
+  copy(r, acc);
+}
+
+// r = T[0]^k for k < 2^bits, T[j] = T[0]^(2^j) (Montgomery): one product
+// for each bit set in k, from the Montgomery one.
+__device__ __forceinline__ void pow_from_table(uint32_t* r, const uint32_t* T,
+                                               unsigned long long k,
+                                               int bits) {
+  uint32_t t[L];
+  copy(r, ONE);
+#pragma unroll 1
+  for (int j = 0; j < bits; j++) {
+    if ((k >> j) & 1) {
+      copy(t, T + j * L);
+      mul(r, r, t);
+    }
+  }
 }
 
 }  // namespace fr

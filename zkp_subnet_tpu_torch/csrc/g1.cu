@@ -22,6 +22,19 @@
 // the field operations as calls: all slower (zkp_subnet_tpu_torch/
 // kernel_ab.py over copies of the sources with that one choice changed;
 // PERF.md has the times).
+//
+// g1_scalar_mul_kernel: [k_i]P_i, the whole double-and-add ladder in one
+// launch. Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ
+// as reached through dispatch_ldouble/dispatch_ladd from
+// zkp_subnet_tpu/ops/curve.py:g1_scalar_mul (a fori_loop of 256 doubles,
+// adds and selects, one jitted program on the TPU; eagerly that was 512 K1
+// launches and 512 selects). Bound: integer multiplies, 256 doubles and an
+// add for each set bit of k, ~1.2 million 32-bit operations a point, and
+// at a few points (the aggregation's 16) the latency of one thread's chain
+// of 256 dependent steps. The design: one thread a point, acc and P in
+// registers for the whole ladder (no point leaves the SM between steps),
+// the double and add of g1.cuh with the carry chains of mont.cuh, the
+// scalar read a word at a time from memory.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -56,6 +69,20 @@ g1_double_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
   g1_store(out + G1_WORDS * i, P);
 }
 
+constexpr int LADDER_THREADS = 128;
+
+__global__ void __launch_bounds__(LADDER_THREADS)
+g1_scalar_mul_kernel(const uint32_t* __restrict__ p,
+                     const uint32_t* __restrict__ scalars,
+                     uint32_t* __restrict__ out, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  G1 P;
+  g1_load(P, p + G1_WORDS * i);
+  g1_scalar_mul(P, P, scalars + 8 * i);
+  g1_store(out + G1_WORDS * i, P);
+}
+
 }  // namespace
 
 extern "C" int zkp_g1_add(const void* p, const void* q, void* out,
@@ -76,6 +103,18 @@ extern "C" int zkp_g1_double(const void* p, void* out, long long n,
     g1_double_kernel<<<(unsigned)blocks, DOUBLE_THREADS, 0,
                        (cudaStream_t)stream>>>(
         (const uint32_t*)p, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// scalars: (n, 8) canonical 32-bit words, little-endian.
+extern "C" int zkp_g1_scalar_mul(const void* p, const void* scalars,
+                                 void* out, long long n, void* stream) {
+  if (n > 0) {
+    const long long blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
+    g1_scalar_mul_kernel<<<(unsigned)blocks, LADDER_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)scalars, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }

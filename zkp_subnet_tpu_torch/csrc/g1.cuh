@@ -167,3 +167,32 @@ __device__ __forceinline__ void g1_double_with(G1& R, const G1& P) {
 __device__ __forceinline__ void g1_double(G1& R, const G1& P) {
   g1_double_with<FqInline>(R, P);
 }
+
+// R = [k]P by double-and-add over the 256 bits of k, most significant
+// first: each step one complete double and, where the bit is set, one
+// complete add (zkp_subnet_tpu/ops/curve.py:159-181 adds at every bit and
+// selects; both give the same limbs). k is 8 little-endian 32-bit words
+// in memory, read one word at a time, so that no bit is picked out of a
+// register array by a run-time index (that would put the array in local
+// memory). R may alias P.
+template <class F>
+__device__ __forceinline__ void g1_scalar_mul_with(G1& R, const G1& P,
+                                                   const uint32_t* k) {
+  G1 acc;
+  g1_set_infinity(acc);
+#pragma unroll 1
+  for (int w = 7; w >= 0; w--) {
+    const uint32_t word = k[w];
+#pragma unroll 1
+    for (int b = 31; b >= 0; b--) {
+      g1_double_with<F>(acc, acc);
+      if ((word >> b) & 1) g1_add_with<F>(acc, acc, P);
+    }
+  }
+  R = acc;
+}
+
+__device__ __forceinline__ void g1_scalar_mul(G1& R, const G1& P,
+                                              const uint32_t* k) {
+  g1_scalar_mul_with<FqInline>(R, P, k);
+}

@@ -1,5 +1,6 @@
-"""K1 ``g1_add``/``g1_double`` and K2 ``msm_buckets`` of several checkouts
-of this repository, timed in turns on one card on the same inputs.
+"""K1 ``g1_add``/``g1_double``/``g1_scalar_mul`` and K2 ``msm_buckets`` of
+several checkouts of this repository, timed in turns on one card on the same
+inputs.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -9,16 +10,19 @@ Each DIR is the root of a checkout: an earlier commit unpacked with ``git
 archive``, or a copy whose sources were edited to try one design choice.
 Each is driven through its own package, in a process of its own: its
 ``kernels.build()`` compiles its sources into its own ``build/`` (all
-checkouts at once), and its wrappers ``g1_add``, ``g1_double`` and
-``msm_buckets(points, *msm.bucket_runs(scalars, groups))`` are timed. The
+checkouts at once), and its wrappers ``g1_add``, ``g1_double``,
+``msm_buckets(points, *msm.bucket_runs(scalars, groups))`` and, where the
+checkout has it, the ladder ``g1_scalar_mul`` (at 2^16 points and at 16,
+the first MSM's scalars) are timed. The
 inputs are made once, from a seed, by this checkout's package: 2^16 points
 with Z ≠ 1, and the scalars of two MSMs of 2^16 points (8 point groups:
 512 rows of 8192 entries, the main path's shape), uniform, and all equal
 to 1. Device ms: CUDA events around the replay of a CUDA graph of several
 launches. Every checkout is timed twice, in the order given and then in
-the reverse order. Its outputs must equal the first checkout's: the adds
-limb for limb, the bucket sums as points. Then, for each checkout, the
-registers and spills of the three kernels (``-Xptxas -v``) and the SASS
+the reverse order. Its outputs must equal those of the first checkout
+that has the kernel: the K1 kernels limb for limb, the bucket sums as
+points. Then, for each checkout,
+the registers and spills of the four kernels (``-Xptxas -v``) and the SASS
 instruction mix of ``g1_add_kernel`` (``cuobjdump -sass``; a static count,
 which for a kernel without loops is what each thread executes). The last
 lines are the card (``nvidia-smi`` name and power limit) and one JSON
@@ -37,9 +41,10 @@ import sys
 
 LOG_N = 16
 SEED = 20261016
-#: launches a graph replays: (g1_add, g1_double) and msm_buckets
-REPS_POINT, REPS_BUCKETS = 100, 5
-KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel")
+#: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder
+REPS_POINT, REPS_BUCKETS, REPS_LADDER = 100, 5, 2
+KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel",
+           "g1_scalar_mul_kernel")
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -106,12 +111,23 @@ def child_time(inputs: str, reference: str) -> dict:
         runs = tmsm.bucket_runs(scalars, tmsm._groups(scalars.shape[1]))
         fns[f"msm_buckets {label}"] = (
             lambda runs=runs: kernels.msm_buckets(p, *runs), REPS_BUCKETS)
+    if hasattr(kernels, "g1_scalar_mul"):
+        k = data["scalars"]["uniform"][0].to(dev)
+        p16, k16 = p[:16].contiguous(), k[:16].contiguous()
+        fns["g1_scalar_mul"] = (lambda: kernels.g1_scalar_mul(p, k),
+                                REPS_LADDER)
+        fns["g1_scalar_mul 16 points"] = (
+            lambda: kernels.g1_scalar_mul(p16, k16), REPS_LADDER)
     outs = {name: fn() for name, (fn, _) in fns.items()}
     torch.cuda.synchronize()
     ms = {name: _graph_ms(fn, reps) for name, (fn, reps) in fns.items()}
-    if not os.path.exists(reference):
-        torch.save({k: v.cpu() for k, v in outs.items()}, reference)
-    ref = {k: v.to(dev) for k, v in torch.load(reference).items()}
+    # the first checkout that has a kernel writes its reference output
+    ref = torch.load(reference) if os.path.exists(reference) else {}
+    missing = {k: v.cpu() for k, v in outs.items() if k not in ref}
+    if missing:
+        ref.update(missing)
+        torch.save(ref, reference)
+    ref = {k: v.to(dev) for k, v in ref.items()}
     equal = {k: (torch.equal(v, ref[k]) if k.startswith("g1_")
                  else _same_points(kernels, v, ref[k]))
              for k, v in outs.items()}

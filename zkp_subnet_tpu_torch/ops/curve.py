@@ -7,7 +7,9 @@ complete RCB15 formulas (eprint 2015/1060, Algorithms 7 and 9, a = 0):
 kernel K1 (``csrc/g1.cu``) on a CUDA tensor, ``g1_add_plain``/
 ``g1_double_plain`` on a CPU tensor. Both evaluate the same field-op
 sequence as the JAX package, so even the projective outputs agree.
-``g1_scalar_mul`` and ``g1_sum`` are glue loops over those two, and so is the
+``g1_scalar_mul`` is the double-and-add ladder as one K1 launch on a CUDA
+tensor (``g1_scalar_mul_plain``, the loop over the plain double and add, on
+a CPU tensor). ``g1_sum`` is a glue loop over the add, and so is the
 fixed-base comb ``g1_fixed_base_mul`` (a table gather and one K1 add per
 8-bit window), which generates the SRS.
 
@@ -163,18 +165,28 @@ def g1_select(cond: torch.Tensor, p: torch.Tensor, q: torch.Tensor):
     return torch.where(cond[..., None, None], p, q)
 
 
-def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """[k_i]P_i by double-and-add over 256 bits, most significant first
-    (``zkp_subnet_tpu/ops/curve.py:159-181``). p: (N, 3, 12); scalars:
-    (N, 8) canonical int32 limbs. Each step is one K1 double, one K1 add and
-    a select."""
-    p = p.contiguous()
+def g1_scalar_mul_plain(p: torch.Tensor,
+                        scalars: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 ``g1_scalar_mul``: [k_i]P_i by double-and-add
+    over 256 bits, most significant first
+    (``zkp_subnet_tpu/ops/curve.py:159-181``), each step a plain double, a
+    plain add and a select (the kernel adds only where the bit is set: the
+    same limbs)."""
     acc = g1_infinity(p.shape[:-2], p.device)
     for bit in range(FR.L * 32 - 1, -1, -1):
         b = (scalars[..., bit // 32] >> (bit % 32)) & 1
-        acc = g1_double(acc)
-        acc = g1_select(b.bool(), g1_add(acc, p), acc)
+        acc = g1_double_plain(acc)
+        acc = g1_select(b.bool(), g1_add_plain(acc, p), acc)
     return acc
+
+
+def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """[k_i]P_i. p: (N, 3, 12); scalars: (N, 8) canonical int32 limbs. One
+    K1 launch for the whole ladder on a CUDA tensor, the plain version on
+    the CPU."""
+    if p.is_cuda or scalars.is_cuda:
+        return kernels.g1_scalar_mul(p.contiguous(), scalars.contiguous())
+    return g1_scalar_mul_plain(p, scalars)
 
 
 def scalar_digits(scalars: torch.Tensor, window_bits: int) -> torch.Tensor:

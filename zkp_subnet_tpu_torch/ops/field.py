@@ -17,10 +17,12 @@ arithmetic on the CPU).
 
 Dispatch: ``mont_mul``, ``add`` and ``sub`` launch kernel K3 (``csrc/fr.cu``,
 Fr) or K4 (``csrc/fq.cu``, Fq) on a CUDA tensor and run the plain versions
-(``fr_mul_plain``, ``fq_mul_plain``, ...) on a CPU tensor. ``neg``, ``sqr``,
-``pow_static``, ``inv``, ``to_mont``, ``from_mont`` and ``powers`` are glue
-over those three. Inside a point add the Fq arithmetic stays in registers
-(``csrc/g1.cu``).
+(``fr_mul_plain``, ``fq_mul_plain``, ...) on a CPU tensor. Over Fr on a CUDA
+tensor ``inv`` and ``powers`` are one launch each (K3 ``fr_inv``,
+``fr_powers``; plain versions ``fr_inv_plain``, ``fr_powers_plain``); on
+the CPU, and over Fq, they are glue over the three, as ``neg``, ``sqr``,
+``pow_static``, ``to_mont`` and ``from_mont`` are. Inside a point add the
+Fq arithmetic stays in registers (``csrc/g1.cu``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from . import kernels
 MASK16 = 0xFFFF
 
 __all__ = ["PrimeField", "FR", "FQ", "fr_mul", "fr_add",
-           "fr_mul_plain", "fr_add_plain", "fr_sub_plain", "fq_mul_plain",
-           "fq_add_plain", "fq_sub_plain"]
+           "fr_mul_plain", "fr_add_plain", "fr_sub_plain", "fr_inv_plain",
+           "fr_powers_plain", "fq_mul_plain", "fq_add_plain", "fq_sub_plain"]
 
 
 # -- 16-bit int64 internals of the plain versions ----------------------------
@@ -93,7 +95,8 @@ class PrimeField:
     """Constants and ops of one prime field (see module docstring)."""
 
     def __init__(self, modulus: int, n_limbs: int, name: str,
-                 mul_kernel, add_kernel, sub_kernel):
+                 mul_kernel, add_kernel, sub_kernel, inv_kernel=None,
+                 powers_kernel=None):
         self.p = modulus
         self.L = n_limbs                  # 32-bit limbs on the device
         self.L16 = 2 * n_limbs            # 16-bit limbs at the JAX boundary
@@ -107,6 +110,8 @@ class PrimeField:
         self._mul_kernel = mul_kernel
         self._add_kernel = add_kernel
         self._sub_kernel = sub_kernel
+        self._inv_kernel = inv_kernel
+        self._powers_kernel = powers_kernel
         self._consts = {}
 
     # -- host-side conversions ----------------------------------------------
@@ -274,7 +279,10 @@ class PrimeField:
         return out
 
     def inv(self, a):
-        """Batched inversion by Fermat, a^(p−2); 0 ↦ 0."""
+        """Batched inversion by Fermat, a^(p−2); 0 ↦ 0. One launch of the
+        field's inverse kernel on a CUDA tensor where it has one (Fr)."""
+        if a.is_cuda and self._inv_kernel is not None:
+            return self._inv_kernel(a.contiguous())
         return self.pow_static(a, self.p - 2)
 
     def to_mont(self, a):
@@ -286,8 +294,12 @@ class PrimeField:
         return self.mont_mul(a, self._const("one", a.device))
 
     def powers(self, x, n: int):
-        """[1, x, ..., x^(n-1)] (Montgomery), shape (n, L): log-depth
-        doubling of the prefix (``zkp_subnet_tpu/ops/field.py:347-359``)."""
+        """[1, x, ..., x^(n-1)] (Montgomery), shape (n, L): one launch of the
+        field's powers kernel on a CUDA tensor where it has one (Fr), else
+        log-depth doubling of the prefix
+        (``zkp_subnet_tpu/ops/field.py:347-359``)."""
+        if x.is_cuda and self._powers_kernel is not None:
+            return self._powers_kernel(x.contiguous(), n)
         out = self.ones((1,), x.device)
         cur = x.reshape(1, self.L)                    # x^(len(out))
         while out.shape[0] < n:
@@ -320,6 +332,35 @@ def fr_sub_plain(a, b):
     return FR.sub_plain(a, b)
 
 
+def fr_inv_plain(a):
+    """Plain version of K3 ``fr_inv``: a^(r−2) by the kernel's chain,
+    left-to-right square-and-multiply over the exponent's bits below the
+    top one (254 squarings, 163 products); 0 ↦ 0."""
+    e = FR.p - 2
+    acc = a
+    for bit in range(e.bit_length() - 2, -1, -1):
+        acc = FR.mont_mul_plain(acc, acc)
+        if (e >> bit) & 1:
+            acc = FR.mont_mul_plain(acc, a)
+    return acc
+
+
+def fr_powers_plain(x, n: int, c=None):
+    """Plain version of K3 ``fr_powers``: out_k = x^k·c_k (x^k without
+    ``c``), (n, 8), as the kernel builds it: the table x^(2^j), then for
+    every k the product of the entries of the bits set in k."""
+    bits = max(1, (n - 1).bit_length())
+    table = [x.reshape(FR.L)]
+    for _ in range(bits - 1):
+        table.append(FR.mont_mul_plain(table[-1], table[-1]))
+    k = torch.arange(n, device=x.device)
+    out = FR.ones((n,), x.device)
+    for j, t in enumerate(table):
+        out = FR.select(((k >> j) & 1).bool(), FR.mont_mul_plain(out, t),
+                        out)
+    return out if c is None else FR.mont_mul_plain(out, c)
+
+
 def fq_mul_plain(a, b):
     """Plain version of K4 ``fq_mul``: Fq Montgomery product, broadcasting."""
     return FQ.mont_mul_plain(a, b)
@@ -338,7 +379,8 @@ def fq_sub_plain(a, b):
 FR = PrimeField(
     0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
     n_limbs=8, name="fr", mul_kernel=kernels.fr_mul,
-    add_kernel=kernels.fr_add, sub_kernel=kernels.fr_sub)
+    add_kernel=kernels.fr_add, sub_kernel=kernels.fr_sub,
+    inv_kernel=kernels.fr_inv, powers_kernel=kernels.fr_powers)
 FQ = PrimeField(
     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB,
     n_limbs=12, name="fq", mul_kernel=kernels.fq_mul,

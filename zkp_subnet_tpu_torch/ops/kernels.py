@@ -43,10 +43,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel since the last ``reset_launches()``
-LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "msm_buckets",
-                                 "msm_reduce", "msm_combine", "fr_mul",
-                                 "fr_add", "fr_sub", "fq_mul", "fq_add",
+LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
+                                 "msm_buckets", "msm_reduce", "msm_combine",
+                                 "fr_mul", "fr_add", "fr_sub", "fr_inv",
+                                 "fr_powers", "fr_suffix_scan",
+                                 "fr_open_quotient", "fq_mul", "fq_add",
                                  "fq_sub", "fr_butterfly")}
+
+#: elements of one block's tile in the suffix scan (SCAN_TILE of
+#: csrc/fr.cu, whose C entries refuse another)
+SCAN_TILE = 1024
 
 _lib = None
 
@@ -176,12 +182,18 @@ def _load() -> ctypes.CDLL:
         sigs = {
             "zkp_g1_add": [p, p, p, i64, p],
             "zkp_g1_double": [p, p, i64, p],
+            "zkp_g1_scalar_mul": [p, p, p, i64, p],
             "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
             "zkp_msm_reduce": [p, p, i32, i32, p],
             "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
             "zkp_fr_mul": [p, p, p, i64, i32, i32, p],
             "zkp_fr_add": [p, p, p, i64, i32, i32, p],
             "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
+            "zkp_fr_inv": [p, p, i64, p],
+            "zkp_fr_powers": [p, p, p, i64, i32, p],
+            "zkp_fr_suffix_scan": [p, p, p, i64, i32, p],
+            "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i32, i32,
+                                     i32, p],
             "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
             "zkp_fq_add": [p, p, p, i64, i32, i32, p],
             "zkp_fq_sub": [p, p, p, i64, i32, i32, p],
@@ -205,6 +217,13 @@ def _check(t: torch.Tensor, name: str, dtype=torch.int32, tail=None):
                          f"{', '.join(map(str, tail))}), got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _aligned(name: str, *tensors) -> None:
+    """K3, K4 and K5 move an element as 16-byte words."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -247,6 +266,28 @@ def g1_double(p: torch.Tensor) -> torch.Tensor:
     if n:
         _launch("g1_double", _load().zkp_g1_double,
                 p.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """[k_i]P_i for (N, 3, 12) points and (N, 8) canonical int32 scalars.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ as
+    reached through dispatch_ldouble/dispatch_ladd from curve.g1_scalar_mul
+    (:373/:385). Bound: integer multiplies (256 doubles and an add a set
+    bit, a point); at a few points the latency of one thread's 256 steps.
+    One launch for the whole ladder, one thread a point, acc and P in
+    registers."""
+    _check(p, "p", tail=(3, 12))
+    _check(scalars, "scalars", tail=(8,))
+    if (p.shape[:-2] != scalars.shape[:-1]
+            or p.device != scalars.device):
+        raise ValueError("g1_scalar_mul: one scalar a point, on one device")
+    out = torch.empty_like(p)
+    n = p.numel() // 36
+    if n:
+        _launch("g1_scalar_mul", _load().zkp_g1_scalar_mul,
+                p.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -345,8 +386,7 @@ def _binary(name: str, limbs: int, a: torch.Tensor,
     if na not in (n, 1) or nb not in (n, 1):
         raise ValueError(f"{name}: operands must match or one must be a "
                          "single element")
-    if a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    _aligned(name, a, b)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     if n:
         _launch(name, getattr(_load(), f"zkp_{name}"),
@@ -409,6 +449,115 @@ def fq_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _binary("fq_sub", 12, a, b)
 
 
+def _one_element(t: torch.Tensor, name: str) -> None:
+    _check(t, name, tail=(8,))
+    if t.numel() != 8:
+        raise ValueError(f"{name}: expected one Fr element")
+
+
+def fr_inv(a: torch.Tensor) -> torch.Tensor:
+    """1/a by Fermat, a^(r−2), over (..., 8) Montgomery tensors; 0 ↦ 0.
+
+    Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("mont_mul", BFR) as
+    reached from field.pow_static (418 products, one launch each when run
+    eagerly). Bound: one dependent chain of 417 products a thread
+    (latency). One launch, one thread an element."""
+    _check(a, "a", tail=(8,))
+    _aligned("fr_inv", a)
+    out = torch.empty_like(a)
+    n = a.numel() // 8
+    if n:
+        _launch("fr_inv", _load().zkp_fr_inv, a.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def fr_powers(x: torch.Tensor, n: int,
+              c: torch.Tensor | None = None) -> torch.Tensor:
+    """out_k = x^k·c_k (x^k without ``c``), k < n: (n, 8) Montgomery.
+
+    ``x`` one element on the card (read there: no host round trip), ``c``
+    (n, 8). Replaces pallas_g1.py:pfield("mont_mul", BFR) as reached from
+    field.powers and poly._powers_lane/_fmul (log2 n doubling launches and
+    the termwise product). Bound: operations (one product a set bit of k);
+    one thread a k over a per-block table of x^(2^j)."""
+    _one_element(x, "x")
+    n = int(n)
+    if not 0 <= n < 1 << 31:
+        raise ValueError("fr_powers: n must be in [0, 2^31)")
+    tensors = [x]
+    if c is not None:
+        _check(c, "c", tail=(8,))
+        if tuple(c.shape) != (n, 8) or c.device != x.device:
+            raise ValueError("fr_powers: c must be (n, 8) on x's device")
+        tensors.append(c)
+    _aligned("fr_powers", *tensors)
+    out = torch.empty((n, 8), dtype=torch.int32, device=x.device)
+    if n:
+        _launch("fr_powers", _load().zkp_fr_powers, x.data_ptr(),
+                0 if c is None else c.data_ptr(), out.data_ptr(), n,
+                max(1, (n - 1).bit_length()))
+    return out
+
+
+def fr_suffix_scan(terms: torch.Tensor):
+    """First pass of the suffix scan over (n, 8) elements: (local (n, 8),
+    totals (ceil(n / SCAN_TILE), 8)), each tile's inclusive suffix sums
+    from its right end and its total.
+
+    Replaces pallas_g1.py:pfield("add", BFR) as reached from
+    poly._suffix_sums (log2 n Hillis-Steele launches). Bound: bytes and an
+    add an element; a thread's elements serially, its warp by shuffles, the
+    warps through shared memory."""
+    _check(terms, "terms", tail=(8,))
+    if terms.dim() != 2:
+        raise ValueError("fr_suffix_scan: expected (n, 8)")
+    _aligned("fr_suffix_scan", terms)
+    n = terms.shape[0]
+    local = torch.empty_like(terms)
+    totals = torch.empty((-(-n // SCAN_TILE), 8), dtype=torch.int32,
+                         device=terms.device)
+    if n:
+        _launch("fr_suffix_scan", _load().zkp_fr_suffix_scan,
+                terms.data_ptr(), local.data_ptr(), totals.data_ptr(), n,
+                SCAN_TILE)
+    return local, totals
+
+
+def fr_open_quotient(local: torch.Tensor, totals: torch.Tensor,
+                     x: torch.Tensor, xi: torch.Tensor, coeffs: torch.Tensor,
+                     canonical: bool = True):
+    """Second pass of the suffix scan, fused with the opening: (y (8,), q
+    (n, 8)) with y = S_0 and q_j = S_{j+1}·xi^(j+1) (q_{n−1} = 0),
+    canonical or Montgomery; at x = 0, q = c[1:] ‖ 0, chosen on the card.
+
+    ``local``/``totals`` from ``fr_suffix_scan``, ``x`` and ``xi`` = 1/x one
+    element each, ``coeffs`` (n, 8). Replaces pallas_g1.py:pfield over BFR
+    as reached from poly.poly_open_scalars (the quotient scaling, the
+    de-Montgomery product, the x = 0 select). Bound: operations (an add and
+    two products an element); the carry over the tiles to the right by one
+    warp, (1/x)^(j+1) from a per-block table."""
+    for t, name in ((local, "local"), (totals, "totals"), (coeffs, "coeffs")):
+        _check(t, name, tail=(8,))
+    _one_element(x, "x")
+    _one_element(xi, "xi")
+    n = local.shape[0]
+    if (local.dim() != 2 or tuple(coeffs.shape) != (n, 8)
+            or tuple(totals.shape) != (-(-n // SCAN_TILE), 8)):
+        raise ValueError("fr_open_quotient: local and coeffs (n, 8), totals "
+                         "(ceil(n / SCAN_TILE), 8) expected")
+    if len({t.device for t in (local, totals, x, xi, coeffs)}) != 1:
+        raise ValueError("fr_open_quotient: tensors on different devices")
+    _aligned("fr_open_quotient", local, totals, x, xi, coeffs)
+    y = torch.empty(8, dtype=torch.int32, device=local.device)
+    q = torch.empty_like(local)
+    if n:
+        _launch("fr_open_quotient", _load().zkp_fr_open_quotient,
+                local.data_ptr(), totals.data_ptr(), x.data_ptr(),
+                xi.data_ptr(), coeffs.data_ptr(), y.data_ptr(), q.data_ptr(),
+                n, SCAN_TILE, n.bit_length(), int(bool(canonical)))
+    return y, q
+
+
 # -- K5: csrc/ntt.cu -------------------------------------------------------------
 
 def fr_butterfly(v: torch.Tensor, tw: torch.Tensor,
@@ -434,8 +583,7 @@ def fr_butterfly(v: torch.Tensor, tw: torch.Tensor,
                          "tw must hold n/2 twiddles")
     if not 1 <= stage <= log_n:
         raise ValueError(f"fr_butterfly: stage {stage} outside 1..{log_n}")
-    if v.data_ptr() % 16 or tw.data_ptr() % 16:
-        raise ValueError("fr_butterfly: tensors must be 16-byte aligned")
+    _aligned("fr_butterfly", v, tw)
     rows = v.numel() // (8 * n)
     if rows:
         _launch("fr_butterfly", _load().zkp_fr_butterfly,

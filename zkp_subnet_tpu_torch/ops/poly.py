@@ -1,24 +1,37 @@
 """Polynomial operations over Fr (coefficient form, c[0] = constant term).
 
-The log-depth pipeline of ``zkp_subnet_tpu/ops/poly.py``, as glue over
-kernel K3 (``fr_mul``/``fr_add``, ``csrc/fr.cu``) on the card and its plain
-versions on the CPU. For one opening at x, with t_k = c_k·x^k:
+The log-depth pipeline of ``zkp_subnet_tpu/ops/poly.py``. For one opening
+at x, with t_k = c_k·x^k:
 
-    f(x) = S_0,  S_j = Σ_{k≥j} t_k   (Hillis-Steele suffix sums)
+    f(x) = S_0,  S_j = Σ_{k≥j} t_k   (suffix sums)
     q_j  = x^{-(j+1)}·S_{j+1}        (q = (f(X) − f(x))/(X − x))
+
+On a CUDA tensor an opening is four launches of kernel K3 (``csrc/fr.cu``)
+and reads nothing back to the host: ``fr_inv`` (1/x), ``fr_powers`` (the
+terms t_k), ``fr_suffix_scan`` (each tile's suffix sums and total) and
+``fr_open_quotient`` (the carry over the tiles, y = S_0, the scaled
+quotient, the x = 0 corner). Their plain versions (``fr_inv_plain``,
+``fr_powers_plain``, ``fr_suffix_scan_plain``, ``fr_open_quotient_plain``,
+composed by ``open_pieces_plain``) follow the kernels' structure and take
+the tile as an argument. On a CPU tensor the opening is the JAX package's
+composition over the plain Fr ops: powers by doubling, Hillis-Steele suffix
+sums, the inverse by ``FR.inv``.
 
 Tensors are (N, 8) int32 Fr elements (Montgomery unless said otherwise),
 fully reduced: the TPU's byte-lane layout (``ops/lane8.py``) that
 ``zkp_subnet_tpu/ops/poly.py`` converts to and from has no counterpart.
-The inverse of the single challenge point is ``FR.inv`` (Fermat, on the
-tensor's device).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .field import FR, fr_add, fr_mul
+from . import kernels
+from .field import FR, fr_add, fr_inv_plain, fr_mul, fr_powers_plain
+
+#: elements of one tile of the suffix scan (the kernel's; CPU tests pass
+#: smaller tiles to the plain versions)
+SCAN_TILE = kernels.SCAN_TILE
 
 
 def _one_canonical(device) -> torch.Tensor:
@@ -26,39 +39,113 @@ def _one_canonical(device) -> torch.Tensor:
     return FR.ints_to_limbs([1], device)
 
 
-def _suffix_sums(terms: torch.Tensor) -> torch.Tensor:
-    """Inclusive suffix sums, Hillis-Steele: log2(N) elementwise adds
-    (``zkp_subnet_tpu/ops/poly.py:62-72``); the shifted-in identity is 0."""
-    n = terms.shape[0]
+def _scan_from_right(terms: torch.Tensor, add) -> torch.Tensor:
+    """Inclusive suffix sums along dim −2, Hillis-Steele: log2 of its length
+    elementwise adds (``zkp_subnet_tpu/ops/poly.py:62-72``); the shifted-in
+    identity is 0."""
+    n = terms.shape[-2]
     d = 1
     while d < n:
-        shifted = torch.cat([terms[d:], FR.zeros((d,), terms.device)])
-        terms = fr_add(terms, shifted)
+        zeros = FR.zeros(terms.shape[:-2] + (d,), terms.device)
+        terms = add(terms, torch.cat([terms[..., d:, :], zeros], dim=-2))
         d <<= 1
     return terms
 
 
 def _open_pieces(coeffs: torch.Tensor, x: torch.Tensor):
-    """(y, q') with q'_j = x^{-(j+1)}·S_{j+1} at full width n (q'_{n−1} = 0)."""
+    """(y, q') with q'_j = x^{-(j+1)}·S_{j+1} at full width n (q'_{n−1} = 0),
+    composed over the elementwise Fr ops (the CPU's path)."""
     n = coeffs.shape[0]
     terms = fr_mul(coeffs, FR.powers(x, n))         # t_k = c_k·x^k
-    suffix = _suffix_sums(terms)
+    suffix = _scan_from_right(terms, fr_add)
     xi = FR.inv(x).reshape(1, FR.L)                # 0 ↦ 0
     inv_pw = fr_mul(FR.powers(xi, n), xi)           # x^{-1} .. x^{-n}
     s_next = torch.cat([suffix[1:], FR.zeros((1,), coeffs.device)])
     return suffix[0], fr_mul(s_next, inv_pw)
 
 
+def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor, canonical: bool):
+    """(y, q (n, 8)) of ``fr_open_quotient`` in four K3 launches; x stays on
+    the card."""
+    coeffs, x = coeffs.contiguous(), x.contiguous()
+    xi = kernels.fr_inv(x)
+    terms = kernels.fr_powers(x, coeffs.shape[0], coeffs)
+    local, totals = kernels.fr_suffix_scan(terms)
+    return kernels.fr_open_quotient(local, totals, x, xi, coeffs, canonical)
+
+
+# -- plain versions of the scan kernels ---------------------------------------
+
+def fr_suffix_scan_plain(terms: torch.Tensor, tile: int = SCAN_TILE):
+    """Plain version of K3 ``fr_suffix_scan``: (local, totals), each tile's
+    inclusive suffix sums from its right end and its total (the first local
+    sum), over tiles of ``tile`` elements. Inside a tile the adds go in
+    Hillis-Steele's order, not the kernel's (a thread's elements, its warp,
+    the warps): the sums are the same limbs."""
+    n = terms.shape[0]
+    blocks = -(-n // tile)
+    padded = torch.cat([terms, FR.zeros((blocks * tile - n,), terms.device)])
+    sums = _scan_from_right(padded.view(blocks, tile, FR.L), FR.add_plain)
+    return sums.reshape(-1, FR.L)[:n], sums[:, 0].contiguous()
+
+
+def fr_open_quotient_plain(local: torch.Tensor, totals: torch.Tensor,
+                           x: torch.Tensor, xi: torch.Tensor,
+                           coeffs: torch.Tensor, tile: int = SCAN_TILE,
+                           canonical: bool = True):
+    """Plain version of K3 ``fr_open_quotient``: (y, q) from the first
+    pass's tiles. carry_b = Σ_{b' > b} totals[b']; S_{j+1} = local_{j+1} +
+    carry inside a tile, the carry alone at a tile's last element;
+    y = S_0, q_j = S_{j+1}·xi^(j+1) (canonical: times the integer 1); at
+    x = 0, q = c[1:] ‖ 0."""
+    n, dev = local.shape[0], local.device
+    zero = FR.zeros((1,), dev)
+    carry = _scan_from_right(torch.cat([totals[1:], zero]), FR.add_plain)
+    j = torch.arange(n, device=dev)
+    block = j // tile
+    inside = j + 1 < torch.clamp((block + 1) * tile, max=n)
+    nxt = FR.select(inside, torch.cat([local[1:], zero]), FR.zeros((n,), dev))
+    s_next = FR.add_plain(nxt, carry[block])
+    y = FR.add_plain(local[0], carry[0])
+    one = _one_canonical(dev)
+    pw = fr_powers_plain(xi, n + 1)[1:]                     # xi^(j+1)
+    q = FR.mont_mul_plain(s_next, pw)
+    q_zero = torch.cat([coeffs[1:], zero])
+    if canonical:
+        q = FR.mont_mul_plain(q, one)
+        q_zero = FR.mont_mul_plain(q_zero, one)
+    at_zero = FR.is_zero(x.reshape(FR.L)).expand(n)
+    return y, FR.select(at_zero, q_zero, q)
+
+
+def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
+                      tile: int = SCAN_TILE, canonical: bool = True):
+    """The four plain versions composed as ``_open_on_card`` launches the
+    kernels: (y, q (n, 8))."""
+    xi = fr_inv_plain(x.reshape(FR.L))
+    terms = fr_powers_plain(x, coeffs.shape[0], coeffs)
+    local, totals = fr_suffix_scan_plain(terms, tile)
+    return fr_open_quotient_plain(local, totals, x, xi, coeffs, tile,
+                                  canonical)
+
+
+# -- public ops --------------------------------------------------------------
+
 def poly_eval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """f(x). coeffs (N, 8) Montgomery; x (8,). Returns (8,)."""
+    if coeffs.is_cuda:
+        return _open_on_card(coeffs, x, canonical=False)[0]
     terms = fr_mul(coeffs, FR.powers(x, coeffs.shape[0]))
-    return _suffix_sums(terms)[0]
+    return _scan_from_right(terms, fr_add)[0]
 
 
 def poly_eval_and_quotient(coeffs: torch.Tensor, x: torch.Tensor):
     """(f(x), q) with q(X) = (f(X) − f(x))/(X − x), shape (N−1, 8), both
     Montgomery. At x = 0 the quotient is c[1:]
     (``zkp_subnet_tpu/ops/poly.py:103-132``)."""
+    if coeffs.is_cuda:
+        y, q = _open_on_card(coeffs, x, canonical=False)
+        return y, q[:-1]
     y, q = _open_pieces(coeffs, x)
     if bool(FR.is_zero(x)):
         return y, coeffs[1:]
@@ -70,7 +157,10 @@ def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor):
     for a KZG opening (``zkp_subnet_tpu/ops/poly.py:140-172``).
 
     The x = 0 corner stays exact: the quotient is then c[1:] (a commit-only
-    request runs the opening with x = 0)."""
+    request runs the opening with x = 0). On the card that choice is made
+    by the kernel, so x is never read back to the host."""
+    if coeffs.is_cuda:
+        return _open_on_card(coeffs, x, canonical=True)
     y, q = _open_pieces(coeffs, x)
     if bool(FR.is_zero(x)):
         q = torch.cat([coeffs[1:], FR.zeros((1,), coeffs.device)])
