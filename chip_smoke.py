@@ -312,8 +312,8 @@ def same_fq(got, want) -> int:
 
 
 def same_fr_pair(got, want) -> int:
-    """same_fr over two pairs of tensors (the scan passes' two outputs)."""
-    return max(same_fr(got[0], want[0]), same_fr(got[1], want[1]))
+    """same_fr over two tuples of tensors (the scan passes' two outputs)."""
+    return max(same_fr(g, w) for g, w in zip(got, want, strict=True))
 
 
 def shape_of(out):
@@ -434,9 +434,27 @@ def aggregation_dom(m, dev):
     return pianist.aggregation_constants(m, dev)[0]
 
 
-def popcount(t: torch.Tensor) -> int:
-    """Set bits of an int32 tensor."""
-    return int(np.unpackbits(t.cpu().numpy().view(np.uint8)).sum())
+def scalar_mul_ops(scalars: torch.Tensor) -> int:
+    """Integer operations that [k_i]P_i needs at the least for this run's
+    (N, 8) scalars, whatever the method: bitlen(k) − 1 doublings, and the
+    adds of the best fixed window of w ≤ 8 bits for each k, 2^(w−1) − 1
+    for the odd multiples and one a nonzero window but the first (w = 1 is
+    the ladder's binary method, ~128 adds a random k; w = 5 needs ~65)."""
+    n = scalars.shape[0]
+    bits = np.unpackbits(scalars.cpu().numpy().view(np.uint8),
+                         bitorder="little").reshape(n, 256).astype(bool)
+    top = 256 - np.argmax(bits[:, ::-1], axis=1)
+    bitlen = np.where(bits.any(1), top, 0)
+    adds = np.full(n, 1 << 30, np.int64)
+    for w in range(1, 9):
+        width = -(-256 // w) * w
+        padded = np.zeros((n, width), bool)
+        padded[:, :256] = bits
+        nonzero = padded.reshape(n, -1, w).any(2).sum(1)
+        adds = np.minimum(adds, (1 << (w - 1)) - 1
+                          + np.maximum(nonzero - 1, 0))
+    return (OPS_G1_DOUBLE * int(np.maximum(bitlen - 1, 0).sum())
+            + OPS_G1_ADD * int(adds.sum()))
 
 
 def ladder_by_launches(p, scalars):
@@ -473,21 +491,18 @@ def path_calls(x):
     x1, xi1, local, totals, lp, ls = x.x1, x.xi1, x.local, x.totals, x.lp, \
         x.ls
     tiles = totals.shape[0]
-    pow_bits = (n - 1).bit_length()
-    # the powers' products: a set bit of every k, the table's squarings
-    pow_products = sum(bin(k).count("1") for k in range(n)) + pow_bits - 1
     return {
         "g1_scalar_mul": (lambda: kernels.g1_scalar_mul(lp, ls),
                           lambda: cv.g1_scalar_mul_plain(lp, ls), 3, limbs,
                           2 * G1_BYTES * n + FR_BYTES * n,
-                          LADDER_BITS * OPS_G1_DOUBLE * n
-                          + OPS_G1_ADD * popcount(ls)),
+                          scalar_mul_ops(ls)),
         "fr_inv": (lambda: kernels.fr_inv(x1), lambda: fr_inv_plain(x1), 20,
                    fr, 2 * FR_BYTES, INV_CHAIN * OPS_FR_MUL),
         "fr_powers": (lambda: kernels.fr_powers(x1, n, a),
                       lambda: fr_powers_plain(x1, n, a), 50, fr,
                       FR_BYTES * (2 * n + 1),
-                      (pow_products + n) * OPS_FR_MUL),
+                      # x^k by one product from x^(k−1), then one by c_k
+                      (2 * n - 1) * OPS_FR_MUL),
         "fr_suffix_scan": (lambda: kernels.fr_suffix_scan(a),
                            lambda: tpoly.fr_suffix_scan_plain(a), 50,
                            same_fr_pair, FR_BYTES * (2 * n + tiles),
@@ -800,11 +815,11 @@ def phase_opening_kernels(rng, dev, record):
     differences β − ω^i of the aggregation and random values; ``fr_powers``
     at x = 0, 1, r − 1 and random, n = 1, 1000 and 2^16, with and without
     c; the two scan passes on a random row and a row of zeros at 2^16 and
-    a row of 3000 (no multiple of the tile), at the same points, both
-    quotient forms; and the whole opening (``poly_open_scalars``) against
-    the plain versions composed, while the host may not wait for the card
+    a row of 3000 (no multiple of the tile), at the same points; the whole
+    opening (``poly_open_scalars``) against the plain versions composed,
+    while the host may not wait for the card
     (``torch.cuda.set_sync_debug_mode("error")``: no value of x comes
-    back)."""
+    back); and ``poly_eval``/``poly_eval_and_quotient`` against the same."""
     vals = random_fr(rng, 64, dev)                 # 0, 1, r−1, r−2, random
     diffs = FR.sub(vals[10], aggregation_dom(1 << ROUND_MACHINES_SCALE, dev))
     for t in (vals, diffs, vals[:1], vals[1:2]):
@@ -830,12 +845,9 @@ def phase_opening_kernels(rng, dev, record):
             (local, totals), tpoly.fr_suffix_scan_plain(c)))
         for x in xs:
             xi = kernels.fr_inv(x)
-            for canonical in (True, False):
-                record("fr_open_quotient", same_fr_pair(
-                    kernels.fr_open_quotient(local, totals, x, xi, c,
-                                             canonical),
-                    tpoly.fr_open_quotient_plain(local, totals, x, xi, c,
-                                                 canonical=canonical)))
+            record("fr_open_quotient", same_fr_pair(
+                kernels.fr_open_quotient(local, totals, x, xi, c),
+                tpoly.fr_open_quotient_plain(local, totals, x, xi, c)))
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -844,11 +856,16 @@ def phase_opening_kernels(rng, dev, record):
                 torch.cuda.set_sync_debug_mode("default")
             record("fr_open_quotient", same_fr_pair(
                 got, tpoly.open_pieces_plain(c, x)))
+            y, q = tpoly.poly_eval_and_quotient(c, x)
+            y_plain, q_plain = tpoly.open_pieces_plain(c, x)
+            record("fr_open_quotient", same_fr_pair(
+                (y, q, tpoly.poly_eval(c, x)),
+                (y_plain, FR.to_mont(q_plain[:-1]), y_plain)))
         say(f"[kernels] K3 fr_suffix_scan / fr_open_quotient ({label}, "
             f"{tuple(local.shape)} in tiles of {tpoly.SCAN_TILE}), at x = 0, "
-            "1, r-1 and random, canonical and Montgomery: equal to plain; "
-            "poly_open_scalars equals the plain versions composed, with no "
-            "wait for the card on the host")
+            "1, r-1 and random: equal to plain; poly_open_scalars equals "
+            "the plain versions composed, with no wait for the card on the "
+            "host, and so do poly_eval and poly_eval_and_quotient")
     x_int = FR.decode(xs[3])[0]
     c = rows[2][1]
     check(FR.decode(tpoly.poly_open_scalars(c, xs[3])[0])

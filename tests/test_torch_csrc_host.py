@@ -1,8 +1,8 @@
 """The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
 fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
 integers and the port's plain point formulas: the field operations, the
-inversion chain (fr::inv), the point add and double, and the
-double-and-add ladder (g1_scalar_mul).
+inversion chain (fr::inv), a run of powers (fr::pow_run), the point add
+and double, and the double-and-add ladder (g1_scalar_mul).
 
 The headers' carry chains are PTX (csrc/ptx.cuh), which only the card runs.
 Here ptx.cuh is replaced by an emulation of its functions with one global
@@ -66,7 +66,9 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
 
 # reads records "op word...", writes the result's words a line each:
 # ops 0-2 Fr mul/add/sub, 3-5 Fq mul/add/sub, 6 g1_add, 7 g1_double,
-# 8 Fr inverse, 9 the ladder (a point, then its scalar's 8 words)
+# 8 Fr inverse, 9 the ladder (a point, then its scalar's 8 words), 10 a
+# run of four powers (x, then the words k, bits and 1 to leave Montgomery
+# form or 0)
 HOST_MAIN = r"""
 #include <cstdint>
 #include <cstdio>
@@ -96,6 +98,13 @@ int main() {
       read(a, fr::L);
       fr::inv(r, a);
       write(r, fr::L);
+    } else if (op == 10) {
+      uint32_t T[32 * fr::L], run[4][fr::L], one[fr::L] = {1};
+      read(a, fr::L);
+      read(b, 3);
+      fr::square_table(T, a, (int)b[1]);
+      fr::pow_run<4>(run, T, b[0], (int)b[1], b[2] ? one : nullptr);
+      write(run[0], 4 * fr::L);
     } else if (op < 6) {
       const int n = op < 3 ? fr::L : fq::L;
       read(a, n);
@@ -218,6 +227,25 @@ def test_inverse_chain_matches_python_integers(host_binary):
     got = _run(host_binary, [(8, (_words(m, 8),)) for m in mont])
     assert [_int(g) for g in got] == [pow(v, o.R - 2, o.R) * (1 << 256)
                                       % o.R for v in vals]
+
+
+def test_power_run_matches_python_integers(host_binary):
+    """fr::square_table and fr::pow_run (a thread's run in K3 fr_powers
+    and fr_open_quotient) at x 0, 1, r − 1 and random, from k = 0, a k
+    with every bit of the table set and one with none but the top, in
+    Montgomery form and canonical, against x^(k+e) mod r."""
+    rng = np.random.default_rng(19)
+    xs = [0, 1, o.R - 1, int.from_bytes(rng.bytes(40), "little") % o.R]
+    cases = [(x, k, bits, canon) for x in xs
+             for k, bits in ((0, 1), (4, 3), ((1 << 16) - 4, 16),
+                             (1 << 15, 16)) for canon in (0, 1)]
+    got = _run(host_binary, [
+        (10, (_words(x * (1 << 256) % o.R, 8), [k, bits, canon]))
+        for x, k, bits, canon in cases])
+    for g, (x, k, _, canon) in zip(got, cases):
+        scale = 1 if canon else 1 << 256
+        assert [_int(g[8 * e:8 * e + 8]) for e in range(4)] == [
+            pow(x, k + e, o.R) * scale % o.R for e in range(4)], (x, k)
 
 
 def test_ladder_matches_plain_and_python_integers(host_binary):

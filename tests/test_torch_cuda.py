@@ -385,8 +385,8 @@ def test_fr_powers_kernel_matches_plain(dev, n):
 def test_opening_kernels_match_plain(dev, n):
     """fr_suffix_scan and fr_open_quotient each against its plain version
     on the same inputs (tiles of the kernel's 1024: one partial tile, one
-    full, three with a partial last, 64 full), at x 0, 1, r − 1 and random,
-    both quotient forms; and a row of zeros. The plain versions run on the
+    full, three with a partial last, 64 full), at x 0, 1, r − 1 and random;
+    and a row of zeros. The plain versions run on the
     card."""
     rows = [_edge_fr(24, n).to(dev), FR.zeros((n,), dev)]
     for c in rows:
@@ -395,17 +395,34 @@ def test_opening_kernels_match_plain(dev, n):
         assert torch.equal(local, want[0]) and torch.equal(totals, want[1])
         for x in _edge_fr(25, 4).to(dev):
             xi = kernels.fr_inv(x)
-            for canonical in (True, False):
-                got = kernels.fr_open_quotient(local, totals, x, xi, c,
-                                               canonical)
-                want = tpoly.fr_open_quotient_plain(local, totals, x, xi, c,
-                                                    canonical=canonical)
-                assert torch.equal(got[0], want[0])
-                assert torch.equal(got[1], want[1])
+            got = kernels.fr_open_quotient(local, totals, x, xi, c)
+            want = tpoly.fr_open_quotient_plain(local, totals, x, xi, c)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
             if n <= 3000:      # against the CPU's composition
                 y, q = tpoly.poly_open_scalars(c, x)
                 wy, wq = tpoly.poly_open_scalars(c.cpu(), x.cpu())
                 assert torch.equal(y.cpu(), wy) and torch.equal(q.cpu(), wq)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 3000])
+def test_eval_and_quotient_on_card_match_cpu(dev, n):
+    """poly_eval and poly_eval_and_quotient on the card (the opening's four
+    kernels; the quotient back to Montgomery form by one fr_mul) against
+    the CPU's composition, limb for limb, at x 0, 1, r − 1 and random."""
+    c = _edge_fr(30, n)
+    for x in _edge_fr(31, 4):
+        x = x.contiguous()
+        before = dict(kernels.LAUNCHES)
+        y = tpoly.poly_eval(c.to(dev), x.to(dev))
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                if v != before[k]}
+        assert used == {"fr_inv": 1, "fr_powers": 1, "fr_suffix_scan": 1,
+                        "fr_open_quotient": 1}
+        assert torch.equal(y.cpu(), tpoly.poly_eval(c, x))
+        y, q = tpoly.poly_eval_and_quotient(c.to(dev), x.to(dev))
+        wy, wq = tpoly.poly_eval_and_quotient(c, x)
+        assert torch.equal(y.cpu(), wy) and torch.equal(q.cpu(), wq)
 
 
 def test_opening_reads_nothing_back_and_launches_four_kernels(dev):

@@ -117,9 +117,10 @@ def test_fr_inv_plain_matches_jax_and_oracle():
 
 def test_fr_powers_plain_matches_jax_and_oracle():
     """The plain version of K3 fr_powers (a table of x^(2^j), a product a
-    set bit) against the JAX package's powers, with and without the
-    termwise factor c, at x random, 0, 1 and r − 1 and a width that is no
-    power of two."""
+    set bit of a run's first k, a product by x a step along the run)
+    against the JAX package's powers, with and without the termwise factor
+    c, at x random, 0, 1 and r − 1, a width that is no power of two, and
+    runs of 1, 3 and the kernel's 4."""
     n = 21
     cs = _values(tf.FR.p, 8, n=n)
     jc = JFR.encode(cs)
@@ -128,6 +129,9 @@ def test_fr_powers_plain_matches_jax_and_oracle():
         jx = JFR.encode([x])[0]
         jpw = JFR.powers(jx, n)
         xt = tf.FR.encode([x])[0]
+        for per in (1, 3):
+            got = tf.fr_powers_plain(xt, n, per_thread=per)
+            assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(jpw)), x
         got = tf.fr_powers_plain(xt, n)
         assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(jpw)), x
         assert tf.FR.decode(got) == [pow(x, k, o.R) for k in range(n)]

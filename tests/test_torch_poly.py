@@ -89,9 +89,9 @@ def test_open_pieces_plain_match_jax(jax_open, n):
         y, q = tpoly.open_pieces_plain(c, x, tile=32)
         assert np.array_equal(FR.to_limbs16(y), np.asarray(jy)), point
         assert np.array_equal(FR.to_limbs16(q), np.asarray(jq)), point
-        y, q = tpoly.open_pieces_plain(c, x, tile=32, canonical=False)
         wy, wq = tpoly.poly_eval_and_quotient(c, x)
-        assert torch.equal(y, wy) and torch.equal(q[:-1], wq), point
+        assert torch.equal(y, wy), point
+        assert torch.equal(FR.to_mont(q[:-1]), wq), point
         assert FR.decode(q[-1:]) == [0]
 
 

@@ -20,10 +20,12 @@
 // writes 32 for 128 wide multiply-adds, so at 2^16 elements bytes bound
 // them (~2 us); one element per thread, moved as two 16-byte words each
 // way. The opening's kernels: fr_inv is one dependent chain of 417
-// products a thread (latency; no bytes to speak of); fr_powers (~9
-// products an element at 2^16) and the two scan passes (an add an element,
-// a few products in the second) are bound by operations and bytes at a
-// few microseconds, so what counts is that each is one launch and that no
+// products a thread (latency; no bytes to speak of); fr_powers (the
+// function needs two products an element; the kernel does about three at
+// 2^16, a walk of the table shared by a thread's four) and the two scan
+// passes (an add an element, a product or two in the second) are bound by
+// bytes at about a microsecond, and by the table's chain of squarings in
+// practice, so what counts is that each is one launch and that no
 // value goes back to the host between them: x and 1/x are read from device
 // memory, and the x = 0 corner of the quotient is chosen on the card.
 #include <cuda_runtime.h>
@@ -71,43 +73,47 @@ fr_inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   mont::store<fr::L>(out + i * fr::L, x);
 }
 
-// T[j] = x^(2^j) for j < bits, by one thread: a chain of bits - 1
-// squarings (16 at 2^16). T is in shared memory, 16-byte aligned.
+// The tables of x^(2^j) (fr::square_table) live in shared memory.
 constexpr int MAX_POW_BITS = 32;
 
-__device__ __forceinline__ void square_table(uint32_t* T, const uint32_t* x,
-                                             int bits) {
-  uint32_t t[fr::L];
-  mont::load<fr::L>(t, x);
-  for (int j = 0; j < bits; j++) {
-    mont::store<fr::L>(T + j * fr::L, t);
-    if (j + 1 < bits) fr::mul(t, t, t);
-  }
-}
-
-// out_k = x^k * c_k (c optional), k < n <= 2^bits: one thread a k. Each
-// block squares x into its table of x^(2^j) once; a thread then multiplies
-// the entries of the bits set in k (the same limbs as the JAX package's
-// log-depth doubling: a fully reduced value has one representation).
-constexpr int POW_THREADS = 256;
+// out_k = x^k * c_k (c optional), k < n <= 2^bits: POW_PER_THREAD
+// consecutive k a thread. Each block squares x into its table of x^(2^j)
+// once; a thread walks the table for its first k, then steps by one
+// product by x (fr::pow_run), then multiplies by c_k (the same limbs as the
+// JAX package's log-depth doubling: a fully reduced value has one
+// representation).
+constexpr int POW_THREADS = 128;
+constexpr int POW_PER_THREAD = 4;
+constexpr int POW_TILE = POW_THREADS * POW_PER_THREAD;
 
 __global__ void __launch_bounds__(POW_THREADS)
 fr_powers_kernel(const uint32_t* __restrict__ x,
                  const uint32_t* __restrict__ c, uint32_t* __restrict__ out,
                  long long n, int bits) {
   __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
-  if (threadIdx.x == 0) square_table(T, x, bits);
-  __syncthreads();
-  const long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  uint32_t r[fr::L];
-  fr::pow_from_table(r, T, (unsigned long long)k, bits);
-  if (c != nullptr) {
-    uint32_t t[fr::L];
-    mont::load<fr::L>(t, c + k * fr::L);
-    fr::mul(r, r, t);
+  if (threadIdx.x == 0) {
+    uint32_t v[fr::L];
+    mont::load<fr::L>(v, x);
+    fr::square_table(T, v, bits);
   }
-  mont::store<fr::L>(out + k * fr::L, r);
+  __syncthreads();
+  const long long first =
+      blockIdx.x * (long long)POW_TILE + threadIdx.x * POW_PER_THREAD;
+  if (first >= n) return;
+  uint32_t r[POW_PER_THREAD][fr::L];
+  fr::pow_run<POW_PER_THREAD>(r, T, (unsigned long long)first, bits,
+                              nullptr);
+#pragma unroll
+  for (int e = 0; e < POW_PER_THREAD; e++) {
+    const long long k = first + e;
+    if (k >= n) break;
+    if (c != nullptr) {
+      uint32_t t[fr::L];
+      mont::load<fr::L>(t, c + k * fr::L);
+      fr::mul(r[e], r[e], t);
+    }
+    mont::store<fr::L>(out + k * fr::L, r[e]);
+  }
 }
 
 // The suffix scan S_j = sum_{k >= j} t_k in two passes over tiles of
@@ -184,11 +190,11 @@ fr_suffix_scan_kernel(const uint32_t* __restrict__ terms,
 // the tiles to the right (at most 63 at 2^16) into the tile's carry, while
 // another squares 1/x into the table of (1/x)^(2^j). Then S_j = local_j +
 // carry, y = S_0 (block 0), and q_j = S_{j+1} * (1/x)^(j+1) for j < n
-// (S_n = 0, so q_{n-1} = 0); S_{j+1} of a tile's last element is the carry
-// alone. canonical: q leaves Montgomery form (the power is made canonical
-// once, and a canonical value times a Montgomery one stays canonical). At
-// x = 0 the quotient is c[1:] and a 0 (canonical: from Montgomery form),
-// chosen here on the card.
+// (S_n = 0, so q_{n-1} = 0), canonical: the thread's first power is
+// multiplied by the integer 1 (fr::pow_run), and a canonical value times a
+// Montgomery one stays canonical. S_{j+1} of a tile's last element is the
+// carry alone. At x = 0 the quotient is c[1:] and a 0, from Montgomery
+// form, chosen here on the card.
 __global__ void __launch_bounds__(SCAN_THREADS)
 fr_open_quotient_kernel(const uint32_t* __restrict__ local,
                         const uint32_t* __restrict__ totals,
@@ -196,7 +202,7 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
                         const uint32_t* __restrict__ xi,
                         const uint32_t* __restrict__ coeffs,
                         uint32_t* __restrict__ y, uint32_t* __restrict__ q,
-                        long long n, int blocks, int bits, int canonical) {
+                        long long n, int blocks, int bits) {
   __shared__ __align__(16) uint32_t carry_s[fr::L];
   __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -217,7 +223,8 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
     }
     if (lane == 0) mont::store<fr::L>(carry_s, carry);
   } else if (threadIdx.x == 32 && !at_zero) {
-    square_table(T, xi, bits);
+    mont::load<fr::L>(v, xi);
+    fr::square_table(T, v, bits);
   }
   __syncthreads();
   mont::load<fr::L>(carry, carry_s);
@@ -238,7 +245,7 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
       set_zero(v);
       if (j + 1 < n) {
         mont::load<fr::L>(v, coeffs + (j + 1) * fr::L);
-        if (canonical) fr::mul(v, v, one);
+        fr::mul(v, v, one);
       }
       mont::store<fr::L>(q + j * fr::L, v);
     }
@@ -246,10 +253,9 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
   }
   const long long tile_end =
       min(n, (blockIdx.x + 1) * (long long)SCAN_TILE);
-  uint32_t pw[fr::L], step[fr::L];
-  fr::pow_from_table(pw, T, (unsigned long long)(first + 1), bits);
-  if (canonical) fr::mul(pw, pw, one);
-  mont::load<fr::L>(step, xi);
+  uint32_t pw[SCAN_PER_THREAD][fr::L];
+  fr::pow_run<SCAN_PER_THREAD>(pw, T, (unsigned long long)(first + 1), bits,
+                               one);
 #pragma unroll
   for (int e = 0; e < SCAN_PER_THREAD; e++) {
     const long long j = first + e;
@@ -260,9 +266,8 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
     } else {
       fr::copy(v, carry);
     }
-    fr::mul(v, v, pw);
+    fr::mul(v, v, pw[e]);
     mont::store<fr::L>(q + j * fr::L, v);
-    if (e + 1 < SCAN_PER_THREAD) fr::mul(pw, pw, step);
   }
 }
 
@@ -311,11 +316,16 @@ extern "C" int zkp_fr_inv(const void* a, void* out, long long n,
 }
 
 // c may be null (x^k alone). bits: 1 <= bits <= MAX_POW_BITS, n <= 2^bits.
+// per_thread: the caller's idea of POW_PER_THREAD, refused unless it is
+// this one.
 extern "C" int zkp_fr_powers(const void* x, const void* c, void* out,
-                             long long n, int bits, void* stream) {
-  if (bits < 1 || bits > MAX_POW_BITS || n > (1LL << bits)) return REFUSED;
+                             long long n, int bits, int per_thread,
+                             void* stream) {
+  if (per_thread != POW_PER_THREAD || bits < 1 || bits > MAX_POW_BITS ||
+      n > (1LL << bits))
+    return REFUSED;
   if (n > 0) {
-    const long long blocks = (n + POW_THREADS - 1) / POW_THREADS;
+    const long long blocks = (n + POW_TILE - 1) / POW_TILE;
     fr_powers_kernel<<<(unsigned)blocks, POW_THREADS, 0,
                        (cudaStream_t)stream>>>(
         (const uint32_t*)x, (const uint32_t*)c, (uint32_t*)out, n, bits);
@@ -343,7 +353,7 @@ extern "C" int zkp_fr_open_quotient(const void* local, const void* totals,
                                     const void* x, const void* xi,
                                     const void* coeffs, void* y, void* q,
                                     long long n, int tile, int bits,
-                                    int canonical, void* stream) {
+                                    void* stream) {
   if (tile != SCAN_TILE || bits < 1 || bits > MAX_POW_BITS ||
       n >= (1LL << bits))
     return REFUSED;
@@ -353,7 +363,7 @@ extern "C" int zkp_fr_open_quotient(const void* local, const void* totals,
                               (cudaStream_t)stream>>>(
         (const uint32_t*)local, (const uint32_t*)totals, (const uint32_t*)x,
         (const uint32_t*)xi, (const uint32_t*)coeffs, (uint32_t*)y,
-        (uint32_t*)q, n, (int)blocks, bits, canonical);
+        (uint32_t*)q, n, (int)blocks, bits);
   }
   return (int)cudaGetLastError();
 }

@@ -68,6 +68,17 @@ __device__ __forceinline__ void inv(uint32_t* r, const uint32_t* a) {
   copy(r, acc);
 }
 
+// T[j] = x^(2^j) for j < bits: a chain of bits - 1 squarings.
+__device__ __forceinline__ void square_table(uint32_t* T, const uint32_t* x,
+                                             int bits) {
+  uint32_t t[L];
+  copy(t, x);
+  for (int j = 0; j < bits; j++) {
+    copy(T + j * L, t);
+    if (j + 1 < bits) mul(t, t, t);
+  }
+}
+
 // r = T[0]^k for k < 2^bits, T[j] = T[0]^(2^j) (Montgomery): one product
 // for each bit set in k, from the Montgomery one.
 __device__ __forceinline__ void pow_from_table(uint32_t* r, const uint32_t* T,
@@ -82,6 +93,22 @@ __device__ __forceinline__ void pow_from_table(uint32_t* r, const uint32_t* T,
       mul(r, r, t);
     }
   }
+}
+
+// r[e] = T[0]^(k+e) * s for e < COUNT: one walk of the table for k, the
+// product by s (null: none; the integer 1 leaves Montgomery form, and a
+// canonical value times a Montgomery one stays canonical), then one
+// product by T[0] a step. k < 2^bits.
+template <int COUNT>
+__device__ __forceinline__ void pow_run(uint32_t (*r)[L], const uint32_t* T,
+                                        unsigned long long k, int bits,
+                                        const uint32_t* s) {
+  uint32_t x[L];
+  pow_from_table(r[0], T, k, bits);
+  if (s != nullptr) mul(r[0], r[0], s);
+  copy(x, T);
+#pragma unroll
+  for (int e = 1; e < COUNT; e++) mul(r[e], r[e - 1], x);
 }
 
 }  // namespace fr

@@ -345,19 +345,24 @@ def fr_inv_plain(a):
     return acc
 
 
-def fr_powers_plain(x, n: int, c=None):
+def fr_powers_plain(x, n: int, c=None,
+                    per_thread: int = kernels.POW_PER_THREAD):
     """Plain version of K3 ``fr_powers``: out_k = x^k·c_k (x^k without
-    ``c``), (n, 8), as the kernel builds it: the table x^(2^j), then for
-    every k the product of the entries of the bits set in k."""
+    ``c``), (n, 8), as the kernel builds it: the table x^(2^j); for the
+    first k of each run of ``per_thread`` the product of the entries of the
+    bits set in k; then a product by x a step along the run; then c."""
     bits = max(1, (n - 1).bit_length())
     table = [x.reshape(FR.L)]
     for _ in range(bits - 1):
         table.append(FR.mont_mul_plain(table[-1], table[-1]))
-    k = torch.arange(n, device=x.device)
-    out = FR.ones((n,), x.device)
+    first = torch.arange(0, n, per_thread, device=x.device)
+    run = [FR.ones(first.shape, x.device)]
     for j, t in enumerate(table):
-        out = FR.select(((k >> j) & 1).bool(), FR.mont_mul_plain(out, t),
-                        out)
+        run[0] = FR.select(((first >> j) & 1).bool(),
+                           FR.mont_mul_plain(run[0], t), run[0])
+    for _ in range(per_thread - 1):
+        run.append(FR.mont_mul_plain(run[-1], table[0]))
+    out = torch.stack(run, dim=1).reshape(-1, FR.L)[:n]
     return out if c is None else FR.mont_mul_plain(out, c)
 
 

@@ -54,6 +54,10 @@ LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
 #: csrc/fr.cu, whose C entries refuse another)
 SCAN_TILE = 1024
 
+#: consecutive powers a thread of ``fr_powers`` computes (POW_PER_THREAD of
+#: csrc/fr.cu, whose C entry refuses another)
+POW_PER_THREAD = 4
+
 _lib = None
 
 
@@ -190,10 +194,10 @@ def _load() -> ctypes.CDLL:
             "zkp_fr_add": [p, p, p, i64, i32, i32, p],
             "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
             "zkp_fr_inv": [p, p, i64, p],
-            "zkp_fr_powers": [p, p, p, i64, i32, p],
+            "zkp_fr_powers": [p, p, p, i64, i32, i32, p],
             "zkp_fr_suffix_scan": [p, p, p, i64, i32, p],
             "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i32, i32,
-                                     i32, p],
+                                     p],
             "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
             "zkp_fq_add": [p, p, p, i64, i32, i32, p],
             "zkp_fq_sub": [p, p, p, i64, i32, i32, p],
@@ -478,8 +482,10 @@ def fr_powers(x: torch.Tensor, n: int,
     ``x`` one element on the card (read there: no host round trip), ``c``
     (n, 8). Replaces pallas_g1.py:pfield("mont_mul", BFR) as reached from
     field.powers and poly._powers_lane/_fmul (log2 n doubling launches and
-    the termwise product). Bound: operations (one product a set bit of k);
-    one thread a k over a per-block table of x^(2^j)."""
+    the termwise product). Bound: bytes (the function needs two products an
+    element); ``POW_PER_THREAD`` consecutive k a thread, one walk of a
+    per-block table of x^(2^j) for the first, then a product by x a
+    step."""
     _one_element(x, "x")
     n = int(n)
     if not 0 <= n < 1 << 31:
@@ -495,7 +501,7 @@ def fr_powers(x: torch.Tensor, n: int,
     if n:
         _launch("fr_powers", _load().zkp_fr_powers, x.data_ptr(),
                 0 if c is None else c.data_ptr(), out.data_ptr(), n,
-                max(1, (n - 1).bit_length()))
+                max(1, (n - 1).bit_length()), POW_PER_THREAD)
     return out
 
 
@@ -524,11 +530,10 @@ def fr_suffix_scan(terms: torch.Tensor):
 
 
 def fr_open_quotient(local: torch.Tensor, totals: torch.Tensor,
-                     x: torch.Tensor, xi: torch.Tensor, coeffs: torch.Tensor,
-                     canonical: bool = True):
-    """Second pass of the suffix scan, fused with the opening: (y (8,), q
-    (n, 8)) with y = S_0 and q_j = S_{j+1}·xi^(j+1) (q_{n−1} = 0),
-    canonical or Montgomery; at x = 0, q = c[1:] ‖ 0, chosen on the card.
+                     x: torch.Tensor, xi: torch.Tensor, coeffs: torch.Tensor):
+    """Second pass of the suffix scan, fused with the opening: (y (8,)
+    Montgomery, q (n, 8) canonical) with y = S_0 and q_j = S_{j+1}·xi^(j+1)
+    (q_{n−1} = 0); at x = 0, q = c[1:] ‖ 0, chosen on the card.
 
     ``local``/``totals`` from ``fr_suffix_scan``, ``x`` and ``xi`` = 1/x one
     element each, ``coeffs`` (n, 8). Replaces pallas_g1.py:pfield over BFR
@@ -554,7 +559,7 @@ def fr_open_quotient(local: torch.Tensor, totals: torch.Tensor,
         _launch("fr_open_quotient", _load().zkp_fr_open_quotient,
                 local.data_ptr(), totals.data_ptr(), x.data_ptr(),
                 xi.data_ptr(), coeffs.data_ptr(), y.data_ptr(), q.data_ptr(),
-                n, SCAN_TILE, n.bit_length(), int(bool(canonical)))
+                n, SCAN_TILE, n.bit_length())
     return y, q
 
 

@@ -64,14 +64,14 @@ def _open_pieces(coeffs: torch.Tensor, x: torch.Tensor):
     return suffix[0], fr_mul(s_next, inv_pw)
 
 
-def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor, canonical: bool):
-    """(y, q (n, 8)) of ``fr_open_quotient`` in four K3 launches; x stays on
-    the card."""
+def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor):
+    """(y Montgomery, q (n, 8) canonical) of ``fr_open_quotient`` in four K3
+    launches; x stays on the card."""
     coeffs, x = coeffs.contiguous(), x.contiguous()
     xi = kernels.fr_inv(x)
     terms = kernels.fr_powers(x, coeffs.shape[0], coeffs)
     local, totals = kernels.fr_suffix_scan(terms)
-    return kernels.fr_open_quotient(local, totals, x, xi, coeffs, canonical)
+    return kernels.fr_open_quotient(local, totals, x, xi, coeffs)
 
 
 # -- plain versions of the scan kernels ---------------------------------------
@@ -91,13 +91,12 @@ def fr_suffix_scan_plain(terms: torch.Tensor, tile: int = SCAN_TILE):
 
 def fr_open_quotient_plain(local: torch.Tensor, totals: torch.Tensor,
                            x: torch.Tensor, xi: torch.Tensor,
-                           coeffs: torch.Tensor, tile: int = SCAN_TILE,
-                           canonical: bool = True):
-    """Plain version of K3 ``fr_open_quotient``: (y, q) from the first
-    pass's tiles. carry_b = Σ_{b' > b} totals[b']; S_{j+1} = local_{j+1} +
-    carry inside a tile, the carry alone at a tile's last element;
-    y = S_0, q_j = S_{j+1}·xi^(j+1) (canonical: times the integer 1); at
-    x = 0, q = c[1:] ‖ 0."""
+                           coeffs: torch.Tensor, tile: int = SCAN_TILE):
+    """Plain version of K3 ``fr_open_quotient``: (y Montgomery, q
+    canonical) from the first pass's tiles. carry_b = Σ_{b' > b}
+    totals[b']; S_{j+1} = local_{j+1} + carry inside a tile, the carry alone
+    at a tile's last element; y = S_0, q_j = S_{j+1}·xi^(j+1) times the
+    integer 1; at x = 0, q = c[1:] ‖ 0."""
     n, dev = local.shape[0], local.device
     zero = FR.zeros((1,), dev)
     carry = _scan_from_right(torch.cat([totals[1:], zero]), FR.add_plain)
@@ -109,24 +108,20 @@ def fr_open_quotient_plain(local: torch.Tensor, totals: torch.Tensor,
     y = FR.add_plain(local[0], carry[0])
     one = _one_canonical(dev)
     pw = fr_powers_plain(xi, n + 1)[1:]                     # xi^(j+1)
-    q = FR.mont_mul_plain(s_next, pw)
-    q_zero = torch.cat([coeffs[1:], zero])
-    if canonical:
-        q = FR.mont_mul_plain(q, one)
-        q_zero = FR.mont_mul_plain(q_zero, one)
+    q = FR.mont_mul_plain(FR.mont_mul_plain(s_next, pw), one)
+    q_zero = FR.mont_mul_plain(torch.cat([coeffs[1:], zero]), one)
     at_zero = FR.is_zero(x.reshape(FR.L)).expand(n)
     return y, FR.select(at_zero, q_zero, q)
 
 
 def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
-                      tile: int = SCAN_TILE, canonical: bool = True):
+                      tile: int = SCAN_TILE):
     """The four plain versions composed as ``_open_on_card`` launches the
     kernels: (y, q (n, 8))."""
     xi = fr_inv_plain(x.reshape(FR.L))
     terms = fr_powers_plain(x, coeffs.shape[0], coeffs)
     local, totals = fr_suffix_scan_plain(terms, tile)
-    return fr_open_quotient_plain(local, totals, x, xi, coeffs, tile,
-                                  canonical)
+    return fr_open_quotient_plain(local, totals, x, xi, coeffs, tile)
 
 
 # -- public ops --------------------------------------------------------------
@@ -134,7 +129,7 @@ def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
 def poly_eval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """f(x). coeffs (N, 8) Montgomery; x (8,). Returns (8,)."""
     if coeffs.is_cuda:
-        return _open_on_card(coeffs, x, canonical=False)[0]
+        return _open_on_card(coeffs, x)[0]
     terms = fr_mul(coeffs, FR.powers(x, coeffs.shape[0]))
     return _scan_from_right(terms, fr_add)[0]
 
@@ -144,8 +139,8 @@ def poly_eval_and_quotient(coeffs: torch.Tensor, x: torch.Tensor):
     Montgomery. At x = 0 the quotient is c[1:]
     (``zkp_subnet_tpu/ops/poly.py:103-132``)."""
     if coeffs.is_cuda:
-        y, q = _open_on_card(coeffs, x, canonical=False)
-        return y, q[:-1]
+        y, q = _open_on_card(coeffs, x)
+        return y, FR.to_mont(q[:-1])
     y, q = _open_pieces(coeffs, x)
     if bool(FR.is_zero(x)):
         return y, coeffs[1:]
@@ -160,7 +155,7 @@ def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor):
     request runs the opening with x = 0). On the card that choice is made
     by the kernel, so x is never read back to the host."""
     if coeffs.is_cuda:
-        return _open_on_card(coeffs, x, canonical=True)
+        return _open_on_card(coeffs, x)
     y, q = _open_pieces(coeffs, x)
     if bool(FR.is_zero(x)):
         q = torch.cat([coeffs[1:], FR.zeros((1,), coeffs.device)])
