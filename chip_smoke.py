@@ -22,7 +22,11 @@ Phases (each prints a line; any failure exits non-zero):
    zeros and of a length that is no multiple of the tile, and the whole
    opening with the host forbidden to wait for the card; the K1 ladder
    ``g1_scalar_mul`` with scalars 0, 1, r − 1 and the point at infinity, at
-   16 and 2^16 points, also against the loop of K1 launches it replaces);
+   16 and 2^16 points, also against the loop of K1 launches it replaces;
+   the challenge's row evaluation ``fr_eval_rows`` at x = 0, 1, r − 1 and
+   random, on a row of zeros, one row, lengths 1, 1024, 1025 and 3000, one
+   row at 16 points, and 16 x 2^16 at one point with the host forbidden to
+   wait for the card);
    then each kernel's time beside its plain version's, both on the card, at
    the shapes the paths below give it (CUDA events around a loop of
    launches: for a short kernel that is the host's cost a launch) and the
@@ -39,7 +43,8 @@ Phases (each prints a line; any failure exits non-zero):
    launch and no K1 double); then the median of warm commit+open requests and the
    peak device memory; then skewed rows, as Pianist wire polynomials are
    (three of 90% zeros and ones, one of all ones), each checked the same
-   way, and their median;
+   way, and their median; then the host split of a warm request (each step
+   of ``Worker.forward`` timed alone, median of 5, beside its total);
 5. ``[round]``, the coordinator's side of one Pianist round at the row width
    of the reference mainnet (2^16 coefficients a worker) with 16 workers
    (scale 20, machines_scale 4; mainnet has 256 workers, and the other 240
@@ -51,7 +56,12 @@ Phases (each prints a line; any failure exits non-zero):
    count, and its warm time after the path's counts are read) and
    ``pianist.verify_aggregated`` (True, and False after tampering; the
    aggregation launches ``fr_inv`` twice and the ladder twice, and the
-   path no K1 double);
+   path no K1 double); then the coordinator's own round on the same SRS
+   (``Coordinator.generate_challenge`` by one ``fr_eval_rows`` and no
+   ``fr_inv``, ``run_round`` through ``LocalTransport``, through
+   ``HttpTransport`` to a ``WorkerServer`` on 127.0.0.1 and through
+   ``MockTransport`` with one corrupt uid, ``aggregate_responses``, the
+   weights and ``state.npz``);
 6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22;
 7. ``[device]``: each kernel's device time with no host work between
    launches (``device_ms``: CUDA events around the replay of a CUDA graph of
@@ -70,15 +80,18 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
 import numpy as np
 import torch
 
+from zkp_subnet_tpu_torch import runtime as trt
 from zkp_subnet_tpu_torch.models import pianist
 from zkp_subnet_tpu_torch.models.srs import Srs, _lagrange_coeffs_at
 from zkp_subnet_tpu_torch.ops import curve as cv
@@ -107,6 +120,8 @@ TAU_Y = 0x0F1E2D3C4B5A69788796A5B4C3D2E1F00112233445566778
 NTT_CELL_LOGS = (16, 20, 22)
 NTT_CELL_RUNS = 5
 AGGREGATE_WARM_RUNS = 5
+# the coordinator's rounds on the [round] SRS: the scoring timeout (s)
+COORDINATOR_TIMEOUT = 30.0
 
 # the card's peaks for ``bound_ms``: device memory rate from NVIDIA's data
 # sheet (H100 SXM); the integer rate is 64 INT32 lanes per SM (Hopper
@@ -133,7 +148,7 @@ G1_BYTES, FQ_BYTES, FR_BYTES = 144, 48, 32
 INV_CHAIN = (o.R - 2).bit_length() - 2 + bin(o.R - 2).count("1")
 # the K3 kernels of one opening, and K3's elementwise ones
 K3_FAMILY = ("fr_mul", "fr_add", "fr_sub", "fr_inv", "fr_powers",
-             "fr_suffix_scan", "fr_open_quotient")
+             "fr_suffix_scan", "fr_open_quotient", "fr_eval_rows")
 LADDER_BITS = 256
 # the kernels that time far above the rest at the path's shape: the plain
 # version runs once (no warm-up call) and the kernel a few times
@@ -162,6 +177,9 @@ KERNELS = {
     "fr_powers": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_suffix_scan": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_open_quotient": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    # pfield over lane8.BFR as poly._fmul/_tree_sum_lane reach it from
+    # poly_eval under the coordinator's jax.vmap (coordinator.py:91)
+    "fr_eval_rows": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fq_mul": (_CSRC + "fq.cu", _PALLAS + ":181"),
     "fq_add": (_CSRC + "fq.cu", _PALLAS + ":181"),
     "fq_sub": (_CSRC + "fq.cu", _PALLAS + ":181"),
@@ -177,6 +195,7 @@ KERNEL_FUNCTIONS = {
     "g1_scalar_mul": "g1_scalar_mul_kernel", "fr_inv": "fr_inv_kernel",
     "fr_powers": "fr_powers_kernel", "fr_suffix_scan": "fr_suffix_scan_kernel",
     "fr_open_quotient": "fr_open_quotient_kernel",
+    "fr_eval_rows": "fr_eval_partial_kernel",
     "msm_buckets": "msm_buckets_kernel", "msm_reduce": "msm_reduce_kernel",
     "msm_combine": "msm_combine_kernel", "fr_mul": "fr_binary_kernel<0>",
     "fr_add": "fr_binary_kernel<1>", "fr_sub": "fr_binary_kernel<2>",
@@ -419,7 +438,11 @@ def path_inputs(rng, dev):
     lp[3] = cv.g1_infinity((), dev)
     ls = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
     ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1], dev)
-    return types.SimpleNamespace(n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
+    # the coordinator's challenge: m rows of 2^16 coefficients at one alpha
+    rows = fr_from_canonical_limbs(
+        random_scalar_limbs(rng, m * n).reshape(m, n, 16), dev)
+    return types.SimpleNamespace(rows=rows, alpha=x1.view(1, 8),
+                                 n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
                                  sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
                                  runs1=runs1, runs_ones=runs_ones, bk=bk,
                                  wins=wins, x1=x1, xi1=xi1, local=local,
@@ -427,6 +450,16 @@ def path_inputs(rng, dev):
                                  lp16=lp[:16].contiguous(),
                                  ls16=ls[:16].contiguous(),
                                  diffs=FR.sub(x1, aggregation_dom(m, dev)))
+
+
+#: the label of the path fr_eval_rows replaced in ``other_ms``
+OPENINGS = "16 rows by 16 openings, y kept (the path before)"
+
+
+def openings_y(rows, alpha):
+    """The rows at alpha as ``poly_eval`` took them before ``fr_eval_rows``:
+    one opening a row (four K3 launches), the quotient dropped."""
+    return torch.stack([tpoly._open_on_card(r, alpha[0])[0] for r in rows])
 
 
 def aggregation_dom(m, dev):
@@ -512,6 +545,12 @@ def path_calls(x):
             lambda: tpoly.fr_open_quotient_plain(local, totals, x1, xi1, a),
             50, same_fr_pair, FR_BYTES * (2 * n + tiles + 3),
             n * (OPS_FR_LIN + 2 * OPS_FR_MUL) + tiles * OPS_FR_LIN),
+        # Horner's one product and one add an element is the least any
+        # method needs; the coefficients read once
+        "fr_eval_rows": (lambda: kernels.fr_eval_rows(x.rows, x.alpha),
+                         lambda: tpoly.fr_eval_rows_plain(x.rows, x.alpha),
+                         50, fr, FR_BYTES * (m * n + 1 + m),
+                         m * n * (OPS_FR_MUL + OPS_FR_LIN)),
         "g1_add": (lambda: kernels.g1_add(p, q),
                    lambda: cv.g1_add_plain(p, q), 20, pts,
                    3 * G1_BYTES * n, OPS_G1_ADD * n),
@@ -601,6 +640,7 @@ def phase_kernels(rng, dev, int_ops_per_s):
         "r-1, r-2, equal operands and broadcast operands: equal to plain")
 
     phase_opening_kernels(rng, dev, record)
+    phase_eval_rows_kernel(rng, dev, record)
 
     # the K1 ladder at the aggregation's 16 points: scalars 0, 1, r − 1,
     # the point at infinity, random; against the plain version and the loop
@@ -790,7 +830,12 @@ def phase_kernels(rng, dev, int_ops_per_s):
               # cost the host before fr_inv
               ("fr_mul", "one element", same_fr,
                lambda: kernels.fr_mul(x.x1, x.xi1),
-               lambda: fr_mul_plain(x.x1, x.xi1))]
+               lambda: fr_mul_plain(x.x1, x.xi1)),
+              # the challenge's evals as the port took them before
+              # fr_eval_rows: a whole opening a row, y kept
+              ("fr_eval_rows", OPENINGS, same_fr,
+               lambda: openings_y(x.rows, x.alpha),
+               lambda: kernels.fr_eval_rows(x.rows, x.alpha))]
     for name, label, same, kern, plain in others:
         ms, got = time_cuda(kern, 5)
         record(name, same(got, plain()))
@@ -798,9 +843,15 @@ def phase_kernels(rng, dev, int_ops_per_s):
             f"plain; kernel {ms:.4f} ms")
         res[name].setdefault("other_ms", {})[label] = ms
     step_ms = res["g1_scalar_mul"]["other_ms"]["16 points"] / LADDER_BITS
+    b16, by16 = bound(2 * G1_BYTES * 16 + FR_BYTES * 16,
+                      scalar_mul_ops(x.ls16), int_ops_per_s)
+    res["g1_scalar_mul"]["other_bound_ms"] = {"16 points": b16}
     say(f"[kernels] g1_scalar_mul at 16 points: {LADDER_BITS} dependent "
         f"double-and-add steps, {step_ms * 1e3:.2f} us each (msm_combine's "
-        "point operation, by a warp: PERF.md)")
+        "point operation, by a warp: PERF.md); bound "
+        f"{b16:.6f} ms ({by16}), "
+        f"{res['g1_scalar_mul']['other_ms']['16 points'] / b16:.0f} x it: "
+        "latency, one thread's chain of steps a point")
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
     say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
@@ -819,7 +870,8 @@ def phase_opening_kernels(rng, dev, record):
     opening (``poly_open_scalars``) against the plain versions composed,
     while the host may not wait for the card
     (``torch.cuda.set_sync_debug_mode("error")``: no value of x comes
-    back); and ``poly_eval``/``poly_eval_and_quotient`` against the same."""
+    back); ``poly_eval_and_quotient`` against the same, and ``poly_eval``
+    (K3 ``fr_eval_rows``) against their y."""
     vals = random_fr(rng, 64, dev)                 # 0, 1, r−1, r−2, random
     diffs = FR.sub(vals[10], aggregation_dom(1 << ROUND_MACHINES_SCALE, dev))
     for t in (vals, diffs, vals[:1], vals[1:2]):
@@ -859,13 +911,14 @@ def phase_opening_kernels(rng, dev, record):
             y, q = tpoly.poly_eval_and_quotient(c, x)
             y_plain, q_plain = tpoly.open_pieces_plain(c, x)
             record("fr_open_quotient", same_fr_pair(
-                (y, q, tpoly.poly_eval(c, x)),
-                (y_plain, FR.to_mont(q_plain[:-1]), y_plain)))
+                (y, q), (y_plain, FR.to_mont(q_plain[:-1]))))
+            record("fr_eval_rows", same_fr(tpoly.poly_eval(c, x), y_plain))
         say(f"[kernels] K3 fr_suffix_scan / fr_open_quotient ({label}, "
             f"{tuple(local.shape)} in tiles of {tpoly.SCAN_TILE}), at x = 0, "
             "1, r-1 and random: equal to plain; poly_open_scalars equals "
             "the plain versions composed, with no wait for the card on the "
-            "host, and so do poly_eval and poly_eval_and_quotient")
+            "host, and so does poly_eval_and_quotient; poly_eval "
+            "(fr_eval_rows) gives the same y")
     x_int = FR.decode(xs[3])[0]
     c = rows[2][1]
     check(FR.decode(tpoly.poly_open_scalars(c, xs[3])[0])
@@ -874,6 +927,59 @@ def phase_opening_kernels(rng, dev, record):
         "aggregation differences) and fr_powers (x = 0, 1, r-1, random; "
         "n = 1, 1000, 2^16, with and without c): equal to plain; y of the "
         "3000-coefficient row equals the oracle's f(x)")
+
+
+def phase_eval_rows_kernel(rng, dev, record):
+    """K3 ``fr_eval_rows`` against its plain version (on CPU copies; at
+    16 x 2^16 on the card), tolerance 0: 4 rows, each at its own x of 0, 1,
+    r - 1 and random, and all 4 at each x; a row of zeros among them; one
+    row; n = 1, one tile (1024), one element past it (1025) and 3000 (no
+    multiple of the tile); one polynomial at 16 points
+    (``poly_eval_many``); and the challenge's 16 x 2^16 at one point through
+    ``poly_eval``, with the host forbidden to wait for the card, and row 0
+    against the oracle."""
+    xs = random_fr(rng, 5, dev)[[0, 1, 2, 4]].contiguous()  # 0, 1, r−1, rand
+    cases = []
+    for n in (1, 1024, 1025, 3000):
+        c = random_fr(rng, 4 * n, dev).view(4, n, 8).clone()
+        c[1] = 0
+        cases += [(f"4 x {n}, own x", c, xs)]
+        cases += [(f"4 x {n}, x = {label}", c, xs[i:i + 1].contiguous())
+                  for i, label in enumerate(("0", "1", "r-1", "random"))]
+        cases += [(f"1 x {n}", c[2:3].contiguous(), xs[3:4].contiguous())]
+    for label, c, x in cases:
+        record("fr_eval_rows", same_fr(kernels.fr_eval_rows(c, x),
+                                       tpoly.fr_eval_rows_plain(c.cpu(),
+                                                                x.cpu())))
+    row = random_fr(rng, 3000, dev)
+    pts = random_fr(rng, 16, dev)
+    got = tpoly.poly_eval_many(row, pts)
+    record("fr_eval_rows", same_fr(got, tpoly.fr_eval_rows_plain(
+        row[None].cpu(), pts.cpu())))
+    check(FR.decode(got[4:6]) == [o.poly_eval(FR.decode(row), v)
+                                  for v in FR.decode(pts[4:6])],
+          "poly_eval_many != oracle")
+    m, n = 1 << ROUND_MACHINES_SCALE, 1 << LOG_N
+    limbs = random_scalar_limbs(rng, m * n).reshape(m, n, 16)
+    rows = fr_from_canonical_limbs(limbs, dev)
+    alpha = random_fr(rng, 5, dev)[4].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpoly.poly_eval(rows, alpha)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    record("fr_eval_rows", same_fr(got, tpoly.fr_eval_rows_plain(
+        rows, alpha.view(1, 8))))
+    check(FR.decode(got[:1]) == [o.poly_eval(limbs_to_ints(limbs[0]),
+                                             FR.decode(alpha)[0])],
+          "fr_eval_rows: row 0 != oracle")
+    say(f"[kernels] K3 fr_eval_rows: {len(cases)} cases (4 rows at x = 0, "
+        "1, r-1, random, each its own or all one; a row of zeros; one row; "
+        "n = 1, 1024, 1025, 3000), poly_eval_many of one row at 16 points, "
+        f"and poly_eval of {m} x 2^{LOG_N} rows at one x with no wait for "
+        "the card on the host: equal to plain; row 0 and two of the 16 "
+        "points equal the oracle")
 
 
 def butterfly_inputs(rng, dev):
@@ -943,11 +1049,13 @@ def phase_device_times(res, dev):
               ("fr_inv", "16 elements, device"): (
                   lambda: kernels.fr_inv(x.diffs), 20),
               ("fr_mul", "one element, device"): (
-                  lambda: kernels.fr_mul(x.x1, x.xi1), 100)}
+                  lambda: kernels.fr_mul(x.x1, x.xi1), 100),
+              ("fr_eval_rows", OPENINGS + ", device"): (
+                  lambda: openings_y(x.rows, x.alpha), 5)}
     for (name, label), (fn, launches) in others.items():
         ms = time_graph(fn, launches)
         res[name].setdefault("other_ms", {})[label] = ms
-        say(f"[device] {name}, {label.split(',')[0]}: {ms:.4f} ms a launch "
+        say(f"[device] {name}, {label.split(',')[0]}: {ms:.4f} ms a call "
             "by graph replay")
     for name, r in res.items():
         r["profiler_ms"] = time_profiler(calls[name], 20)
@@ -1112,7 +1220,82 @@ def phase_main_path(rng, dev):
         f"{statistics.median(skew_times) * 1e3:.2f} ms over "
         f"{len(skew_times)} ({', '.join(f'{t * 1e3:.2f}' for t in skew_times)}"
         f" ms) beside the random rows' median {med:.2f} ms")
+    host_split(worker, rng)
     return launches, setup, per_request
+
+
+def host_split(worker, rng):
+    """Where one warm request's time goes: ``Worker.forward``'s steps run
+    one by one with ``torch.cuda.synchronize()`` between them, median of
+    ``WARM_REQUESTS`` requests, beside ``Worker.forward``'s own total on
+    the same requests; the staged outputs must be the forward's wire
+    strings."""
+    n = 1 << LOG_N
+    bases = worker.srs.device_worker_bases(0)
+    groups = tmsm._groups(n)
+    stages = ("b64 -> limbs", "limbs -> card + to_mont", "alpha encode",
+              "opening K3 (+ from_mont_wide)", "bucket_runs (digits, sort)",
+              "K2 + K1 (buckets, reduce, folds, combine)",
+              "g1_decode + g1_to_b64 (and eval b64)")
+    split = {k: [] for k in stages}
+    totals = []
+    for _ in range(WARM_REQUESTS):
+        limbs = random_scalar_limbs(rng, n)
+        syn = Prove(index=0, poly=enc.limbs_to_b64(limbs),
+                    alpha=enc.fr_to_b64(int.from_bytes(rng.bytes(32),
+                                                       "little") % o.R))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = worker.forward(syn)
+        torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t0) * 1e3)
+        out = {}
+
+        def stage(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            split[name].append((time.perf_counter() - t) * 1e3)
+            return out[name]
+
+        got = stage(stages[0], lambda: enc.b64_to_limbs(syn.poly))
+        row = stage(stages[1], lambda: FR.to_mont(FR.from_limbs16(
+            got, worker.device)))
+        x = stage(stages[2], lambda: FR.encode(
+            [enc.fr_from_b64(syn.alpha)], worker.device)[0])
+
+        def opening():
+            y, quotient = tpoly.poly_open_scalars(row, x)
+            return y, torch.stack([tpoly.from_mont_wide(row), quotient])
+
+        y, scalars = stage(stages[3], opening)
+        perm, digits = stage(stages[4], lambda: tmsm.bucket_runs(scalars,
+                                                                  groups))
+
+        def k2_k1():
+            sums = tmsm.msm_reduce(tmsm.msm_buckets(bases, perm, digits))
+            g = groups
+            while g > 1:
+                half = sums.shape[0] // 2
+                sums = cv.g1_add(sums[:half], sums[half:])
+                g //= 2
+            return tmsm.msm_combine(sums.view(2, tmsm.NUM_WINDOWS, 3, 12))
+
+        com_prf = stage(stages[5], k2_k1)
+        wire = stage(stages[6], lambda: [
+            enc.g1_to_b64(cv.g1_decode(p)[0], worker.compressed)
+            for p in com_prf] + [enc.fr_to_b64(FR.decode(y)[0])])
+        check(wire == [want.commitment, want.proof, want.eval_],
+              "host split: the staged request != Worker.forward's")
+    med = {k: statistics.median(v) for k, v in split.items()}
+    say(f"[main] host split of a warm 2^{LOG_N} request, median of "
+        f"{WARM_REQUESTS} (synchronized between stages; the staged outputs "
+        "equal Worker.forward's): " + "; ".join(
+            f"{k} {v:.2f} ms" for k, v in med.items())
+        + f"; sum {sum(med.values()):.2f} ms beside Worker.forward's "
+        f"median {statistics.median(totals):.2f} ms")
+    return med
 
 
 def on_curve_defect(points: torch.Tensor) -> torch.Tensor:
@@ -1300,7 +1483,10 @@ def phase_round(rng, dev):
         "(host pairing); False with the value changed, and False for the "
         "proof aggregated from one changed eval")
 
-    # 5. launch counts of this path
+    # 5. the coordinator's own round on the same SRS
+    phase_coordinator(srs, rng, dev)
+
+    # 6. launch counts of this path
     launches = dict(kernels.LAUNCHES)
     for k, v in launches.items():
         # the double runs inside the ladder's kernel, never on its own
@@ -1323,6 +1509,135 @@ def phase_round(rng, dev):
         f"{statistics.median(times):.2f} ms over {len(times)} "
         f"({', '.join(f'{t:.2f}' for t in times)} ms)")
     return launches
+
+
+def coordinator_round(coord, transport, label):
+    """One ``Coordinator.run_round``, timed; every response must carry its
+    commitment and proof (a failed Worker.forward returns the request
+    unchanged, which would only score 0)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    challenge, responses, rewards = coord.run_round(transport)
+    dt = time.perf_counter() - t0
+    m = coord.srs.machines
+    check(len(responses) == m, f"{label}: {len(responses)} responses, not {m}")
+    for i, r in enumerate(responses):
+        check(r.commitment and r.proof and r.eval_,
+              f"{label}: response {i} lacks its commitment or proof "
+              f"(status {r.status_code})")
+    return challenge, responses, rewards, dt
+
+
+def phase_coordinator(srs, rng, dev):
+    """The coordinator's round on the [round] SRS (16 workers x 2^16):
+    ``generate_challenge`` (one fr_eval_rows, no fr_inv; row 0's eval
+    against the oracle), ``run_round`` through LocalTransport (one Worker a
+    uid, called from executor threads) and through HttpTransport against a
+    WorkerServer on 127.0.0.1 with the card behind it, every reward > 0;
+    MockTransport with one corrupt uid (exactly 0, the rest > 0);
+    ``aggregate_responses`` on the complete set (``verify_aggregated``);
+    then the scores, the weights and ``state.npz`` through a temporary
+    directory."""
+    m = srs.machines
+    hotkeys = [f"hk{i}" for i in range(m)]
+    coord = trt.Coordinator(srs, trt.CoordinatorConfig(sample_size=m,
+                                                       timeout=COORDINATOR_TIMEOUT),
+                            hotkeys, seed=SEED)
+    check(coord.generator.device.type == "cuda",
+          "the coordinator does not draw on the card")
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    challenge = coord.generate_challenge(m)
+    t_challenge = time.perf_counter() - t0
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+    check(1 <= used.get("fr_eval_rows", 0) <= 2 and "fr_inv" not in used,
+          f"generate_challenge: not 1-2 fr_eval_rows and no fr_inv: {used}")
+    row0 = enc.poly_from_b64(challenge.polys[0])
+    alpha = enc.fr_from_b64(challenge.alpha)
+    check(enc.fr_from_b64(challenge.evals[0]) == o.poly_eval(row0, alpha),
+          "challenge: row 0's eval != oracle.poly_eval")
+    say(f"[round] Coordinator.generate_challenge({m}): {t_challenge:.3f} s "
+        f"({m} x 2^{LOG_N} coefficients to b64), launches {used}; row 0's "
+        "eval equals oracle.poly_eval")
+
+    workers = {u: Worker(srs) for u in range(m)}
+    times = {}
+    challenge, responses, rewards, times["local"] = coordinator_round(
+        coord, trt.LocalTransport(workers), "LocalTransport round")
+    check((rewards > 0).all(), f"LocalTransport round: rewards {rewards}")
+    reward_ms = []
+    for r in responses:
+        t0 = time.perf_counter()
+        coord.reward(challenge, r)
+        reward_ms.append((time.perf_counter() - t0) * 1e3)
+    say(f"[round] run_round via LocalTransport: {times['local']:.3f} s, "
+        f"{m} responses with commitment and proof, rewards "
+        f"{float(rewards.min()):.4f}..{float(rewards.max()):.4f} (all > 0); "
+        f"reward (host pairing) median {statistics.median(reward_ms):.2f} "
+        "ms")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg, a_int, b_int = coord.aggregate_responses(challenge, responses)
+    torch.cuda.synchronize()
+    t_agg = time.perf_counter() - t0
+    check(coord.verify_aggregated(agg, a_int, b_int),
+          "aggregate_responses: verify_aggregated False")
+    say(f"[round] aggregate_responses on the complete set: {t_agg * 1e3:.1f} "
+        "ms; verify_aggregated True")
+
+    server = trt.WorkerServer(Worker(srs), port=0).start()
+    try:
+        _, _, rewards, times["http"] = coordinator_round(
+            coord, trt.HttpTransport({u: server.url for u in range(m)}),
+            "HttpTransport round")
+    finally:
+        server.stop()
+    check((rewards > 0).all(), f"HttpTransport round: rewards {rewards}")
+    say(f"[round] run_round via HttpTransport (a WorkerServer on "
+        f"127.0.0.1, the card behind it): {times['http']:.3f} s, {m} "
+        "responses with commitment and proof, every reward > 0")
+
+    # a fresh coordinator: its scores start at 0, so the corrupt uid's
+    # score after the round is its reward
+    corrupt = m // 3
+    mock_coord = trt.Coordinator(srs, trt.CoordinatorConfig(
+        sample_size=m, timeout=COORDINATOR_TIMEOUT), hotkeys, seed=SEED + 1)
+    _, _, rewards, times["mock"] = coordinator_round(
+        mock_coord, trt.MockTransport(workers, min_time=0.1, max_time=0.5,
+                                      seed=SEED, corrupt_uids=[corrupt]),
+        "MockTransport round")
+    check(int((rewards == 0).sum()) == 1
+          and mock_coord.scores[corrupt] == 0.0
+          and (np.delete(mock_coord.scores, corrupt) > 0).all(),
+          f"MockTransport round: uid {corrupt} corrupt, rewards {rewards}, "
+          f"scores {mock_coord.scores}")
+    say(f"[round] run_round via MockTransport (uid {corrupt}'s proof "
+        f"corrupted): {times['mock']:.3f} s; its reward exactly 0, the "
+        f"other {m - 1} > 0")
+
+    uids, weights = coord.set_weights()
+    check(len(uids) == m and int(weights.max()) == 65535,
+          f"set_weights: uids {uids}, weights {weights}")
+    with tempfile.TemporaryDirectory() as state_dir:
+        coord.config.state_dir = state_dir
+        path = coord.save_state()
+        fresh = trt.Coordinator(srs, trt.CoordinatorConfig(
+            state_dir=state_dir), [])
+        check(fresh.load_state() and fresh.step == coord.step == 2
+              and fresh.hotkeys == hotkeys
+              and np.array_equal(fresh.scores, coord.scores),
+              "state.npz did not load back")
+    say(f"[round] scores after 2 rounds {np.round(coord.scores, 4).tolist()}"
+        f"; set_weights: {len(uids)} uids, max weight {int(weights.max())}; "
+        f"{os.path.basename(path)} saved and loaded back (step "
+        f"{fresh.step})")
+    say("[round] coordinator timings: generate_challenge "
+        f"{t_challenge * 1e3:.1f} ms; rounds "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; reward median {statistics.median(reward_ms):.2f} ms")
 
 
 def phase_ntt_cells(dev):
@@ -1400,7 +1715,8 @@ def main() -> int:
               "library_ms": None, "device_ms": res[k]["device_ms"],
               "registers": usage[KERNEL_FUNCTIONS[k]]["registers"],
               "profiler_ms": res[k]["profiler_ms"],
-              "other_ms": res[k].get("other_ms")}
+              "other_ms": res[k].get("other_ms"),
+              "other_bound_ms": res[k].get("other_bound_ms")}
              for k, (src, rep) in KERNELS.items()]
     say(json.dumps({"kernels": table}))
     say(nvidia_smi())

@@ -22,6 +22,8 @@ from zkp_subnet_tpu_torch.ops import ntt as tntt
 from zkp_subnet_tpu_torch.ops import poly as tpoly
 from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fr_inv_plain,
                                             fr_powers_plain)
+from zkp_subnet_tpu_torch import runtime as trt
+from zkp_subnet_tpu_torch.runtime.server import rpc
 from zkp_subnet_tpu_torch.runtime.worker import Prove, Worker
 from zkp_subnet_tpu_torch.utils import encoding as enc
 from zkp_subnet_tpu_torch.utils import oracle as o
@@ -407,9 +409,10 @@ def test_opening_kernels_match_plain(dev, n):
 
 @pytest.mark.parametrize("n", [1, 1000, 3000])
 def test_eval_and_quotient_on_card_match_cpu(dev, n):
-    """poly_eval and poly_eval_and_quotient on the card (the opening's four
-    kernels; the quotient back to Montgomery form by one fr_mul) against
-    the CPU's composition, limb for limb, at x 0, 1, r − 1 and random."""
+    """poly_eval (one fr_eval_rows) and poly_eval_and_quotient (the
+    opening's four kernels; the quotient back to Montgomery form by one
+    fr_mul) on the card against the CPU, limb for limb, at x 0, 1, r − 1
+    and random."""
     c = _edge_fr(30, n)
     for x in _edge_fr(31, 4):
         x = x.contiguous()
@@ -417,8 +420,7 @@ def test_eval_and_quotient_on_card_match_cpu(dev, n):
         y = tpoly.poly_eval(c.to(dev), x.to(dev))
         used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                 if v != before[k]}
-        assert used == {"fr_inv": 1, "fr_powers": 1, "fr_suffix_scan": 1,
-                        "fr_open_quotient": 1}
+        assert used == {"fr_eval_rows": 1}
         assert torch.equal(y.cpu(), tpoly.poly_eval(c, x))
         y, q = tpoly.poly_eval_and_quotient(c.to(dev), x.to(dev))
         wy, wq = tpoly.poly_eval_and_quotient(c, x)
@@ -502,3 +504,88 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
     pskew.copy_(pts)
     assert torch.equal(kernels.g1_scalar_mul(pskew, sc),
                        kernels.g1_scalar_mul(pts, sc))
+
+
+@pytest.mark.parametrize("rows, n, shared", [
+    (4, 1, None), (4, 1000, None), (4, 1024, None), (4, 1025, None),
+    (4, 3000, "x"), (1, 3000, None), (16, 3000, "row"),
+    (16, 1 << 16, "x")])
+def test_fr_eval_rows_kernel_matches_plain(dev, rows, n, shared):
+    """K3 fr_eval_rows against its plain version limb for limb: x = 0, 1,
+    r − 1 and random (each row its point, or all rows one point), a row of
+    zeros, one row at many points, n of one element, one tile, one element
+    past it and no multiple of the tile; at the challenge's 16 × 2^16 one
+    launch and the oracle for row 0."""
+    c = _edge_fr(40 + n, rows * n).view(rows, n, 8).clone()
+    c[1 % rows] = 0
+    xs = _edge_fr(41, max(rows, 4))[:rows].clone()
+    if shared == "x":
+        xs = xs[3:4].contiguous()
+    if shared == "row":
+        c = c[2:3].contiguous()
+    before = dict(kernels.LAUNCHES)
+    got = kernels.fr_eval_rows(c.to(dev), xs.to(dev))
+    assert kernels.LAUNCHES["fr_eval_rows"] == before["fr_eval_rows"] + 1
+    if n <= 3000:
+        want = tpoly.fr_eval_rows_plain(c, xs)
+    else:
+        want = tpoly.fr_eval_rows_plain(c[:1].to(dev), xs.to(dev))[:1]
+        got = got[:1]
+        assert FR.decode(got) == [o.poly_eval(FR.decode(c[0]),
+                                              FR.decode(xs[0])[0])]
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_fr_eval_rows_refuses_what_it_does_not_take(dev):
+    c = _edge_fr(42, 4 * 64).view(4, 64, 8).to(dev)
+    xs = _edge_fr(43, 4).to(dev)
+    flat = torch.zeros(4 * 64 * 8 + 1, dtype=torch.int32, device=dev)
+    skewed = flat[1:].view(4, 64, 8)
+    for bad_c, bad_x in ((skewed, xs), (c[:3], xs), (c, xs[:3]),
+                         (c[0], xs), (c, xs.to(torch.int64)),
+                         (c.transpose(0, 1), xs)):
+        with pytest.raises(ValueError):
+            kernels.fr_eval_rows(bad_c, bad_x)
+    assert not kernels.fr_eval_rows(c[:, :0].contiguous(), xs).any()
+
+
+def test_coordinator_and_server_take_the_card_by_default(dev, tmp_path):
+    """An SRS made with no device named is on the card, and so are the
+    coordinator's draws and the server's: the challenge's evals by one
+    fr_eval_rows and no fr_inv, a round through LocalTransport and one
+    through HttpTransport with every reward > 0, the aggregation verifies,
+    and the state file loads back."""
+    srs = Srs.generate(6, 2, tau_x=11, tau_y=13)
+    assert srs.device.type == "cuda"
+    hotkeys = [f"hk{i}" for i in range(4)]
+    cfg = trt.CoordinatorConfig(sample_size=4, timeout=600.0,
+                                state_dir=str(tmp_path))
+    coord = trt.Coordinator(srs, cfg, hotkeys, seed=1)
+    assert coord.generator.device.type == "cuda"
+    before = dict(kernels.LAUNCHES)
+    ch = coord.generate_challenge(4)
+    assert kernels.LAUNCHES["fr_eval_rows"] - before["fr_eval_rows"] == 1
+    assert kernels.LAUNCHES["fr_inv"] == before["fr_inv"]
+    assert [enc.fr_from_b64(e) for e in ch.evals] == [
+        o.poly_eval(enc.poly_from_b64(p), enc.fr_from_b64(ch.alpha))
+        for p in ch.polys]
+    workers = {u: trt.Worker(srs) for u in range(4)}
+    ch, responses, rewards = coord.run_round(trt.LocalTransport(workers))
+    assert all(r.commitment and r.proof for r in responses)
+    assert (rewards > 0).all()
+    agg, alpha, beta = coord.aggregate_responses(ch, responses)
+    assert coord.verify_aggregated(agg, alpha, beta)
+    server = trt.WorkerServer(workers[0], port=0).start()
+    try:
+        assert server._generator.device.type == "cuda"
+        point = rpc(server.url, "random_point", {})["point"]
+        assert 0 <= enc.fr_from_b64(point) < o.R
+        ch, responses, rewards = coord.run_round(
+            trt.HttpTransport({u: server.url for u in range(4)}))
+        assert (rewards > 0).all()
+    finally:
+        server.stop()
+    coord.save_state()
+    fresh = trt.Coordinator(srs, cfg, [])
+    assert fresh.load_state() and fresh.step == 2
+    assert np.array_equal(fresh.scores, coord.scores)

@@ -218,6 +218,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for call in (lambda: kernels.fr_inv(a), lambda: kernels.fr_powers(a[0], 4),
                  lambda: kernels.fr_suffix_scan(a),
                  lambda: kernels.fr_open_quotient(a, a[:1], a[0], a[0], a),
+                 lambda: kernels.fr_eval_rows(a[None], a[:1]),
                  lambda: kernels.g1_scalar_mul(
                      torch.zeros((2, 3, 12), dtype=torch.int32), a)):
         with pytest.raises(ValueError, match="CUDA"):
@@ -232,7 +233,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ["g1_add", "g1_double", "g1_scalar_mul", "msm_buckets",
          "msm_reduce", "msm_combine", "fr_mul", "fr_add", "fr_sub",
          "fr_inv", "fr_powers", "fr_suffix_scan", "fr_open_quotient",
-         "fq_mul", "fq_add", "fq_sub", "fr_butterfly"])
+         "fr_eval_rows", "fq_mul", "fq_add", "fq_sub", "fr_butterfly"])
 
 
 def test_ptxas_usage_keys_each_template_instantiation():

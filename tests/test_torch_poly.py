@@ -7,6 +7,7 @@ Tolerance: none. x = 0 is covered: a commit-only request opens at x = 0.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -130,3 +131,89 @@ def test_from_mont_wide_matches_jax():
     want = jax.jit(jpoly.from_mont_wide)(jc)
     assert np.array_equal(FR.to_limbs16(got), np.asarray(want))
     assert FR.limbs_to_ints(got) == coeffs
+
+
+# -- the row evaluation: K3 fr_eval_rows's plain version, poly_eval on a
+# batch, poly_eval_many, and the rest of the JAX package's poly.py ---------
+
+#: x = 0, 1, r − 1 and random
+EVAL_POINTS = [0, 1, o.R - 1, _row(1, 40)[0]]
+
+
+@pytest.fixture(scope="module")
+def jax_eval_pairs():
+    """The coordinator's evaluation (``jax.vmap`` of ``poly_eval``,
+    zkp_subnet_tpu/runtime/coordinator.py:91), one row at its own point;
+    jitted: one compile a row length instead of one an operation."""
+    return jax.jit(jax.vmap(jpoly.poly_eval))
+
+
+@pytest.mark.parametrize("n", [1, 16, 100])
+def test_eval_rows_plain_and_batched_eval_match_jax(jax_eval_pairs, n):
+    """fr_eval_rows_plain at tiles of 8 (one partial tile at 1, two at 16,
+    thirteen at 100) and the CPU poly_eval of a batch of rows at one x,
+    against the JAX package's vmapped poly_eval, limb for limb, at x = 0,
+    1, r − 1 and random; poly_eval_many (one row at the four points)
+    against the same."""
+    rows = [_row(n, 50 + 7 * n + i) for i in range(len(EVAL_POINTS))]
+    jrows = JFR.encode(sum(rows, [])).reshape(len(rows), n, 16)
+    jxs = JFR.encode(EVAL_POINTS)
+    c = FR.from_limbs16(np.asarray(jrows))
+    xs = FR.from_limbs16(np.asarray(jxs))
+
+    got = tpoly.fr_eval_rows_plain(c, xs, tile=8)
+    want = np.asarray(jax_eval_pairs(jrows, jxs))
+    assert np.array_equal(FR.to_limbs16(got), want)
+    assert FR.decode(got) == [o.poly_eval(r, x)
+                              for r, x in zip(rows, EVAL_POINTS)]
+    assert torch.equal(tpoly.fr_eval_rows_plain(c, xs), got)
+
+    for i, point in enumerate(EVAL_POINTS):
+        same_x = jnp.broadcast_to(jxs[i], jxs.shape)
+        want = np.asarray(jax_eval_pairs(jrows, same_x))
+        assert np.array_equal(FR.to_limbs16(tpoly.poly_eval(c, xs[i])),
+                              want), point
+        assert np.array_equal(FR.to_limbs16(tpoly.poly_eval(c[i], xs[i])),
+                              want[i]), point
+    same_row = jnp.broadcast_to(jrows[0], jrows.shape)
+    want = np.asarray(jax_eval_pairs(same_row, jxs))
+    assert np.array_equal(FR.to_limbs16(tpoly.poly_eval_many(c[0], xs)),
+                          want)
+    assert np.array_equal(FR.to_limbs16(tpoly.fr_eval_rows_plain(
+        c[:1], xs, tile=8)), want)
+
+
+def test_eval_many_quotient_add_scale_match_jax():
+    """poly_eval_many, poly_quotient, poly_add and poly_scale against the
+    JAX package's functions (jitted) on a row of 4, at x = 0, 1, r − 1 and
+    random; each against the oracle too."""
+    n = 4
+    row, other = _row(n, 60), _row(n, 61)
+    jc, jd = JFR.encode(row), JFR.encode(other)
+    jxs = JFR.encode(EVAL_POINTS)
+    c, d = FR.from_limbs16(np.asarray(jc)), FR.from_limbs16(np.asarray(jd))
+    xs = FR.from_limbs16(np.asarray(jxs))
+
+    got = tpoly.poly_eval_many(c, xs)
+    want = jax.jit(jpoly.poly_eval_many)(jc, jxs)
+    assert np.array_equal(FR.to_limbs16(got), np.asarray(want))
+    assert FR.decode(got) == [o.poly_eval(row, x) for x in EVAL_POINTS]
+
+    quotient = jax.jit(jpoly.poly_quotient)
+    for i, point in enumerate(EVAL_POINTS):
+        got = tpoly.poly_quotient(c, xs[i])
+        assert np.array_equal(FR.to_limbs16(got),
+                              np.asarray(quotient(jc, jxs[i]))), point
+        want = o.poly_quotient(row, point) if point else row[1:]
+        assert FR.decode(got) == want, point
+
+    got = tpoly.poly_add(c, d)
+    assert np.array_equal(FR.to_limbs16(got),
+                          np.asarray(jax.jit(jpoly.poly_add)(jc, jd)))
+    assert FR.decode(got) == [(a + b) % o.R for a, b in zip(row, other)]
+    scale = jax.jit(jpoly.poly_scale)
+    for i, point in enumerate(EVAL_POINTS):
+        got = tpoly.poly_scale(c, xs[i])
+        assert np.array_equal(FR.to_limbs16(got),
+                              np.asarray(scale(jc, jxs[i]))), point
+        assert FR.decode(got) == [a * point % o.R for a in row]

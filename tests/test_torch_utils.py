@@ -170,7 +170,8 @@ def test_prove_and_config_dataclasses():
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter every module of the port imports with neither
+    """In a fresh interpreter every module of the port (the runtime's
+    coordinator, transports and server among them) imports with neither
     ``jax`` nor ``zkp_subnet_tpu`` loaded, and no loaded module's file lies
     under ``zkp_subnet_tpu/``."""
     pkg = os.path.join(REPO, "zkp_subnet_tpu_torch")
@@ -181,6 +182,10 @@ def test_port_never_imports_jax():
                 rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
                 mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     assert "zkp_subnet_tpu_torch.models.pianist" in mods
+    # the runtime: its package (every export) and the coordinator, the
+    # transports and the server
+    for m in ("", ".coordinator", ".transport", ".server"):
+        assert "zkp_subnet_tpu_torch.runtime" + m in mods
     assert "zkp_subnet_tpu_torch._shared" not in mods
     ref = os.path.join(REPO, "zkp_subnet_tpu") + os.sep
     code = ("import importlib, os, sys\n"

@@ -1,8 +1,9 @@
 // K3: Fr over (N, 8) elements. Elementwise Montgomery multiply, add and
 // subtract, with one operand optionally broadcast (a single element, step
-// 0); and the pipeline of one KZG opening as four whole kernels: the
-// inverse, the powers, and a suffix scan in two passes whose second pass
-// also scales the quotient.
+// 0); the pipeline of one KZG opening as four whole kernels: the inverse,
+// the powers, and a suffix scan in two passes whose second pass also
+// scales the quotient; and the evaluation of many rows at their points,
+// fr_eval_rows, in two passes (further down, with its own note).
 //
 // Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lane8.BFR as reached
 // from poly._fmul/_fadd (zkp_subnet_tpu/ops/poly.py:37-47), ntt._f8
@@ -271,6 +272,116 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
   }
 }
 
+// -- the challenge's row evaluation ----------------------------------------
+//
+// fr_eval_rows: y_r = sum_k c_{r,k} * x_r^k for R rows of n coefficients,
+// each row at its own point, or every row at one point (x_step 0), or one
+// row at R points (c_step 0). Replaces pallas_g1.py:pfield over lane8.BFR
+// as poly._fmul and poly._tree_sum_lane reach it from poly_eval
+// (zkp_subnet_tpu/ops/poly.py:85-95): the termwise products of a row and a
+// table of powers, then a halving tree of adds, once a row under the
+// jax.vmap of the coordinator's challenge (runtime/coordinator.py:91). Until
+// this kernel the port evaluated a row by a whole opening (fr_inv, the
+// powers, both scan passes): four launches a row, 0.2 ms of them the
+// inverse, and a quotient of n elements that was then dropped.
+//
+// Bound on the H100: bytes. A row's n coefficients are read once, n * 32 B
+// (33.6 MB at the challenge's 16 rows of 2^16: ~0.010 ms at 3.35 TB/s),
+// against Horner's one product and one add an element (~0.009 ms). Two
+// passes, with no inverse, no scan and no quotient: pass 1 gives each
+// block one tile of one row; its thread 0 squares x_r into the table of
+// x_r^(2^j) as fr_powers does, each thread takes EVAL_PER_THREAD
+// consecutive powers by fr::pow_run (one walk of the table, then a product
+// by x a step), multiplies them by its coefficients and sums them, and the
+// block reduces its threads' sums by warp shuffles, then the warps' totals
+// through shared memory, into one partial sum of the (row, tile). Pass 2 is
+// one warp a row adding the row's partial sums. Fr sums are exact and a
+// fully reduced value has one representation, so any order of the adds
+// gives the same limbs. A row of one tile needs pass 1 alone, written
+// straight to the output.
+constexpr int EVAL_THREADS = 256;
+constexpr int EVAL_PER_THREAD = 4;
+constexpr int EVAL_TILE = EVAL_THREADS * EVAL_PER_THREAD;
+constexpr int EVAL_WARPS = EVAL_THREADS / 32;
+constexpr int MAX_EVAL_ROWS = 65535;  // gridDim.y
+
+// Sum of the warp's 32 values into lane 0 (the other lanes' are partial).
+__device__ __forceinline__ void warp_sum(uint32_t* v, int lane) {
+  uint32_t o[fr::L];
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) {
+    shfl_down(o, v, d);
+    if (lane < d) fr::add(v, v, o);
+  }
+}
+
+// Pass 1: grid (tiles, rows). partial[row * tiles + tile] = sum over the
+// tile's k < n of c_{row,k} * x_row^k.
+__global__ void __launch_bounds__(EVAL_THREADS)
+fr_eval_partial_kernel(const uint32_t* __restrict__ coeffs,
+                       const uint32_t* __restrict__ xs,
+                       uint32_t* __restrict__ partial, long long n,
+                       long long c_step, int x_step, int bits) {
+  __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
+  __shared__ __align__(16) uint32_t warp_total[EVAL_WARPS * fr::L];
+  const long long row = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    uint32_t v[fr::L];
+    mont::load<fr::L>(v, xs + row * x_step);
+    fr::square_table(T, v, bits);
+  }
+  __syncthreads();
+  const uint32_t* c = coeffs + row * c_step;
+  const long long first =
+      blockIdx.x * (long long)EVAL_TILE + threadIdx.x * EVAL_PER_THREAD;
+  uint32_t acc[fr::L];
+  set_zero(acc);
+  if (first < n) {
+    uint32_t pw[EVAL_PER_THREAD][fr::L];
+    fr::pow_run<EVAL_PER_THREAD>(pw, T, (unsigned long long)first, bits,
+                                 nullptr);
+#pragma unroll
+    for (int e = 0; e < EVAL_PER_THREAD; e++) {
+      const long long k = first + e;
+      if (k >= n) break;
+      uint32_t t[fr::L];
+      mont::load<fr::L>(t, c + k * fr::L);
+      fr::mul(t, t, pw[e]);
+      fr::add(acc, acc, t);
+    }
+  }
+  // every thread reaches the shuffles and the barrier, those past n with 0
+  warp_sum(acc, lane);
+  if (lane == 0) mont::store<fr::L>(warp_total + warp * fr::L, acc);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < EVAL_WARPS; w++) {
+      uint32_t t[fr::L];
+      mont::load<fr::L>(t, warp_total + w * fr::L);
+      fr::add(acc, acc, t);
+    }
+    mont::store<fr::L>(partial + (row * gridDim.x + blockIdx.x) * fr::L,
+                       acc);
+  }
+}
+
+// Pass 2: one warp a row. out[row] = sum of partial[row * tiles + b].
+__global__ void __launch_bounds__(32)
+fr_eval_sum_kernel(const uint32_t* __restrict__ partial,
+                   uint32_t* __restrict__ out, int tiles) {
+  const long long row = blockIdx.x;
+  const int lane = threadIdx.x;
+  uint32_t acc[fr::L], t[fr::L];
+  set_zero(acc);
+  for (int b = lane; b < tiles; b += 32) {
+    mont::load<fr::L>(t, partial + (row * tiles + b) * fr::L);
+    fr::add(acc, acc, t);
+  }
+  warp_sum(acc, lane);
+  if (lane == 0) mont::store<fr::L>(out + row * fr::L, acc);
+}
+
 constexpr int REFUSED = (int)cudaErrorInvalidValue;
 
 // a_step / b_step: fr::L for a full operand, 0 for a broadcast single one.
@@ -364,6 +475,32 @@ extern "C" int zkp_fr_open_quotient(const void* local, const void* totals,
         (const uint32_t*)local, (const uint32_t*)totals, (const uint32_t*)x,
         (const uint32_t*)xi, (const uint32_t*)coeffs, (uint32_t*)y,
         (uint32_t*)q, n, (int)blocks, bits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows <= MAX_EVAL_ROWS rows of n >= 1 coefficients. c_step: n * fr::L, or
+// 0 for one row at every point; x_step: fr::L, or 0 for one point for every
+// row. bits: 1 <= bits <= MAX_POW_BITS, n <= 2^bits. partial holds rows *
+// ceil(n / tile) elements (unused, and may be null, at one tile). tile: the
+// caller's idea of EVAL_TILE, refused unless it is this one.
+extern "C" int zkp_fr_eval_rows(const void* coeffs, const void* xs,
+                                void* partial, void* out, long long rows,
+                                long long n, long long c_step, int x_step,
+                                int bits, int tile, void* stream) {
+  if (tile != EVAL_TILE || bits < 1 || bits > MAX_POW_BITS ||
+      n > (1LL << bits) || n < 1 || rows < 1 || rows > MAX_EVAL_ROWS)
+    return REFUSED;
+  const long long tiles = (n + EVAL_TILE - 1) / EVAL_TILE;
+  if (tiles > 1 && partial == nullptr) return REFUSED;
+  uint32_t* first_out = (uint32_t*)(tiles == 1 ? out : partial);
+  fr_eval_partial_kernel<<<dim3((unsigned)tiles, (unsigned)rows),
+                           EVAL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)coeffs, (const uint32_t*)xs, first_out, n, c_step,
+      x_step, bits);
+  if (tiles > 1) {
+    fr_eval_sum_kernel<<<(unsigned)rows, 32, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)partial, (uint32_t*)out, (int)tiles);
   }
   return (int)cudaGetLastError();
 }

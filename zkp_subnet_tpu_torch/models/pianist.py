@@ -251,5 +251,7 @@ def fft(rows: torch.Tensor, left: bool = True,
 
 
 def eval_poly(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Coefficient-form evaluation (reference: validator.py:97-104)."""
+    """Coefficient-form evaluation (reference: validator.py:97-104): one row
+    (N, 8), or rows (R, N, 8) at the one point, by K3 ``fr_eval_rows`` on
+    the card."""
     return tpoly.poly_eval(coeffs, x)

@@ -14,8 +14,12 @@ and contiguity and raises on anything else, allocates its output with
 ``torch.empty``, adds one to ``LAUNCHES[name]`` and launches on PyTorch's
 current stream. The C entry points return ``cudaGetLastError()``, and a
 non-zero code raises. There is no fallback: the plain PyTorch versions are
-chosen by the callers (ops/field.py, ops/curve.py, ops/msm.py) only for
-tensors on the CPU.
+chosen by the callers (ops/field.py, ops/curve.py, ops/msm.py, ops/poly.py)
+only for tensors on the CPU.
+
+The loader is safe under threads (``runtime.LocalTransport`` and the HTTP
+server call workers from several): the build, the load and every count
+of ``LAUNCHES`` are taken under one lock.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -47,8 +52,9 @@ LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
                                  "msm_buckets", "msm_reduce", "msm_combine",
                                  "fr_mul", "fr_add", "fr_sub", "fr_inv",
                                  "fr_powers", "fr_suffix_scan",
-                                 "fr_open_quotient", "fq_mul", "fq_add",
-                                 "fq_sub", "fr_butterfly")}
+                                 "fr_open_quotient", "fr_eval_rows",
+                                 "fq_mul", "fq_add", "fq_sub",
+                                 "fr_butterfly")}
 
 #: elements of one block's tile in the suffix scan (SCAN_TILE of
 #: csrc/fr.cu, whose C entries refuse another)
@@ -58,12 +64,24 @@ SCAN_TILE = 1024
 #: csrc/fr.cu, whose C entry refuses another)
 POW_PER_THREAD = 4
 
+#: elements of one block's tile in ``fr_eval_rows`` (EVAL_TILE of
+#: csrc/fr.cu, whose C entry refuses another), and the consecutive powers a
+#: thread takes (EVAL_PER_THREAD)
+EVAL_TILE = 1024
+EVAL_PER_THREAD = 4
+
+#: rows of one ``fr_eval_rows`` launch at most (the grid's second dimension)
+MAX_EVAL_ROWS = 65535
+
 _lib = None
+#: guards the build, the load and ``LAUNCHES``
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -87,6 +105,11 @@ def build(force: bool = False) -> dict:
 
     Returns ``{"built": bool, "seconds": float, "log": str}``; ``log`` holds
     nvcc's ``-Xptxas -v`` report (registers, spills) when it built."""
+    with _lock:
+        return _build(force)
+
+
+def _build(force: bool) -> dict:
     stamp = LIB_PATH + ".stamp"
     digest = _sources_hash()
     if not force and os.path.exists(LIB_PATH) and os.path.exists(stamp):
@@ -179,36 +202,42 @@ def ptxas_usage(log: str) -> dict:
 
 def _load() -> ctypes.CDLL:
     global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIB_PATH)
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        sigs = {
-            "zkp_g1_add": [p, p, p, i64, p],
-            "zkp_g1_double": [p, p, i64, p],
-            "zkp_g1_scalar_mul": [p, p, p, i64, p],
-            "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
-            "zkp_msm_reduce": [p, p, i32, i32, p],
-            "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
-            "zkp_fr_mul": [p, p, p, i64, i32, i32, p],
-            "zkp_fr_add": [p, p, p, i64, i32, i32, p],
-            "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
-            "zkp_fr_inv": [p, p, i64, p],
-            "zkp_fr_powers": [p, p, p, i64, i32, i32, p],
-            "zkp_fr_suffix_scan": [p, p, p, i64, i32, p],
-            "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i32, i32,
-                                     p],
-            "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
-            "zkp_fq_add": [p, p, p, i64, i32, i32, p],
-            "zkp_fq_sub": [p, p, p, i64, i32, i32, p],
-            "zkp_fr_butterfly": [p, p, i64, i32, i32, p],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    with _lock:
+        if _lib is None:
+            _build(False)
+            _lib = _bind(ctypes.CDLL(LIB_PATH))
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    sigs = {
+        "zkp_g1_add": [p, p, p, i64, p],
+        "zkp_g1_double": [p, p, i64, p],
+        "zkp_g1_scalar_mul": [p, p, p, i64, p],
+        "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
+        "zkp_msm_reduce": [p, p, i32, i32, p],
+        "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
+        "zkp_fr_mul": [p, p, p, i64, i32, i32, p],
+        "zkp_fr_add": [p, p, p, i64, i32, i32, p],
+        "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
+        "zkp_fr_inv": [p, p, i64, p],
+        "zkp_fr_powers": [p, p, p, i64, i32, i32, p],
+        "zkp_fr_suffix_scan": [p, p, p, i64, i32, p],
+        "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i32, i32,
+                                 p],
+        "zkp_fr_eval_rows": [p, p, p, p, i64, i64, i64, i32, i32, i32,
+                             p],
+        "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
+        "zkp_fq_add": [p, p, p, i64, i32, i32, p],
+        "zkp_fq_sub": [p, p, p, i64, i32, i32, p],
+        "zkp_fr_butterfly": [p, p, i64, i32, i32, p],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check(t: torch.Tensor, name: str, dtype=torch.int32, tail=None):
@@ -231,7 +260,8 @@ def _aligned(name: str, *tensors) -> None:
 
 
 def _launch(name: str, fn, *args) -> None:
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*args, stream)
     if err != 0:
@@ -561,6 +591,48 @@ def fr_open_quotient(local: torch.Tensor, totals: torch.Tensor,
                 xi.data_ptr(), coeffs.data_ptr(), y.data_ptr(), q.data_ptr(),
                 n, SCAN_TILE, n.bit_length())
     return y, q
+
+
+def fr_eval_rows(coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """y_r = Σ_k c_{r,k}·x_r^k: (R, 8) Montgomery from ``coeffs`` (R, n, 8)
+    and ``xs`` (R, 8), Montgomery; either may hold one row or one point for
+    all R (the kernel reads it with a step of 0).
+
+    Replaces pallas_g1.py:pfield over lane8.BFR as poly._fmul and
+    poly._tree_sum_lane reach it from poly_eval (the challenge's jax.vmap,
+    zkp_subnet_tpu/runtime/coordinator.py:91). Bound: bytes, n·32 B a row.
+    One call: a pass of per-(row, tile) partial sums (x^k by a thread's run
+    from the per-block table of x^(2^j), times c_k, reduced by warp
+    shuffles and shared memory), then one warp a row adding the partials;
+    a row of one tile skips the second. No inverse, no scan, no quotient,
+    nothing read back to the host."""
+    _check(coeffs, "coeffs", tail=(8,))
+    _check(xs, "xs", tail=(8,))
+    if coeffs.dim() != 3 or xs.dim() != 2 or coeffs.device != xs.device:
+        raise ValueError("fr_eval_rows: coeffs (R, n, 8) and xs (R, 8) on "
+                         "one device expected")
+    rows_c, n = coeffs.shape[:2]
+    rows_x = xs.shape[0]
+    rows = max(rows_c, rows_x)
+    if rows_c not in (rows, 1) or rows_x not in (rows, 1):
+        raise ValueError("fr_eval_rows: as many rows as points, or one of "
+                         "either")
+    if not 1 <= rows <= MAX_EVAL_ROWS or not 0 <= n < 1 << 31:
+        raise ValueError(f"fr_eval_rows: 1..{MAX_EVAL_ROWS} rows of fewer "
+                         "than 2^31 coefficients expected")
+    _aligned("fr_eval_rows", coeffs, xs)
+    if n == 0:                                  # the empty sum
+        return torch.zeros((rows, 8), dtype=torch.int32, device=xs.device)
+    out = torch.empty((rows, 8), dtype=torch.int32, device=xs.device)
+    tiles = -(-n // EVAL_TILE)
+    partial = (torch.empty((rows, tiles, 8), dtype=torch.int32,
+                           device=xs.device) if tiles > 1 else None)
+    _launch("fr_eval_rows", _load().zkp_fr_eval_rows, coeffs.data_ptr(),
+            xs.data_ptr(), None if partial is None else partial.data_ptr(),
+            out.data_ptr(), rows, n, 8 * n if rows_c == rows else 0,
+            8 if rows_x == rows else 0, max(1, (n - 1).bit_length()),
+            EVAL_TILE)
+    return out
 
 
 # -- K5: csrc/ntt.cu -------------------------------------------------------------

@@ -353,7 +353,12 @@ def msm_auto(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """``msm_auto`` for (K, N, 8) scalars over the same points → (K, 3, 12):
-    K naive sweeps at N ≤ NAIVE_THRESHOLD, one batched Pippenger above."""
+    at N ≤ NAIVE_THRESHOLD one double-and-add sweep over the points taken K
+    times (one ladder launch on the card) and K tree sums, the limbs of K
+    ``msm_naive`` calls; one batched Pippenger above."""
+    k, n = scalars.shape[:2]
     if points.shape[0] <= NAIVE_THRESHOLD:
-        return torch.stack([msm_naive(points, s) for s in scalars])
+        prods = g1_scalar_mul(points.repeat(k, 1, 1),
+                              scalars.reshape(k * n, -1))
+        return torch.stack([g1_sum(p) for p in prods.view(k, n, 3, -1)])
     return msm_many(points, scalars)

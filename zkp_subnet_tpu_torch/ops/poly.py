@@ -17,6 +17,12 @@ the tile as an argument. On a CPU tensor the opening is the JAX package's
 composition over the plain Fr ops: powers by doubling, Hillis-Steele suffix
 sums, the inverse by ``FR.inv``.
 
+An evaluation alone (``poly_eval``, ``poly_eval_many``: one row or a batch
+of rows, as the coordinator's challenge evaluates all its rows at α) is
+one call of K3 ``fr_eval_rows`` on a CUDA tensor, and its plain version
+``fr_eval_rows_plain`` on a CPU one: the sum of c_k·x^k over tiles, with no
+inverse and no quotient.
+
 Tensors are (N, 8) int32 Fr elements (Montgomery unless said otherwise),
 fully reduced: the TPU's byte-lane layout (``ops/lane8.py``) that
 ``zkp_subnet_tpu/ops/poly.py`` converts to and from has no counterpart.
@@ -32,6 +38,9 @@ from .field import FR, fr_add, fr_inv_plain, fr_mul, fr_powers_plain
 #: elements of one tile of the suffix scan (the kernel's; CPU tests pass
 #: smaller tiles to the plain versions)
 SCAN_TILE = kernels.SCAN_TILE
+
+#: elements of one tile of the row evaluation (the kernel's)
+EVAL_TILE = kernels.EVAL_TILE
 
 
 def _one_canonical(device) -> torch.Tensor:
@@ -124,14 +133,63 @@ def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
     return fr_open_quotient_plain(local, totals, x, xi, coeffs, tile)
 
 
+def fr_eval_rows_plain(coeffs: torch.Tensor, xs: torch.Tensor,
+                       tile: int = EVAL_TILE):
+    """Plain version of K3 ``fr_eval_rows``: y_r = Σ_k c_{r,k}·x_r^k, (R, 8)
+    Montgomery, from ``coeffs`` (R, n, 8) and ``xs`` (R, 8), either of
+    which may hold one row or one point for all R. As the kernel: the terms
+    x^k·c_k by ``fr_powers_plain`` (a thread's run of powers from the table
+    of x^(2^j)), a partial sum a tile of ``tile`` elements, then the sum of
+    a row's partials; the adds inside a tile go by halving, not in the
+    kernel's order (a thread's elements, its warp, the warps): the sums are
+    the same limbs."""
+    rows = max(coeffs.shape[0], xs.shape[0])
+    n = coeffs.shape[1]
+    tiles = -(-n // tile)
+    out = []
+    for r in range(rows):
+        c = coeffs[r if coeffs.shape[0] > 1 else 0]
+        x = xs[r if xs.shape[0] > 1 else 0]
+        terms = fr_powers_plain(x, n, c, kernels.EVAL_PER_THREAD)
+        parts = torch.cat([terms, FR.zeros((tiles * tile - n,), c.device)])
+        out.append(_tree_sum(_tree_sum(parts.view(tiles, tile, FR.L))))
+    return torch.stack(out)
+
+
+def _tree_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Σ along dim −2 by halving, padded with zeros to a power of two."""
+    n = terms.shape[-2]
+    width = 1 << max(n - 1, 0).bit_length()
+    pad = FR.zeros(terms.shape[:-2] + (width - n,), terms.device)
+    terms = torch.cat([terms, pad], dim=-2)
+    while terms.shape[-2] > 1:
+        half = terms.shape[-2] // 2
+        terms = FR.add_plain(terms[..., :half, :], terms[..., half:, :])
+    return terms[..., 0, :]
+
+
+def _eval_rows(coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    if coeffs.is_cuda or xs.is_cuda:
+        return kernels.fr_eval_rows(coeffs.contiguous(), xs.contiguous())
+    return fr_eval_rows_plain(coeffs, xs)
+
+
 # -- public ops --------------------------------------------------------------
 
 def poly_eval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """f(x). coeffs (N, 8) Montgomery; x (8,). Returns (8,)."""
-    if coeffs.is_cuda:
-        return _open_on_card(coeffs, x)[0]
-    terms = fr_mul(coeffs, FR.powers(x, coeffs.shape[0]))
-    return _scan_from_right(terms, fr_add)[0]
+    """f(x). coeffs (N, 8) Montgomery, or a batch (R, N, 8) of rows all at
+    the one point (the coordinator's ``jax.vmap`` of ``poly_eval``,
+    ``zkp_subnet_tpu/runtime/coordinator.py:91``, as a dimension); x (8,).
+    Returns (8,), or (R, 8) for a batch."""
+    if coeffs.dim() == 3:
+        return _eval_rows(coeffs, x.reshape(1, FR.L))
+    return _eval_rows(coeffs[None], x.reshape(1, FR.L))[0]
+
+
+def poly_eval_many(coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """One polynomial at many points: coeffs (N, 8), xs (B, 8) → (B, 8)
+    (``zkp_subnet_tpu/ops/poly.py:98-100``)."""
+    return _eval_rows(coeffs[None], xs.reshape(-1, FR.L))
 
 
 def poly_eval_and_quotient(coeffs: torch.Tensor, x: torch.Tensor):
@@ -147,6 +205,12 @@ def poly_eval_and_quotient(coeffs: torch.Tensor, x: torch.Tensor):
     return y, q[:-1]
 
 
+def poly_quotient(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q(X) = (f(X) − f(x))/(X − x), (N−1, 8) Montgomery
+    (``zkp_subnet_tpu/ops/poly.py:135-137``)."""
+    return poly_eval_and_quotient(coeffs, x)[1]
+
+
 def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor):
     """(f(x) Montgomery (8,), quotient scalars (N, 8) CANONICAL, q[N−1] = 0)
     for a KZG opening (``zkp_subnet_tpu/ops/poly.py:140-172``).
@@ -160,6 +224,17 @@ def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor):
     if bool(FR.is_zero(x)):
         q = torch.cat([coeffs[1:], FR.zeros((1,), coeffs.device)])
     return y, from_mont_wide(q)
+
+
+def poly_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Coefficientwise a + b (``zkp_subnet_tpu/ops/poly.py:175-176``)."""
+    return FR.add(a, b)
+
+
+def poly_scale(coeffs: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Every coefficient times the scalar k (8,), Montgomery: one K3
+    ``fr_mul`` with k broadcast (``zkp_subnet_tpu/ops/poly.py:179-181``)."""
+    return FR.mont_mul(coeffs, k.reshape(FR.L))
 
 
 def from_mont_wide(coeffs: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,21 @@
-"""The Pianist worker on torch tensors."""
+"""Runtime on torch tensors: the Pianist worker, the coordinator, and the
+transports between them (in-process, mocked, HTTP).
+
+Port of ``zkp_subnet_tpu/runtime/``; everything its ``__init__`` exports
+but ``MeshTransport``, which waits for the port of ``parallel/``.
+"""
+
+from .config import (CoordinatorConfig, ProverConfig, WorkerConfig,
+                     add_coordinator_args, add_worker_args,
+                     coordinator_config, worker_config)
+from .coordinator import Challenge, Coordinator
+from .protocol import Prove
+from .server import HttpTransport, WorkerServer
+from .transport import LocalTransport, MockTransport
+from .worker import Worker
+
+__all__ = ["Challenge", "Coordinator", "CoordinatorConfig", "HttpTransport",
+           "LocalTransport", "MockTransport", "Prove", "ProverConfig",
+           "Worker", "WorkerConfig", "add_coordinator_args",
+           "add_worker_args", "coordinator_config", "worker_config",
+           "WorkerServer"]

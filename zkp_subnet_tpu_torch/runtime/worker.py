@@ -3,14 +3,17 @@
 Port of ``zkp_subnet_tpu/runtime/worker.py`` (the reference miner's prove
 path, reference: neurons/miner.py:38-135). The same ping, commit-only and
 response semantics; PyTorch runs eagerly, so there is no program cache and
-``warmup`` only builds the kernels and touches every code path once.
+``warmup`` only builds the kernels and touches every code path once. The
+blacklist/priority surface survives as hooks (reference:
+neurons/miner.py:63-104) keyed on a static membership set, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Set, Tuple
 
 import torch
 
@@ -34,11 +37,18 @@ def prove_row(bases: torch.Tensor, row: torch.Tensor, x: torch.Tensor):
 
 
 class Worker:
-    """One Pianist worker: holds SRS slices, serves commit/open/verify."""
+    """One Pianist worker: holds SRS slices, serves commit/open/verify.
 
-    def __init__(self, srs: Srs, config: Optional[WorkerConfig] = None):
+    ``members`` plays the metagraph-registration role for the blacklist hook
+    (reference: neurons/miner.py:63-82): requests from unknown callers are
+    rejected unless ``allow_non_registered``.
+    """
+
+    def __init__(self, srs: Srs, config: Optional[WorkerConfig] = None,
+                 members: Optional[Set[str]] = None):
         self.srs = srs
         self.config = config or WorkerConfig()
+        self.members = members if members is not None else set()
         self.compressed = not self.config.prover.uncompressed
 
     @property
@@ -132,3 +142,28 @@ class Worker:
             # the reference logs before returning (neurons/miner.py:133-135)
             log.error("forward failed for index %s: %s", synapse.index, exc)
             return synapse
+
+    def blacklist(self, caller: str,
+                  validator_permits: Optional[Set[str]] = None
+                  ) -> Tuple[bool, str]:
+        """(should_reject, reason) — reference: neurons/miner.py:63-82.
+
+        With ``force_validator_permit`` (the default, reference
+        utils/config.py:191-196) callers must also hold a validator permit;
+        pass the permit set from membership state. ``None`` skips the check
+        (static deployments where every member is the coordinator).
+        """
+        if caller not in self.members:
+            if self.config.allow_non_registered:
+                return False, "allow_non_registered"
+            return True, f"unrecognized caller {caller!r}"
+        if (self.config.force_validator_permit
+                and validator_permits is not None
+                and caller not in validator_permits):
+            return True, f"caller {caller!r} lacks validator permit"
+        return False, "ok"
+
+    def priority(self, caller: str,
+                 stake: Callable[[str], float] = lambda _: 0.0) -> float:
+        """Queue priority = caller stake (reference: neurons/miner.py:84-104)."""
+        return float(stake(caller))
