@@ -63,37 +63,61 @@ Phases (each prints a line; any failure exits non-zero):
    ``MockTransport`` with one corrupt uid, ``aggregate_responses``, the
    weights and ``state.npz``);
 6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22;
-7. ``[device]``: each kernel's device time with no host work between
+7. ``[cli]``, the user's commands (``python -m zkp_subnet_tpu_torch``) in a
+   temporary directory: at the reference mainnet deployment (scale 24,
+   machines_scale 8: 256 workers x 2^16) ``setup`` (the streaming
+   ``Srs.generate_to_disk`` and its sha256 manifest), ``check`` (every line
+   PASS), ``aggregate`` over all 256 rows (every reward > 0, every
+   response with its proof, the aggregated proof verifies; the split of
+   its time, the largest ``process_time``, the peak device memory) and
+   ``check`` once a byte of the sidecar is flipped (exit code 1); then at
+   scale 20 / machines_scale 4 ``run`` twice on one state directory (the
+   second resumes where the first ended), ``serve`` in a thread with a
+   ``SubnetClient`` over HTTP (commit and open of a row, the trapdoor
+   self-check, verify), and ``localnet`` as a process of its own over two
+   ``serve`` processes. The commands run through the CLI's ``main`` in
+   this process, so their launches are counted, but ``localnet``;
+8. ``[device]``: each kernel's device time with no host work between
    launches (``device_ms``: CUDA events around the replay of a CUDA graph of
    many launches) and torch.profiler's figure beside it; last, because
    graph captures and a profiler run slow every later launch on the
    host.
 
-The launch counts are set to 0 just before each of the two paths and read
-just after it. The last lines are the kernel table as JSON, the nvidia-smi
-line and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the repository beside it, the script exits non-zero before printing
-a result.
+The launch counts are set to 0 just before each of the three paths
+(``[main]``, ``[round]``, ``[cli]``) and read just after it. The last
+lines are the kernel table as JSON, the nvidia-smi line and ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without the repository beside
+it, the script exits non-zero before printing a result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
+import io
 import json
 import os
+import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
 import numpy as np
 import torch
 
+from zkp_subnet_tpu_torch import __main__ as cli
 from zkp_subnet_tpu_torch import runtime as trt
+from zkp_subnet_tpu_torch.api import SubnetClient
 from zkp_subnet_tpu_torch.models import pianist
-from zkp_subnet_tpu_torch.models.srs import Srs, _lagrange_coeffs_at
+from zkp_subnet_tpu_torch.models.srs import (Srs, _lagrange_coeffs_at,
+                                             _trapdoor)
 from zkp_subnet_tpu_torch.ops import curve as cv
 from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
@@ -122,6 +146,24 @@ NTT_CELL_RUNS = 5
 AGGREGATE_WARM_RUNS = 5
 # the coordinator's rounds on the [round] SRS: the scoring timeout (s)
 COORDINATOR_TIMEOUT = 30.0
+# [cli]: the reference mainnet deployment (scale 24, machines_scale 8:
+# 256 workers x 2^16, bench.py:3-8) through setup, check and aggregate, and
+# the [round] shape through run, serve and localnet
+CLI_FULL = (24, 8)
+CLI_SMALL = (20, 4)
+# aggregate's --timeout at full size: LocalTransport hands all 256 rows to
+# the executor at once and asyncio.wait_for counts a row's wait in its
+# queue against the timeout (runtime/transport.py); mainnet gives each row
+# a machine of its own, here they share one card and one host, so the
+# round passes a timeout that covers the queue on a slower host too (the
+# default stays 30 s; on the H100's host the last row ends ~6 s in)
+CLI_FULL_TIMEOUT = 600.0
+# the disk the full-size files need beyond the sidecars: setup and
+# precompute files, the state, slack
+CLI_DISK_SLACK = 1 << 30
+# kernels the [cli] path does not run: the double runs inside the ladder,
+# and K4 only in this script's on-curve check
+CLI_IDLE = ("g1_double", "fq_mul", "fq_add", "fq_sub")
 
 # the card's peaks for ``bound_ms``: device memory rate from NVIDIA's data
 # sheet (H100 SXM); the integer rate is 64 INT32 lanes per SM (Hopper
@@ -1085,10 +1127,11 @@ def build_srs(dev):
                g2_tau_y=g2)        # τ_Y is unused with a single worker
 
 
-def selfcheck(resp, row_ints, x_int, commit_only):
-    """The trapdoor check of bench.py:selfcheck_prove on wire outputs."""
-    g = o.G1.from_affine(o.G1_GEN)
-    f_tau = o.poly_eval(row_ints, TAU)
+def selfcheck(resp, row_ints, x_int, commit_only, tau=TAU, key=1):
+    """The trapdoor check of bench.py:selfcheck_prove on wire outputs, for
+    bases [key·τ^j]G1 (a Pianist worker's key is R_i(τ_Y))."""
+    g = o.G1.mul(o.G1.from_affine(o.G1_GEN), key)
+    f_tau = o.poly_eval(row_ints, tau)
     check(resp.commitment is not None, "response carries no commitment")
     check(o.G1.to_affine(enc.g1_from_b64(resp.commitment))
           == o.G1.to_affine(o.G1.mul(g, f_tau)), "commitment != [f(tau)]G1")
@@ -1100,7 +1143,7 @@ def selfcheck(resp, row_ints, x_int, commit_only):
           "response carries no eval/proof")
     y = o.poly_eval(row_ints, x_int)
     check(enc.fr_from_b64(resp.eval_) == y, "eval != f(x)")
-    q_tau = (f_tau - y) * pow((TAU - x_int) % o.R, o.R - 2, o.R) % o.R
+    q_tau = (f_tau - y) * pow((tau - x_int) % o.R, o.R - 2, o.R) % o.R
     check(o.G1.to_affine(enc.g1_from_b64(resp.proof))
           == o.G1.to_affine(o.G1.mul(g, q_tau)), "proof != [q(tau)]G1")
 
@@ -1661,6 +1704,317 @@ def phase_ntt_cells(dev):
         del x
 
 
+def run_cli(argv):
+    """``python -m zkp_subnet_tpu_torch`` in this process, through the
+    CLI's ``main``: (exit code, stdout lines, stderr, seconds, launches)."""
+    before = dict(kernels.LAUNCHES)
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+    return rc, out.getvalue().splitlines(), err.getvalue(), dt, used
+
+
+def cli_files(tmp, shape):
+    """The ``--setup-path``/``--precompute-path`` flags and the three files
+    of one shape in ``tmp``."""
+    scale, mscale = shape
+    setup = os.path.join(tmp, f"setup_{scale}_{mscale}.npz")
+    pre = os.path.join(tmp, f"precompute_{scale}_{mscale}.npz")
+    flags = ["--setup-path", setup, "--precompute-path", pre,
+             "--scale", str(scale), "--machines-scale", str(mscale)]
+    return flags, (setup, pre, Srs._sidecar_path(pre))
+
+
+def cli_setup(tmp, shape):
+    flags, files = cli_files(tmp, shape)
+    rc, out, err, dt, used = run_cli(["setup", *flags, "--generate-setup",
+                                      "--generate-precompute"])
+    m = 1 << shape[1]
+    check(rc == 0 and out[-1].startswith("wrote "), f"setup {shape}: rc {rc}")
+    check(f"worker slices {m}/{m}" in err,
+          f"setup {shape}: not the streaming generate_to_disk")
+    written = sum(os.path.getsize(f) for f in files)
+    with open(files[0] + ".sha256") as f:
+        listed = [line.split()[1] for line in f.read().splitlines()]
+    check(listed == [os.path.basename(f) for f in files],
+          f"setup {shape}: manifest lists {listed}")
+    return flags, files, dt, written, used
+
+
+def cli_check(flags, label, want_rc=0):
+    rc, out, _, dt, _ = run_cli(["check", *flags[:4]])
+    fails = [line for line in out if line.startswith("  FAIL")]
+    passes = [line for line in out if line.startswith("  PASS")]
+    check(rc == want_rc, f"{label}: check returned {rc}, not {want_rc}: "
+          f"{fails}")
+    return passes, fails, dt
+
+
+class Timed:
+    """Wraps methods of classes with a clock for the duration of a
+    ``with``: ``seconds[name]`` sums the calls to ``name`` (for a
+    coroutine, from its start to its end)."""
+
+    def __init__(self, **targets):
+        self.targets = targets
+        self.seconds = {name: 0.0 for name in targets}
+        self.saved = []
+
+    def _clock(self, name, fn):
+        def stop(t0):
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+
+        if inspect.iscoroutinefunction(fn):
+            async def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return await fn(*args, **kwargs)
+                finally:
+                    stop(t0)
+        else:
+            def timed(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    stop(t0)
+        return timed
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._clock(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+
+_WORKER_LINE = re.compile(r"worker (\d+): reward=(\d+\.\d{3}) t=([\d.]+)s")
+
+
+def cli_full_round(tmp, dev):
+    """[cli] at the reference mainnet deployment: setup (the streaming
+    generate_to_disk), check, aggregate over all 256 rows, and check of the
+    sidecar with one byte flipped."""
+    scale, mscale = CLI_FULL
+    m = 1 << mscale
+    side_bytes = m * (1 << (scale - mscale)) * 3 * FQ.L16 * 4
+    free = shutil.disk_usage(tmp).free
+    say(f"[cli] {tmp}: {free / 1e9:.2f} GB free; scale {scale} / "
+        f"machines_scale {mscale} needs a {side_bytes / 1e9:.2f} GB sidecar")
+    check(free >= side_bytes + CLI_DISK_SLACK,
+          f"[cli] {free / 1e9:.2f} GB free in {tmp}: too little for the "
+          f"{side_bytes / 1e9:.2f} GB sidecar of scale {scale} / "
+          f"machines_scale {mscale}")
+
+    flags, files, t_setup, written, used = cli_setup(tmp, CLI_FULL)
+    check(os.path.getsize(files[2]) > side_bytes,
+          "setup: the sidecar is smaller than the worker bases")
+    say(f"[cli] setup --scale {scale} --machines-scale {mscale} "
+        f"--generate-setup --generate-precompute: {t_setup:.1f} s (streaming "
+        f"Srs.generate_to_disk, {m} worker slices, and the sha256 "
+        f"manifest), {written / 1e9:.3f} GB written; launches {used}")
+
+    passes, _, t_check = cli_check(flags, "check 24/8")
+    say(f"[cli] check: {t_check:.1f} s, all {len(passes)} lines PASS")
+
+    torch.cuda.reset_peak_memory_stats()
+    responses = []
+    get_rewards = trt.Coordinator.get_rewards
+
+    def keep(coord, challenge, resps, *a, **k):
+        responses.extend(resps)
+        return get_rewards(coord, challenge, resps, *a, **k)
+    trt.Coordinator.get_rewards = keep
+    try:
+        with Timed(challenge=(trt.Coordinator, "generate_challenge"),
+                   rows=(trt.LocalTransport, "query"),
+                   rewards=(trt.Coordinator, "get_rewards"),
+                   aggregation=(trt.Coordinator, "aggregate_responses"),
+                   verify=(trt.Coordinator, "verify_aggregated")) as clock:
+            rc, out, err, t_round, used = run_cli(
+                ["aggregate", *flags, "--timeout", str(CLI_FULL_TIMEOUT)])
+    finally:
+        trt.Coordinator.get_rewards = get_rewards
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(rc == 0, f"aggregate: rc {rc}")
+    rows = [_WORKER_LINE.fullmatch(line) for line in out[:m]]
+    check(all(rows) and sorted(int(r[1]) for r in rows) == list(range(m)),
+          "aggregate: not one reward line a worker")
+    check(all(float(r[2]) > 0 for r in rows),
+          f"aggregate: a reward of 0 in a round with no corrupt uid: "
+          f"{[r[0] for r in rows if float(r[2]) <= 0][:4]}")
+    check(len(responses) == m and all(r.commitment and r.proof and r.eval_
+                                      for r in responses),
+          "aggregate: a response lacks its commitment or proof")
+    check(out[m] == "aggregated bivariate proof verifies: True",
+          f"aggregate: {out[m]}")
+    check(out[m + 1].startswith("weights: {0: "), "aggregate: no weights")
+    slowest = max(r.process_time for r in responses)
+    sec = clock.seconds
+    say(f"[cli] aggregate --timeout {CLI_FULL_TIMEOUT:.0f}: {t_round:.1f} s "
+        f"in all, {err.strip().splitlines()[0]}; {m} responses with "
+        "commitment and proof, every reward > 0 "
+        f"({min(float(r[2]) for r in rows):.3f}..{max(float(r[2]) for r in rows):.3f}); "
+        "aggregated proof verifies: True")
+    say(f"[cli] aggregate split: challenge {sec['challenge']:.2f} s, rows "
+        f"{sec['rows']:.2f} s ({m / sec['rows']:.1f} rows/s over the round; "
+        f"the largest process_time {slowest:.3f} s), rewards "
+        f"{sec['rewards']:.2f} s, aggregation "
+        f"{sec['aggregation'] * 1e3:.1f} ms + verify "
+        f"{sec['verify'] * 1e3:.1f} ms; peak device memory {peak:.1f} MiB")
+    say(f"[cli] aggregate launches {used}")
+
+    # one byte of the sidecar flipped: check must fail on its digest
+    with open(files[2], "r+b") as f:
+        f.seek(os.path.getsize(files[2]) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    _, fails, t_bad = cli_check(flags, "check of a flipped byte", want_rc=1)
+    check(fails == [f"  FAIL  sha256 {os.path.basename(files[2])}"],
+          f"check of a flipped byte: {fails}")
+    say(f"[cli] check with one byte of the sidecar flipped: rc 1 in "
+        f"{t_bad:.1f} s ({fails[0].strip()})")
+    for path in files:
+        os.remove(path)
+    return used
+
+
+def cli_small(tmp, dev):
+    """[cli] at the [round] shape: run twice on one state directory (the
+    second resumes), serve in a thread with a SubnetClient over HTTP, and
+    localnet over two ``serve`` processes."""
+    scale, mscale = CLI_SMALL
+    flags, files, t_setup, _, _ = cli_setup(tmp, CLI_SMALL)
+    say(f"[cli] setup --scale {scale} --machines-scale {mscale}: "
+        f"{t_setup:.1f} s")
+
+    state = os.path.join(tmp, "state")
+    argv = ["run", *flags, "--rounds", "3", "--neuron.epoch_length", "2",
+            "--neuron.state_dir", state]
+    steps = []
+    for turn in range(2):
+        rc, out, _, dt, _ = run_cli(argv)
+        check(rc == 0, f"run {turn + 1}: rc {rc}")
+        if turn:
+            check(out[0] == f"resumed from {state}/state.npz at step "
+                  f"{steps[0]}", f"run 2: {out[0]}")
+        done = re.match(r"(\d+) forwards ok, step=(\d+),", out[-2])
+        check(done and int(done[1]) == 3, f"run {turn + 1}: {out[-2]}")
+        steps.append(int(done[2]))
+        say(f"[cli] run --rounds 3 --neuron.epoch_length 2 ({turn + 1} of 2"
+            f"): {dt:.1f} s; " + "; ".join(out))
+    check(steps == [3, 6], f"run: steps {steps}, not [3, 6]")
+
+    # serve, in a thread of this process; the client over HTTP
+    served = []
+    serve_forever = trt.WorkerServer.serve_forever
+
+    def keep(server):
+        served.append(server)
+        serve_forever(server)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    trt.WorkerServer.serve_forever = keep
+    result = {}
+    thread = threading.Thread(target=lambda: result.update(
+        rc=run_cli(["serve", *flags, "--port", str(port)])[0]), daemon=True)
+    try:
+        thread.start()
+        deadline = time.time() + 120
+        while not served and time.time() < deadline and thread.is_alive():
+            time.sleep(0.2)
+        check(bool(served), "serve: no server came up")
+        srs = Srs.load(*files[:2], lazy=True)
+        coord = trt.Coordinator(srs, trt.CoordinatorConfig(timeout=60.0),
+                                ["serve-0"])
+        client = SubnetClient(coord, trt.HttpTransport(
+            {0: f"http://127.0.0.1:{port}"}), sample_size=1)
+        check(client.discover() == [0], "SubnetClient.discover: not [0]")
+        row = [int(v) for v in np.random.default_rng(SEED).integers(
+            0, 1 << 62, 1 << (scale - mscale))]
+        x = (1 << 200) + 12345
+        poly = enc.poly_to_b64(row)
+        t0 = time.perf_counter()
+        com = client.commit(poly, index=3)
+        y, prf = client.open(poly, enc.fr_to_b64(x), index=3)
+        t_client = time.perf_counter() - t0
+        tau_x, tau_y = _trapdoor(None, None, 0)
+        key = _lagrange_coeffs_at(tau_y, 1 << mscale)[3]
+        selfcheck(Prove(index=3, poly=[], eval_=y, commitment=com,
+                        proof=prf), row, x, False, tau=tau_x, key=key)
+        check(client.verify(com, enc.fr_to_b64(x), y, prf, index=3),
+              "SubnetClient.verify: False")
+        check(not client.verify(com, enc.fr_to_b64(x), y, com, index=3),
+              "SubnetClient.verify of a wrong proof: True")
+    finally:
+        for server in served:
+            server._httpd.shutdown()
+        thread.join(timeout=30)
+        trt.WorkerServer.serve_forever = serve_forever
+    check(result.get("rc") == 0, f"serve: rc {result.get('rc')}")
+    say(f"[cli] serve on 127.0.0.1:{port} + SubnetClient over HttpTransport:"
+        f" discover [0], commit and open of a 2^{scale - mscale} row as "
+        f"worker 3 in {t_client:.2f} s, trapdoor self-check PASS, verify "
+        "True (False for a wrong proof)")
+
+    # localnet: python -m zkp_subnet_tpu_torch, a real process and its two
+    # serve children
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "zkp_subnet_tpu_torch", "localnet", *flags,
+         "--workers", "2", "--rounds", "1"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    check(proc.returncode == 0
+          and tail[0].startswith("1/1 rounds ok over 2 worker processes"),
+          f"localnet: rc {proc.returncode}: {tail[0]} "
+          f"{proc.stderr.strip()[-2000:]}")
+    say(f"[cli] localnet --workers 2 --rounds 1 (python -m "
+        f"zkp_subnet_tpu_torch, two serve processes on the card): "
+        f"{dt:.1f} s; {tail[0][:60]}")
+
+
+def phase_cli(dev):
+    """``python -m zkp_subnet_tpu_torch``'s commands: scale 24/8 setup,
+    check and aggregate, then 20/4 run with a resume, serve with the
+    client, and localnet. Returns the launch counts of the commands run in
+    this process."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zkp_cli_")
+    try:
+        cli_full_round(tmp, dev)
+        t_full = time.perf_counter() - t0
+        cli_small(tmp, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    for k, v in launches.items():
+        if k not in CLI_IDLE:
+            check(v > 0, f"the [cli] path launched {k} {v} times")
+    say(f"[cli] launches {launches}")
+    say(f"[cli] wall {time.perf_counter() - t0:.1f} s: scale 24/8 "
+        f"{t_full:.1f} s, scale 20/4 {time.perf_counter() - t0 - t_full:.1f}"
+        " s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1695,6 +2049,7 @@ def main() -> int:
             rng, dev)
         round_launches = phase_round(rng, dev)
         phase_ntt_cells(dev)
+        cli_launches = phase_cli(dev)
         phase_device_times(res, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -1704,11 +2059,13 @@ def main() -> int:
 
     # launches: both paths' counts added, each path counted from 0
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-              "launches": main_launches[k] + round_launches[k],
+              "launches": (main_launches[k] + round_launches[k]
+                           + cli_launches[k]),
               "launches_main": main_launches[k],
               "launches_main_setup": setup_launches.get(k, 0),
               "launches_main_request": request_launches[k],
               "launches_round": round_launches[k],
+              "launches_cli": cli_launches[k],
               "max_abs_err": res[k]["max_abs_err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
               "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],

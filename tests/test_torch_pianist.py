@@ -12,7 +12,9 @@ add order differ). Tolerance: none (integer arithmetic).
 
 import dataclasses
 import os
+import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,13 +82,19 @@ def challenge():
 @pytest.fixture(scope="module")
 def rounds(srs, tsrs, challenge):
     """One round by each package on the same numpy inputs:
-    (JAX (coms, ys, proofs, agg), port (coms, ys, proofs, agg))."""
+    (JAX (coms, ys, proofs, agg), port (coms, ys, proofs, agg)). The JAX
+    package's ``commit_all`` and ``open_all`` run jitted, the SRS's worker
+    bases (all they read of it) an argument: one XLA compile each, where
+    their eager ``vmap`` compiles operation by operation."""
     rows, alpha, beta = challenge
     jrows = JFR.encode_vec([c for r in rows for c in r]).reshape(M, T, JFR.L)
     rows16 = np.asarray(jrows)
     ja, jb = JFR.encode([alpha])[0], JFR.encode([beta])[0]
-    jcoms = jpianist.commit_all(srs, jrows, window_bits=WB)
-    jys, jprfs = jpianist.open_all(srs, jrows, ja, window_bits=WB)
+    bases = lambda wb: types.SimpleNamespace(worker_bases=wb)  # noqa: E731
+    jcoms = jax.jit(lambda wb, r: jpianist.commit_all(
+        bases(wb), r, window_bits=WB))(srs.worker_bases, jrows)
+    jys, jprfs = jax.jit(lambda wb, r, x: jpianist.open_all(
+        bases(wb), r, x, window_bits=WB))(srs.worker_bases, jrows, ja)
     jagg = jpianist.aggregate(srs, jcoms, jprfs, jys, jb, window_bits=WB)
 
     trows = FR.from_limbs16(rows16)
