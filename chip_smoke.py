@@ -1930,8 +1930,10 @@ def cli_small(tmp, dev):
         port = sock.getsockname()[1]
     trt.WorkerServer.serve_forever = keep
     result = {}
+    # cli.main itself, not run_cli: its redirect of sys.stdout/stderr would
+    # swallow the main thread's output for as long as the server runs
     thread = threading.Thread(target=lambda: result.update(
-        rc=run_cli(["serve", *flags, "--port", str(port)])[0]), daemon=True)
+        rc=cli.main(["serve", *flags, "--port", str(port)])), daemon=True)
     try:
         thread.start()
         deadline = time.time() + 120

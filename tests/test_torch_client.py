@@ -228,7 +228,7 @@ def test_discovery_leaves_the_coordinators_stream_alone():
 def test_async_callers_await_get_query_uids():
     """client.py:82 — ``discover`` runs its own event loop, so from a
     coroutine it raises in both packages; the port's docstring steers such
-    callers to ``await get_query_uids`` (and ``pin``), which the JAX
+    callers to ``await get_query_uids``, which the JAX
     client's does not. Awaited, both give the same uids."""
     async def inside(mod, prove):
         coord = Coord([0.9, 0.8, 0.1], seed=2)
@@ -242,9 +242,6 @@ def test_async_callers_await_get_query_uids():
     assert got["torch"] == got["jax"] == [0]
     assert "await get_query_uids" in tclient.SubnetClient.discover.__doc__
     assert "await" not in jclient.SubnetClient.discover.__doc__
-    client = tclient.SubnetClient(Coord([0.9]), Net(TProve))
-    client.pin([0])
-    assert asyncio.run(client._fan_out(0, ["a"], None))[0].commitment == "C"
 
 
 # -- one real row through the port's workers ------------------------------------

@@ -118,16 +118,12 @@ class SubnetClient:
         This runs its own event loop (``asyncio.run``) and so cannot be
         called from a coroutine: there, ``await get_query_uids(
         client.coordinator, client.transport, limit=client.sample_size,
-        rng=client.rng)`` and pass the uids to ``pin``."""
+        rng=client.rng)``."""
         uids = asyncio.run(get_query_uids(
             self.coordinator, self.transport, top_fraction=top_fraction,
             timeout=timeout, limit=self.sample_size, rng=self.rng))
-        self.pin(uids)
+        self._query_uids = uids or None
         return uids
-
-    def pin(self, uids: Sequence[int]) -> None:
-        """Fan out over ``uids`` (none: back to uniform samples)."""
-        self._query_uids = list(uids) or None
 
     def reset_pool(self) -> None:
         self._query_uids = None

@@ -17,8 +17,7 @@ bivariate opening at (α, β):
     e(C_y − f(α,β)·G1, G2) == e(W_y, [τ_Y − β]G2)  (Y opening, Lagrange KZG)
 
 Where the JAX package maps over the worker axis with ``vmap``, the port
-runs one ladder over every worker's bases (rows of at most
-``NAIVE_THRESHOLD``) or loops over the workers. Random draws take an
+hands every worker's bases to one ``msm_auto_many``. Random draws take an
 explicit ``torch.Generator``; they are uniform but not the JAX package's
 numbers.
 """
@@ -34,7 +33,7 @@ from ..ops import curve as cv
 from ..ops import msm as tmsm
 from ..ops import ntt as tntt
 from ..ops import poly as tpoly
-from ..ops.field import FQ, FR
+from ..ops.field import FR
 from ..utils import native
 from ..utils import oracle as o
 from . import kzg
@@ -64,26 +63,15 @@ def worker_verify(srs: Srs, i: int, proof, alpha: int, eval_: int,
                       srs.g2_gen, srs.g2_tau_x, shift_g1=v_i)
 
 
-def _msm_rows(srs: Srs, scalars: torch.Tensor) -> torch.Tensor:
-    """Worker i's MSM of its bases by ``scalars[i]`` (canonical), for every
-    worker: (M, T, 8) → (M, 3, 12). At T ≤ ``NAIVE_THRESHOLD`` one ladder
-    over all workers' bases and a tree sum a worker (the limbs of M
-    ``msm_naive`` calls, as the JAX package's ``vmap`` runs one program
-    over the workers); one Pippenger MSM a worker above."""
-    m, t = scalars.shape[:2]
-    if t > tmsm.NAIVE_THRESHOLD:
-        return torch.stack([tmsm.msm(srs.device_worker_bases(i), scalars[i])
-                            for i in range(m)])
-    bases = torch.stack([srs.device_worker_bases(i) for i in range(m)])
-    prods = cv.g1_scalar_mul(bases.reshape(m * t, 3, FQ.L),
-                             scalars.reshape(m * t, -1))
-    return torch.stack([cv.g1_sum(p) for p in prods.view(m, t, 3, FQ.L)])
+def _worker_bases(srs: Srs, m: int) -> torch.Tensor:
+    return torch.stack([srs.device_worker_bases(i) for i in range(m)])
 
 
 def commit_all(srs: Srs, rows: torch.Tensor) -> torch.Tensor:
     """All workers' commitments: rows (M, T, 8) → (M, 3, 12), the limbs of
     ``worker_commit`` for each."""
-    return _msm_rows(srs, tpoly.from_mont_wide(rows))
+    return tmsm.msm_auto_many(_worker_bases(srs, rows.shape[0]),
+                              tpoly.from_mont_wide(rows))
 
 
 def open_all(srs: Srs, rows: torch.Tensor,
@@ -92,7 +80,8 @@ def open_all(srs: Srs, rows: torch.Tensor,
     the limbs of ``worker_open`` for each."""
     outs = [tpoly.poly_open_scalars(rows[i], x) for i in range(rows.shape[0])]
     ys = torch.stack([y for y, _ in outs])
-    return ys, _msm_rows(srs, torch.stack([q for _, q in outs]))
+    return ys, tmsm.msm_auto_many(_worker_bases(srs, rows.shape[0]),
+                                  torch.stack([q for _, q in outs]))
 
 
 # ---------------------------------------------------------------------------

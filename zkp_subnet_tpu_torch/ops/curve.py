@@ -90,31 +90,18 @@ def _stk(*xs):
     return torch.stack(torch.broadcast_tensors(*xs), dim=0)
 
 
-_B3_16 = {}
+def _b3(like):
+    return widen(FQ.encode([_B3], like.device)[0])
 
 
-def _b3(device):
-    """3·b in Montgomery form, as 16-bit limbs, one tensor a device."""
-    if device not in _B3_16:
-        _B3_16[device] = widen(FQ.encode([_B3], device)[0])
-    return _B3_16[device]
-
-
-def _widen3(p):
-    """(..., 3, 12) int32 point → (X, Y, Z) of (..., 24) 16-bit limbs."""
-    return tuple(widen(c) for c in g1_unpack(p))
-
-
-def _narrow3(xyz) -> torch.Tensor:
-    return g1_pack(*(narrow(c) for c in xyz))
-
-
-def _add16(p, q):
-    """RCB15 Algorithm 7 on 16-bit coordinates, the independent products of
-    each layer stacked into one batched multiply, as
+def g1_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 ``g1_add``: RCB15 Algorithm 7 with the independent
+    products of each layer stacked into one batched multiply, as
     ``zkp_subnet_tpu/ops/curve.py:80-116`` does."""
-    (X1, Y1, Z1), (X2, Y2, Z2) = p, q
-    b3 = _b3(X1.device)
+    p, q = torch.broadcast_tensors(p, q)
+    X1, Y1, Z1 = (widen(c) for c in g1_unpack(p))
+    X2, Y2, Z2 = (widen(c) for c in g1_unpack(q))
+    b3 = _b3(p)
     a1, a2, a3, a4, a5, a6 = _add(_stk(X1, X2, Y1, Y2, X1, X2),
                                   _stk(Y1, Y2, Z1, Z2, Z1, Z2))
     t0, t1, t2, p1, p2, p3 = _mul(_stk(X1, Y1, Z1, a1, a3, a5),
@@ -128,14 +115,14 @@ def _add16(p, q):
                                   _stk(t1t, y3b, t0t, z3t, t4, t3))
     X3 = _sub(w0, w1)
     Y3, Z3 = _add(_stk(w2, w4), _stk(w3, w5))
-    return X3, Y3, Z3
+    return g1_pack(narrow(X3), narrow(Y3), narrow(Z3))
 
 
-def _double16(p):
-    """RCB15 Algorithm 9 on 16-bit coordinates, layer-batched as
+def g1_double_plain(p: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 ``g1_double``: RCB15 Algorithm 9, layer-batched as
     ``zkp_subnet_tpu/ops/curve.py:119-139``."""
-    X, Y, Z = p
-    b3 = _b3(X.device)
+    X, Y, Z = (widen(c) for c in g1_unpack(p))
+    b3 = _b3(p)
     t0, tyz, tzz, txy = _mul(_stk(Y, Y, Z, X), _stk(Y, Z, Z, Y))
     d1 = _add(t0, t0)
     d2 = _add(d1, d1)
@@ -148,19 +135,7 @@ def _double16(p):
                              _stk(z8, z8, y3a, txy))
     Y3 = _add(x3m, y3m)
     X3 = _add(x3o, x3o)
-    return X3, Y3, z3
-
-
-def g1_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1 ``g1_add``: the complete add of RCB15 (``_add16``)."""
-    p, q = torch.broadcast_tensors(p, q)
-    return _narrow3(_add16(_widen3(p), _widen3(q)))
-
-
-def g1_double_plain(p: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1 ``g1_double``: the complete double of RCB15
-    (``_double16``)."""
-    return _narrow3(_double16(_widen3(p)))
+    return g1_pack(narrow(X3), narrow(Y3), narrow(z3))
 
 
 # -- K1 dispatch and the glue built on it --------------------------------------
@@ -196,15 +171,13 @@ def g1_scalar_mul_plain(p: torch.Tensor,
     over 256 bits, most significant first
     (``zkp_subnet_tpu/ops/curve.py:159-181``), each step a plain double, a
     plain add and a select (the kernel adds only where the bit is set: the
-    same limbs), the coordinates kept in 16-bit limbs from step to step."""
-    pw = _widen3(p)
-    acc = _widen3(g1_infinity(p.shape[:-2], p.device))
+    same limbs)."""
+    acc = g1_infinity(p.shape[:-2], p.device)
     for bit in range(FR.L * 32 - 1, -1, -1):
-        b = ((scalars[..., bit // 32] >> (bit % 32)) & 1).bool()[..., None]
-        acc = _double16(acc)
-        acc = tuple(torch.where(b, s, a)
-                    for s, a in zip(_add16(acc, pw), acc))
-    return _narrow3(acc)
+        b = (scalars[..., bit // 32] >> (bit % 32)) & 1
+        acc = g1_double_plain(acc)
+        acc = g1_select(b.bool(), g1_add_plain(acc, p), acc)
+    return acc
 
 
 def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:

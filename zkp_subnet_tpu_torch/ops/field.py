@@ -77,45 +77,22 @@ def _carry(t: torch.Tensor, loose: bool = False) -> torch.Tensor:
         t[..., 1:] += c
 
 
-_SKEW = {}
-
-#: elements of one block of ``_columns`` on the CPU: its products stay in
-#: the cache (on the card one matmul takes them all)
-COLUMN_BLOCK = 1024
-
-
 def _columns(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
     """Column sums Σ_{i+j=k} a_i·b_j of the limb product, k < ``width``.
 
     The limb products as float64, then one matmul against a 0/1 matrix that
     sends product (i, j) to column i + j (the skew of the JAX package's
-    ``field.PrimeField._skew_sum``), on the CPU a block of
-    ``COLUMN_BLOCK`` elements at a time. Limbs below 2^16 make every
-    product an integer below 2^32 and every column sum one below 2^37:
-    exact in a double, whatever the order of the sums."""
+    ``field.PrimeField._skew_sum``). Limbs below 2^16 make every product an
+    integer below 2^32 and every column sum one below 2^37: exact in a
+    double, whatever the order of the sums."""
     la, lb = a.shape[-1], b.shape[-1]
     assert la + lb - 1 <= width
-    key = (la, lb, width, a.device)
-    skew = _SKEW.get(key)
-    if skew is None:
-        skew = torch.zeros((la * lb, width), dtype=torch.float64)
-        for i in range(la):
-            skew[i * lb + torch.arange(lb), i + torch.arange(lb)] = 1.0
-        skew = _SKEW[key] = skew.to(a.device)
-    fa, fb = a.double(), b.double()
-    if a.is_cuda or max(a.numel() // la, b.numel() // lb) <= COLUMN_BLOCK:
-        return ((fa.unsqueeze(-1) * fb.unsqueeze(-2)).flatten(-2)
-                @ skew).long()
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    fa = fa.expand(shape + (la,)).reshape(-1, la)
-    fb = fb.expand(shape + (lb,)).reshape(-1, lb)
-    out = torch.empty((fa.shape[0], width), dtype=torch.float64,
-                      device=a.device)
-    for s in range(0, fa.shape[0], COLUMN_BLOCK):
-        e = s + COLUMN_BLOCK
-        prods = fa[s:e].unsqueeze(-1) * fb[s:e].unsqueeze(-2)
-        torch.matmul(prods.flatten(-2), skew, out=out[s:e])
-    return out.long().reshape(shape + (width,))
+    i = torch.arange(la, device=a.device)[:, None]
+    j = torch.arange(lb, device=a.device)[None, :]
+    skew = torch.zeros((la * lb, width), dtype=torch.float64, device=a.device)
+    skew[(i * lb + j).flatten(), (i + j).flatten()] = 1.0
+    prods = a.double().unsqueeze(-1) * b.double().unsqueeze(-2)
+    return (prods.flatten(-2) @ skew).long()
 
 
 class PrimeField:

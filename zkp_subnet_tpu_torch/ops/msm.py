@@ -7,7 +7,9 @@ N ≤ 2048, Pippenger above. ``msm_many``/``msm_auto_many`` take (K, N, 8)
 scalars, K MSMs over the same points, and run them side by side through
 every launch, as the JAX package holds a row's commit and opening MSMs in
 one jitted program (``zkp_subnet_tpu/runtime/worker.py:35-42``); ``msm`` is
-the K = 1 case.
+the K = 1 case. ``msm_auto_many`` also takes points of their own a row
+(K, N, 3, 12), as Pianist's ``commit_all``/``open_all`` give it every
+worker's bases.
 
 The Pippenger here is 8-bit windows (32 windows × 256 buckets) in Hopper
 shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
@@ -352,13 +354,18 @@ def msm_auto(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 
 def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """``msm_auto`` for (K, N, 8) scalars over the same points → (K, 3, 12):
-    at N ≤ NAIVE_THRESHOLD one double-and-add sweep over the points taken K
-    times (one ladder launch on the card) and K tree sums, the limbs of K
-    ``msm_naive`` calls; one batched Pippenger above."""
+    """``msm_auto`` for (K, N, 8) scalars → (K, 3, 12), over the same points
+    (N, 3, 12) or over points of their own a row (K, N, 3, 12): at
+    N ≤ NAIVE_THRESHOLD one double-and-add sweep over all K·N products (one
+    ladder launch on the card) and K tree sums, the limbs of K
+    ``msm_naive`` calls; above, one batched Pippenger over shared points,
+    or one Pippenger a row."""
     k, n = scalars.shape[:2]
-    if points.shape[0] <= NAIVE_THRESHOLD:
-        prods = g1_scalar_mul(points.repeat(k, 1, 1),
-                              scalars.reshape(k * n, -1))
+    shared = points.dim() == 3
+    if n <= NAIVE_THRESHOLD:
+        pts = points.repeat(k, 1, 1) if shared else points.reshape(k * n, 3, -1)
+        prods = g1_scalar_mul(pts, scalars.reshape(k * n, -1))
         return torch.stack([g1_sum(p) for p in prods.view(k, n, 3, -1)])
-    return msm_many(points, scalars)
+    if shared:
+        return msm_many(points, scalars)
+    return torch.stack([msm(p, s) for p, s in zip(points, scalars)])
