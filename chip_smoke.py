@@ -76,27 +76,44 @@ Phases (each prints a line; any failure exits non-zero):
    ``SubnetClient`` over HTTP (commit and open of a row, the trapdoor
    self-check, verify), and ``localnet`` as a process of its own over two
    ``serve`` processes. The commands run through the CLI's ``main`` in
-   this process, so their launches are counted, but ``localnet``;
-8. ``[device]``: each kernel's device time with no host work between
+   this process, so their launches are counted, but ``localnet``. The SRS
+   files of both shapes stay for [mesh] (the flipped byte set back);
+8. ``[mesh]``, the multi-device path (``zkp_subnet_tpu_torch.parallel``) as
+   one NCCL rank (the machine has one card): ``parallel.launch.main`` at
+   the mainnet deployment over the 24/8 files [cli] wrote, two rounds, each
+   split into the draws, the X inverse NTT of 256 x 2^16, the local
+   commit+open of 256 rows, the gather and the aggregation (rows/s, peak
+   device memory, the backend, which must be NCCL); the last round's
+   aggregated proof verifies (and not once tampered), eight sampled
+   workers pass ``worker_verify`` and the trapdoor self-check and equal
+   ``pianist.worker_commit``/``worker_open`` limb for limb, and
+   ``fft(left=False)`` forward then inverse gives the block back; then at
+   the [round] shape over [cli]'s 20/4 files ``Coordinator.run`` over
+   ``MeshTransport`` for two rounds (every reward > 0, one
+   ``process_time`` a round) and a round with one corrupt uid (exactly one
+   0); then ``dryrun_multichip(1)``;
+9. ``[device]``: each kernel's device time with no host work between
    launches (``device_ms``: CUDA events around the replay of a CUDA graph of
    many launches) and torch.profiler's figure beside it; last, because
    graph captures and a profiler run slow every later launch on the
    host.
 
-The launch counts are set to 0 just before each of the three paths
-(``[main]``, ``[round]``, ``[cli]``) and read just after it. The last
-lines are the kernel table as JSON, the nvidia-smi line and ``{"ok": true,
+The launch counts are set to 0 just before each of the four paths
+(``[main]``, ``[round]``, ``[cli]``, ``[mesh]``) and read just after it.
+The last lines are the kernel table as JSON, the nvidia-smi line and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the repository beside
 it, the script exits non-zero before printing a result.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import inspect
 import io
 import json
+import logging
 import os
 import re
 import shutil
@@ -128,6 +145,9 @@ from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fq_add_plain,
                                             fr_add_plain, fr_inv_plain,
                                             fr_mul_plain, fr_powers_plain,
                                             fr_sub_plain)
+from zkp_subnet_tpu_torch.parallel import launch
+from zkp_subnet_tpu_torch.parallel import pianist as par
+from zkp_subnet_tpu_torch.parallel.dryrun import dryrun_multichip
 from zkp_subnet_tpu_torch.runtime.worker import Prove, Worker
 from zkp_subnet_tpu_torch.utils import encoding as enc
 from zkp_subnet_tpu_torch.utils import oracle as o
@@ -161,9 +181,14 @@ CLI_FULL_TIMEOUT = 600.0
 # the disk the full-size files need beyond the sidecars: setup and
 # precompute files, the state, slack
 CLI_DISK_SLACK = 1 << 30
-# kernels the [cli] path does not run: the double runs inside the ladder,
-# and K4 only in this script's on-curve check
+# kernels the [cli] and [mesh] paths do not run: the double runs inside
+# the ladder, and K4 only in this script's on-curve check
 CLI_IDLE = ("g1_double", "fq_mul", "fq_add", "fq_sub")
+# [mesh]: rounds of parallel.launch at the mainnet deployment, and the
+# workers of the last one held to the pairing, the trapdoor and the
+# single-worker path
+MESH_ROUNDS = 2
+MESH_SAMPLED = 8
 
 # the card's peaks for ``bound_ms``: device memory rate from NVIDIA's data
 # sheet (H100 SXM); the integer rate is 64 INT32 lanes per SM (Hopper
@@ -491,6 +516,8 @@ def path_inputs(rng, dev):
                                  totals=totals, lp=lp, ls=ls,
                                  lp16=lp[:16].contiguous(),
                                  ls16=ls[:16].contiguous(),
+                                 lp256=lp[:256].contiguous(),
+                                 ls256=ls[:256].contiguous(),
                                  diffs=FR.sub(x1, aggregation_dom(m, dev)))
 
 
@@ -861,10 +888,14 @@ def phase_kernels(rng, dev, int_ops_per_s):
               ("msm_combine", "one MSM", limbs,
                lambda: kernels.msm_combine(wins[0], 8),
                lambda: tmsm.msm_combine_plain(wins[0])),
-              # the aggregation's shapes: 16 ladders, 16 inverses
+              # the aggregation's shapes: 16 ladders ([round]), 256 ladders
+              # (the mainnet shape of [cli] and [mesh]), 16 inverses
               ("g1_scalar_mul", "16 points", limbs,
                lambda: kernels.g1_scalar_mul(x.lp16, x.ls16),
                lambda: cv.g1_scalar_mul_plain(x.lp16, x.ls16)),
+              ("g1_scalar_mul", "256 points", limbs,
+               lambda: kernels.g1_scalar_mul(x.lp256, x.ls256),
+               lambda: cv.g1_scalar_mul_plain(x.lp256, x.ls256)),
               ("fr_inv", "16 elements", same_fr,
                lambda: kernels.fr_inv(x.diffs),
                lambda: fr_inv_plain(x.diffs)),
@@ -884,16 +915,24 @@ def phase_kernels(rng, dev, int_ops_per_s):
         say(f"[kernels] {name}, {label}, {tuple(got.shape)}: equal to "
             f"plain; kernel {ms:.4f} ms")
         res[name].setdefault("other_ms", {})[label] = ms
-    step_ms = res["g1_scalar_mul"]["other_ms"]["16 points"] / LADDER_BITS
-    b16, by16 = bound(2 * G1_BYTES * 16 + FR_BYTES * 16,
-                      scalar_mul_ops(x.ls16), int_ops_per_s)
-    res["g1_scalar_mul"]["other_bound_ms"] = {"16 points": b16}
-    say(f"[kernels] g1_scalar_mul at 16 points: {LADDER_BITS} dependent "
-        f"double-and-add steps, {step_ms * 1e3:.2f} us each (msm_combine's "
-        "point operation, by a warp: PERF.md); bound "
-        f"{b16:.6f} ms ({by16}), "
-        f"{res['g1_scalar_mul']['other_ms']['16 points'] / b16:.0f} x it: "
-        "latency, one thread's chain of steps a point")
+    ladder = res["g1_scalar_mul"]
+    ladder["other_bound_ms"] = {}
+    for n_pts, pts, sc in ((16, x.lp16, x.ls16), (256, x.lp256, x.ls256)):
+        label = f"{n_pts} points"
+        step_ms = ladder["other_ms"][label] / LADDER_BITS
+        b_ms, b_by = bound(2 * G1_BYTES * n_pts + FR_BYTES * n_pts,
+                           scalar_mul_ops(sc), int_ops_per_s)
+        ladder["other_bound_ms"][label] = b_ms
+        say(f"[kernels] g1_scalar_mul at {label}: {LADDER_BITS} dependent "
+            f"double-and-add steps, {step_ms * 1e3:.2f} us each "
+            "(msm_combine's point operation, by a warp: PERF.md); bound "
+            f"{b_ms:.6f} ms ({b_by}), "
+            f"{ladder['other_ms'][label] / b_ms:.0f} x it: latency, one "
+            "thread's chain of steps a point")
+    ladder["other_plain_ms"] = {"256 points": time_cuda(
+        lambda: cv.g1_scalar_mul_plain(x.lp256, x.ls256), 1, warm=False)[0]}
+    say("[kernels] g1_scalar_mul at 256 points: plain "
+        f"{ladder['other_plain_ms']['256 points']:.2f} ms")
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
     say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
@@ -1088,6 +1127,8 @@ def phase_device_times(res, dev):
     # the shapes of the aggregation and of one launch of the old inverse
     others = {("g1_scalar_mul", "16 points, device"): (
                   lambda: kernels.g1_scalar_mul(x.lp16, x.ls16), 5),
+              ("g1_scalar_mul", "256 points, device"): (
+                  lambda: kernels.g1_scalar_mul(x.lp256, x.ls256), 5),
               ("fr_inv", "16 elements, device"): (
                   lambda: kernels.fr_inv(x.diffs), 20),
               ("fr_mul", "one element, device"): (
@@ -1757,19 +1798,23 @@ def cli_check(flags, label, want_rc=0):
 
 
 class Timed:
-    """Wraps methods of classes with a clock for the duration of a
-    ``with``: ``seconds[name]`` sums the calls to ``name`` (for a
-    coroutine, from its start to its end)."""
+    """Wraps methods of classes (or functions of modules) with a clock for
+    the duration of a ``with``: ``seconds[name]`` sums the calls to
+    ``name`` (for a coroutine, from its start to its end), ``calls`` lists
+    (name, seconds) in the order the calls ended."""
 
     def __init__(self, **targets):
         self.targets = targets
         self.seconds = {name: 0.0 for name in targets}
+        self.calls = []
         self.saved = []
 
     def _clock(self, name, fn):
         def stop(t0):
             torch.cuda.synchronize()
-            self.seconds[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.seconds[name] += dt
+            self.calls.append((name, dt))
 
         if inspect.iscoroutinefunction(fn):
             async def timed(*args, **kwargs):
@@ -1887,8 +1932,10 @@ def cli_full_round(tmp, dev):
           f"check of a flipped byte: {fails}")
     say(f"[cli] check with one byte of the sidecar flipped: rc 1 in "
         f"{t_bad:.1f} s ({fails[0].strip()})")
-    for path in files:
-        os.remove(path)
+    # the byte back, for [mesh]
+    with open(files[2], "r+b") as f:
+        f.seek(os.path.getsize(files[2]) // 2)
+        f.write(byte)
     return used
 
 
@@ -1992,20 +2039,17 @@ def cli_small(tmp, dev):
         f"{dt:.1f} s; {tail[0][:60]}")
 
 
-def phase_cli(dev):
-    """``python -m zkp_subnet_tpu_torch``'s commands: scale 24/8 setup,
-    check and aggregate, then 20/4 run with a resume, serve with the
-    client, and localnet. Returns the launch counts of the commands run in
-    this process."""
+def phase_cli(dev, tmp):
+    """``python -m zkp_subnet_tpu_torch``'s commands in ``tmp``: scale 24/8
+    setup, check and aggregate, then 20/4 run with a resume, serve with the
+    client, and localnet. The SRS files of both shapes stay in ``tmp`` for
+    [mesh]. Returns the launch counts of the commands run in this
+    process."""
     kernels.reset_launches()
     t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="zkp_cli_")
-    try:
-        cli_full_round(tmp, dev)
-        t_full = time.perf_counter() - t0
-        cli_small(tmp, dev)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cli_full_round(tmp, dev)
+    t_full = time.perf_counter() - t0
+    cli_small(tmp, dev)
     launches = dict(kernels.LAUNCHES)
     for k, v in launches.items():
         if k not in CLI_IDLE:
@@ -2014,6 +2058,230 @@ def phase_cli(dev):
     say(f"[cli] wall {time.perf_counter() - t0:.1f} s: scale 24/8 "
         f"{t_full:.1f} s, scale 20/4 {time.perf_counter() - t0 - t_full:.1f}"
         " s")
+    return launches
+
+
+class LogLines(logging.Handler):
+    """The messages of one logger at INFO, for the length of a ``with``."""
+
+    def __init__(self, name):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def mesh_deployment(dev, tmp):
+    """[mesh] at the mainnet deployment: ``parallel.launch.main`` over the
+    24/8 files [cli] wrote, one NCCL rank, MESH_ROUNDS rounds, each split
+    by stage; then the last round's proof held to the pairing checks, the
+    trapdoor and the single-worker path, and the Y-axis NTT's round trip
+    on its rows."""
+    scale, mscale = CLI_FULL
+    m = 1 << mscale
+    (setup, pre, _) = cli_files(tmp, CLI_FULL)[1]
+    kept = []
+    prove_gathered = par.prove_gathered
+
+    def keep(*args):
+        out = prove_gathered(*args)
+        kept[:] = [args, out]
+        return out
+    par.prove_gathered = keep
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with LogLines("zkp_subnet_tpu_torch.launch") as log, Timed(
+                shard=(par, "shard_srs"), draw=(pianist, "_uniform_fr"),
+                fft=(par, "fft"), local=(par, "commit_open"),
+                gather=(par, "gather"),
+                aggregation=(pianist, "aggregate_core"),
+                prove=(par, "prove")) as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = launch.main(["--scale", str(scale), "--machines-scale",
+                              str(mscale), "--srs-dir", tmp, "--rounds",
+                              str(MESH_ROUNDS), "--seed", str(SEED)])
+            t_launch = time.perf_counter() - t0
+    finally:
+        par.prove_gathered = prove_gathered
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check(rc == 0, f"launch.main: rc {rc}")
+    check(f"loaded SRS from {setup}" in log.lines,
+          f"launch.main did not load [cli]'s files: {log.lines}")
+    mesh_line = [x for x in log.lines if x.startswith("mesh ")]
+    check(mesh_line and mesh_line[0].endswith("backend nccl"),
+          f"launch.main: not one NCCL rank: {mesh_line}")
+    check([x for x in log.lines if x.endswith("sub-proofs aggregated")]
+          == [f"round {r}: {m} sub-proofs aggregated"
+              for r in range(MESH_ROUNDS)], f"launch.main: {log.lines}")
+    say(f"[mesh] parallel.launch.main --scale {scale} --machines-scale "
+        f"{mscale} --rounds {MESH_ROUNDS}: {t_launch:.1f} s in all; "
+        + "; ".join(log.lines[:2])
+        + f"; shard_srs {clock.seconds['shard']:.2f} s ({m} worker slices "
+        "from the memmap to the card)")
+    # the stages of each round, in call order: the draws, the X inverse
+    # NTT, the local commit+open, the gather, the aggregation
+    rounds, cur = [], None
+    for name, dt in clock.calls:
+        if name == "draw" and (cur is None or "prove" in cur):
+            cur = {}
+            rounds.append(cur)
+        if cur is not None:
+            cur[name] = cur.get(name, 0.0) + dt
+    check(len(rounds) == MESH_ROUNDS and all("prove" in r for r in rounds),
+          f"[mesh] {len(rounds)} rounds timed, not {MESH_ROUNDS}")
+    for i, r in enumerate(rounds):
+        say(f"[mesh] round {i}: draw {r['draw'] * 1e3:.1f} ms, X inverse "
+            f"NTT of {m} x 2^{scale - mscale} {r['fft'] * 1e3:.2f} ms, local "
+            f"commit+open of {m} rows {r['local']:.3f} s, gather "
+            f"{r['gather'] * 1e3:.2f} ms, aggregation "
+            f"{r['aggregation'] * 1e3:.1f} ms; prove {r['prove']:.3f} s = "
+            f"{m / r['prove']:.1f} rows/s ({m / (r['fft'] + r['prove']):.1f}"
+            " rows/s with the NTT)")
+    say(f"[mesh] peak device memory {peak:.1f} MiB")
+
+    (sharded, coeff, alpha, beta, _), (out, (_, evals, _)) = kept
+    srs = Srs.load(setup, pre, lazy=True)
+    a_int, b_int = FR.decode(alpha)[0], FR.decode(beta[0])[0]
+    agg = pianist.AggregatedProof(
+        commitment=out.commitment[0], proof_x=out.proof_x[0],
+        evals=evals[0], commitment_y=out.commitment_y[0],
+        proof_y=out.proof_y[0], value=out.value[0])
+    check(pianist.verify_aggregated(srs, agg, a_int, b_int),
+          "[mesh] the distributed proof does not verify")
+    bad = dataclasses.replace(agg, proof_x=agg.commitment)
+    check(not pianist.verify_aggregated(srs, bad, a_int, b_int),
+          "[mesh] a tampered distributed proof verifies")
+    tau_x, tau_y = _trapdoor(None, None, 0)      # [cli]'s setup: seed 0
+    keys = _lagrange_coeffs_at(tau_y, m)
+    inner = np.random.default_rng(SEED).permutation(np.arange(1, m - 1))
+    sampled = sorted({0, m - 1, *inner[:MESH_SAMPLED - 2].tolist()})
+    for i in sampled:
+        com, prf, y = out.commitments[0, i], out.proofs[0, i], evals[0, i]
+        row = coeff[0, i]
+        w_com = pianist.worker_commit(srs, i, row)
+        w_y, w_prf = pianist.worker_open(srs, i, row, alpha)
+        check(torch.equal(com, w_com) and torch.equal(prf, w_prf)
+              and torch.equal(y, w_y),
+              f"[mesh] worker {i}: not the limbs of worker_commit/open")
+        com_pt, prf_pt = cv.g1_decode(com)[0], cv.g1_decode(prf)[0]
+        y_int = FR.decode(y)[0]
+        check(pianist.worker_verify(srs, i, prf_pt, a_int, y_int, com_pt),
+              f"[mesh] worker {i}: worker_verify False")
+        selfcheck(Prove(index=i, poly=[], eval_=enc.fr_to_b64(y_int),
+                        commitment=enc.g1_to_b64(com_pt),
+                        proof=enc.g1_to_b64(prf_pt)),
+                  FR.decode(row), a_int, False, tau=tau_x, key=keys[i])
+    say(f"[mesh] the last round's aggregated proof verifies: True (False "
+        f"with W swapped for C); workers {sampled}: worker_verify and "
+        "trapdoor self-check PASS, limbs equal to pianist.worker_commit/"
+        "worker_open")
+
+    mesh = par.make_mesh()
+    backend = torch.distributed.get_backend()
+    check(backend == "nccl", f"[mesh] backend {backend}, not nccl")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols = par.fft(coeff, mesh, left=False)
+    back = par.fft(cols, mesh, left=False, inverse=True)
+    torch.cuda.synchronize()
+    t_y = time.perf_counter() - t0
+    check(torch.equal(back, coeff), "[mesh] the Y-axis NTT does not "
+          "round-trip")
+    say(f"[mesh] dist.get_backend(): {backend}; fft(left=False) forward + "
+        f"inverse of the {m} x 2^{scale - mscale} block: {t_y * 1e3:.1f} ms,"
+        " equal to the block")
+    return mesh
+
+
+def mesh_transport_rounds(mesh, dev, tmp):
+    """[mesh] at the [round] shape (20/4: 16 rows of 2^16), over [cli]'s
+    files: ``Coordinator.run(MeshTransport, rounds=2)``, every reward > 0
+    and one ``process_time`` a round; a second transport with one corrupt
+    uid scores exactly one 0."""
+    (setup, pre, _) = cli_files(tmp, CLI_SMALL)[1]
+    srs = Srs.load(setup, pre, lazy=True)
+    m = srs.machines
+    sharded = par.shard_srs(srs, mesh)
+    transport = trt.MeshTransport(sharded, mesh)
+    t_warm = transport.warmup()
+    hotkeys = [f"mesh{i}" for i in range(m)]
+    coord = trt.Coordinator(srs, trt.CoordinatorConfig(
+        sample_size=m, timeout=COORDINATOR_TIMEOUT, epoch_length=1,
+        state_dir=os.path.join(tmp, "mesh_state")), hotkeys, seed=SEED)
+    rounds = []
+    forward = coord.forward
+
+    async def keep(transport, timeout=None):
+        t0 = time.perf_counter()
+        got = await forward(transport, timeout)
+        rounds.append((got, time.perf_counter() - t0))
+        return got
+    coord.forward = keep
+    ok = asyncio.run(coord.run(transport, rounds=2))
+    check(ok == 2 and len(rounds) == 2, f"[mesh] Coordinator.run: {ok} ok")
+    for i, ((_, responses, rewards), dt) in enumerate(rounds):
+        times = {r.process_time for r in responses}
+        check(len(responses) == m and all(r.commitment and r.proof
+                                          for r in responses),
+              f"[mesh] MeshTransport round {i}: a response lacks its proof")
+        check((rewards > 0).all(), f"[mesh] round {i}: rewards {rewards}")
+        check(len(times) == 1, f"[mesh] round {i}: process_times {times}")
+        say(f"[mesh] Coordinator.run via MeshTransport, round {i + 1} of 2: "
+            f"{dt:.3f} s; {m} responses, every reward > 0 "
+            f"({float(rewards.min()):.4f}..{float(rewards.max()):.4f}), one "
+            f"process_time {times.pop():.3f} s for all")
+    uids, weights = coord.set_weights()
+    check(int(weights.max()) == 65535, f"[mesh] weights {weights}")
+
+    corrupt = m // 3
+    bad = trt.Coordinator(srs, trt.CoordinatorConfig(
+        sample_size=m, timeout=COORDINATOR_TIMEOUT), hotkeys, seed=SEED + 1)
+    _, responses, rewards = bad.run_round(trt.MeshTransport(
+        sharded, mesh, corrupt_uids=[corrupt]))
+    check(int((rewards == 0).sum()) == 1 and bad.scores[corrupt] == 0.0
+          and (np.delete(bad.scores, corrupt) > 0).all()
+          and len({r.process_time for r in responses}) == 1,
+          f"[mesh] corrupt uid {corrupt}: rewards {rewards}")
+    say(f"[mesh] MeshTransport at scale {srs.scale} / machines_scale "
+        f"{srs.machines_scale}: warmup {t_warm:.2f} s; set_weights max "
+        f"{int(weights.max())}; with uid {corrupt}'s proof corrupted its "
+        f"reward exactly 0, the other {m - 1} > 0, one process_time")
+
+
+def phase_mesh(dev, tmp):
+    """[mesh]: the multi-device path on one NCCL rank (see the module
+    docstring). Returns its launch counts."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mesh = mesh_deployment(dev, tmp)
+    try:
+        mesh_transport_rounds(mesh, dev, tmp)
+        t1 = time.perf_counter()
+        dryrun_multichip(1)
+        say(f"[mesh] dryrun_multichip(1) on the card: "
+            f"{time.perf_counter() - t1:.1f} s (NTT both ways, a verified "
+            "prove, a scored round)")
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = dict(kernels.LAUNCHES)
+    for k, v in launches.items():
+        if k not in CLI_IDLE:
+            check(v > 0, f"the [mesh] path launched {k} {v} times")
+    say(f"[mesh] launches {launches}")
+    say(f"[mesh] wall {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2045,29 +2313,34 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zkp_cli_")
     try:
         res = phase_kernels(rng, dev, int_ops_per_s)
         main_launches, setup_launches, request_launches = phase_main_path(
             rng, dev)
         round_launches = phase_round(rng, dev)
         phase_ntt_cells(dev)
-        cli_launches = phase_cli(dev)
+        cli_launches = phase_cli(dev, tmp)
+        mesh_launches = phase_mesh(dev, tmp)
         phase_device_times(res, dev)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     say(f"[done] all phases in {time.perf_counter() - t_start:.1f} s after "
         "the build")
 
-    # launches: both paths' counts added, each path counted from 0
+    # launches: the paths' counts added, each path counted from 0
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": (main_launches[k] + round_launches[k]
-                           + cli_launches[k]),
+                           + cli_launches[k] + mesh_launches[k]),
               "launches_main": main_launches[k],
               "launches_main_setup": setup_launches.get(k, 0),
               "launches_main_request": request_launches[k],
               "launches_round": round_launches[k],
               "launches_cli": cli_launches[k],
+              "launches_mesh": mesh_launches[k],
               "max_abs_err": res[k]["max_abs_err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
               "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
@@ -2075,7 +2348,8 @@ def main() -> int:
               "registers": usage[KERNEL_FUNCTIONS[k]]["registers"],
               "profiler_ms": res[k]["profiler_ms"],
               "other_ms": res[k].get("other_ms"),
-              "other_bound_ms": res[k].get("other_bound_ms")}
+              "other_bound_ms": res[k].get("other_bound_ms"),
+              "other_plain_ms": res[k].get("other_plain_ms")}
              for k, (src, rep) in KERNELS.items()]
     say(json.dumps({"kernels": table}))
     say(nvidia_smi())

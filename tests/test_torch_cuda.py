@@ -589,3 +589,38 @@ def test_coordinator_and_server_take_the_card_by_default(dev, tmp_path):
     fresh = trt.Coordinator(srs, cfg, [])
     assert fresh.load_state() and fresh.step == 2
     assert np.array_equal(fresh.scores, coord.scores)
+
+
+def test_one_rank_nccl_prove_matches_cpu_prove(dev):
+    """The multi-device prove as one NCCL rank on the card (the world
+    ``make_mesh`` starts when none is) equals the same prove as one gloo
+    rank on the CPU, on the session size (scale 6 / machines_scale 2), two
+    challenges at once, and the same rows, α and β; so do the NTT's both
+    axes."""
+    import torch.distributed as dist
+    from zkp_subnet_tpu_torch.models import pianist as pn
+    from zkp_subnet_tpu_torch.parallel import pianist as par
+    srs = Srs.generate(6, 2, seed=3, device="cpu")
+    g = torch.Generator().manual_seed(7)
+    rows = pn._uniform_fr(g, (2, srs.machines, srs.row_size))
+    alpha, beta = pn.random_point(g), pn._uniform_fr(g, (2,))
+    got = {}
+    for device in (None, "cpu"):
+        mesh = par.make_mesh(device=device)
+        try:
+            backend = dist.get_backend()
+            d = par.mesh_device(mesh)
+            assert (d.type, backend) == (("cpu", "gloo") if device
+                                         else ("cuda", "nccl"))
+            out = par.prove(par.shard_srs(srs, mesh), rows.to(d),
+                            alpha.to(d), beta.to(d), mesh)
+            ffts = [par.fft(rows.to(d), mesh, left=left, inverse=inverse)
+                    for left in (True, False) for inverse in (False, True)]
+            got[d.type] = [x.cpu() for x in (*out, *ffts)]
+        finally:
+            dist.destroy_process_group()
+    for card, cpu in zip(got["cuda"], got["cpu"]):
+        if card.shape[-2:] == (3, FQ.L):
+            assert tcv.g1_affine(card) == tcv.g1_affine(cpu)
+        else:
+            assert FR.decode(card) == FR.decode(cpu)

@@ -171,8 +171,8 @@ def test_prove_and_config_dataclasses():
 
 def test_port_never_imports_jax():
     """In a fresh interpreter every module of the port (the runtime's
-    coordinator, transports and server, the CLI and the client API among
-    them) imports with neither ``jax`` nor ``zkp_subnet_tpu`` loaded, and
+    coordinator, transports and server, the CLI, the client API and the
+    multi-device path among them) imports with neither ``jax`` nor ``zkp_subnet_tpu`` loaded, and
     no loaded module's file lies under ``zkp_subnet_tpu/``."""
     pkg = os.path.join(REPO, "zkp_subnet_tpu_torch")
     mods = []
@@ -189,6 +189,9 @@ def test_port_never_imports_jax():
     # the CLI and the client API
     for m in (".__main__", ".api", ".api.client"):
         assert "zkp_subnet_tpu_torch" + m in mods
+    # the multi-device path
+    for m in ("", ".pianist", ".launch", ".dryrun"):
+        assert "zkp_subnet_tpu_torch.parallel" + m in mods
     assert "zkp_subnet_tpu_torch._shared" not in mods
     ref = os.path.join(REPO, "zkp_subnet_tpu") + os.sep
     code = ("import importlib, os, sys\n"

@@ -9,7 +9,8 @@ every launch, as the JAX package holds a row's commit and opening MSMs in
 one jitted program (``zkp_subnet_tpu/runtime/worker.py:35-42``); ``msm`` is
 the K = 1 case. ``msm_auto_many`` also takes points of their own a row
 (K, N, 3, 12), as Pianist's ``commit_all``/``open_all`` give it every
-worker's bases.
+worker's bases; ``msm_auto_groups`` takes K MSMs over each of G point
+sets.
 
 The Pippenger here is 8-bit windows (32 windows × 256 buckets) in Hopper
 shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
@@ -369,3 +370,20 @@ def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     if shared:
         return msm_many(points, scalars)
     return torch.stack([msm(p, s) for p, s in zip(points, scalars)])
+
+
+def msm_auto_groups(points: torch.Tensor,
+                    scalars: torch.Tensor) -> torch.Tensor:
+    """K MSMs over each of G point sets: points (G, N, 3, 12), scalars
+    (G, K, N, 8) → (G, K, 3, 12), as the multi-device prove gives each
+    worker's bases its commitments and openings. At N ≤ NAIVE_THRESHOLD
+    one ``msm_auto_many`` over all G·K rows (one ladder launch); above, one
+    batched Pippenger a group (``msm_many``), where points of their own a
+    row would cost one Pippenger a row."""
+    g, k, n = scalars.shape[:3]
+    if n <= NAIVE_THRESHOLD:
+        rows = points[:, None].expand(g, k, n, 3, FQ.L).reshape(
+            g * k, n, 3, FQ.L)
+        return msm_auto_many(rows, scalars.reshape(g * k, n, -1)).view(
+            g, k, 3, FQ.L)
+    return torch.stack([msm_many(p, s) for p, s in zip(points, scalars)])
