@@ -17,12 +17,17 @@ Phases (each prints a line; any failure exits non-zero):
    must be equal; the three K2 kernels limb for limb; ``msm_buckets`` also
    on edge cases at the main path's 2^16 points, runs across its tiles and
    one bucket holding a whole row, against the plain version on the card;
-   the opening's K3 kernels ``fr_inv``, ``fr_powers``, ``fr_suffix_scan``
-   and ``fr_open_quotient`` at x = 0, 1, r − 1 and random, on rows of
+   the opening's K3 kernels ``fr_inv`` (also against the oracle, and on
+   r − 2 and the aggregation's differences), ``fr_powers``,
+   ``fr_suffix_scan`` and ``fr_open_quotient`` at x = 0, 1, r − 1 and
+   random, on rows of
    zeros and of a length that is no multiple of the tile, and the whole
    opening with the host forbidden to wait for the card; the K1 ladder
    ``g1_scalar_mul`` with scalars 0, 1, r − 1 and the point at infinity, at
    16 and 2^16 points, also against the loop of K1 launches it replaces;
+   the aggregation's fixed-base MSM ``g1_msm_fixed`` and its table
+   ``g1_fixed_table`` at 16 and 256 bases (one at infinity), scalars 0, 1,
+   r − 1 and random, three MSMs a call, also against the oracle;
    the challenge's row evaluation ``fr_eval_rows`` at x = 0, 1, r − 1 and
    random, on a row of zeros, one row, lengths 1, 1024, 1025 and 3000, one
    row at 16 points, and 16 x 2^16 at one point with the host forbidden to
@@ -32,7 +37,9 @@ Phases (each prints a line; any failure exits non-zero):
    launches: for a short kernel that is the host's cost a launch) and the
    least time the card could take for the same work (``bound_ms``); for
    K2, the depth of the dependency chain and ms ÷ depth, and
-   ``msm_buckets`` on scalars that are all 1 beside uniform ones;
+   ``msm_buckets`` on scalars that are all 1 beside uniform ones; the
+   aggregation's two MSMs at 16 and 256 bases by ``g1_msm_fixed`` beside
+   K2's ``msm_many`` and beside the ladder and tree they replace;
 4. ``[main]``, the worker's path: a 2^16-base SRS slice [τ^j]G1 built on the
    card, a ``Worker`` over it, and three 2^16-coefficient ``Prove`` requests
    (two with a challenge point, one commit-only), each checked by the
@@ -55,8 +62,9 @@ Phases (each prints a line; any failure exits non-zero):
    ``Worker.forward`` at one α, ``pianist.aggregate`` at a β (its launch
    count, and its warm time after the path's counts are read) and
    ``pianist.verify_aggregated`` (True, and False after tampering; the
-   aggregation launches ``fr_inv`` twice and the ladder twice, and the
-   path no K1 double); then the coordinator's own round on the same SRS
+   aggregation launches ``fr_inv`` once, ``g1_msm_fixed`` once for both
+   MSMs and never the ladder, the table once per SRS, and the path no K1
+   double); then the coordinator's own round on the same SRS
    (``Coordinator.generate_challenge`` by one ``fr_eval_rows`` and no
    ``fr_inv``, ``run_round`` through ``LocalTransport``, through
    ``HttpTransport`` to a ``WorkerServer`` on 127.0.0.1 and through
@@ -83,7 +91,9 @@ Phases (each prints a line; any failure exits non-zero):
    the mainnet deployment over the 24/8 files [cli] wrote, two rounds, each
    split into the draws, the X inverse NTT of 256 x 2^16, the local
    commit+open of 256 rows, the gather and the aggregation (rows/s, peak
-   device memory, the backend, which must be NCCL); the last round's
+   device memory, the backend, which must be NCCL; the launches: one
+   ``fr_inv`` and one ``g1_msm_fixed`` a prove, none of the ladder, the
+   table once, in ``shard_srs``); the last round's
    aggregated proof verifies (and not once tampered), eight sampled
    workers pass ``worker_verify`` and the trapdoor self-check and equal
    ``pianist.worker_commit``/``worker_open`` limb for limb, and
@@ -140,11 +150,11 @@ from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
 from zkp_subnet_tpu_torch.ops import ntt as tntt
 from zkp_subnet_tpu_torch.ops import poly as tpoly
-from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fq_add_plain,
-                                            fq_mul_plain, fq_sub_plain,
-                                            fr_add_plain, fr_inv_plain,
-                                            fr_mul_plain, fr_powers_plain,
-                                            fr_sub_plain)
+from zkp_subnet_tpu_torch.ops.field import (FQ, FR, almost_inverse,
+                                            fq_add_plain, fq_mul_plain,
+                                            fq_sub_plain, fr_add_plain,
+                                            fr_inv_plain, fr_mul_plain,
+                                            fr_powers_plain, fr_sub_plain)
 from zkp_subnet_tpu_torch.parallel import launch
 from zkp_subnet_tpu_torch.parallel import pianist as par
 from zkp_subnet_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -181,9 +191,10 @@ CLI_FULL_TIMEOUT = 600.0
 # the disk the full-size files need beyond the sidecars: setup and
 # precompute files, the state, slack
 CLI_DISK_SLACK = 1 << 30
-# kernels the [cli] and [mesh] paths do not run: the double runs inside
-# the ladder, and K4 only in this script's on-curve check
-CLI_IDLE = ("g1_double", "fq_mul", "fq_add", "fq_sub")
+# kernels the [cli] and [mesh] paths need not run: the double runs inside
+# the ladder, K4 only in this script's on-curve check, and the ladder only
+# in naive MSMs of toy rows (the aggregation's MSMs are g1_msm_fixed's)
+CLI_IDLE = ("g1_double", "fq_mul", "fq_add", "fq_sub", "g1_scalar_mul")
 # [mesh]: rounds of parallel.launch at the mainnet deployment, and the
 # workers of the last one held to the pairing, the trapdoor and the
 # single-worker path
@@ -211,15 +222,16 @@ OPS_FQ_MUL, OPS_FQ_LIN = 2 * 12 * 12, 2 * 12
 OPS_G1_ADD = 12 * OPS_FQ_MUL + 27 * OPS_FQ_LIN
 OPS_G1_DOUBLE = 8 * OPS_FQ_MUL + 13 * OPS_FQ_LIN
 G1_BYTES, FQ_BYTES, FR_BYTES = 144, 48, 32
-# Fermat's inverse: 254 squarings and 163 products, one dependent chain
-INV_CHAIN = (o.R - 2).bit_length() - 2 + bin(o.R - 2).count("1")
+# a step of fr_inv's binary inverse: a compare-and-subtract, a cofactor
+# add and the shifts of two 8-word values, four carry chains' worth
+OPS_INV_STEP = 4 * OPS_FR_LIN
 # the K3 kernels of one opening, and K3's elementwise ones
 K3_FAMILY = ("fr_mul", "fr_add", "fr_sub", "fr_inv", "fr_powers",
              "fr_suffix_scan", "fr_open_quotient", "fr_eval_rows")
 LADDER_BITS = 256
 # the kernels that time far above the rest at the path's shape: the plain
 # version runs once (no warm-up call) and the kernel a few times
-SLOW_PLAIN = ("g1_scalar_mul",)
+SLOW_PLAIN = ("g1_scalar_mul", "g1_fixed_table")
 
 _PALLAS = "zkp_subnet_tpu/ops/pallas_g1.py"
 
@@ -232,6 +244,10 @@ KERNELS = {
     # pfield over lazy8.ZFQ via dispatch_ldouble/dispatch_ladd, as
     # curve.g1_scalar_mul reaches it
     "g1_scalar_mul": (_CSRC + "g1.cu", _PALLAS + ":181"),
+    # the same, as the naive MSM of the aggregation (msm.py:msm_auto)
+    # reaches it: the table once per SRS, then the windowed MSMs
+    "g1_fixed_table": (_CSRC + "g1.cu", _PALLAS + ":181"),
+    "g1_msm_fixed": (_CSRC + "g1.cu", _PALLAS + ":181"),
     "msm_buckets": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:202"),
     "msm_reduce": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:303"),
     "msm_combine": (_CSRC + "msm.cu", "zkp_subnet_tpu/ops/msm.py:384"),
@@ -259,7 +275,9 @@ KERNELS = {
 # MUL = 0, ADD = 1, SUB = 2 in csrc/fr.cu and csrc/fq.cu)
 KERNEL_FUNCTIONS = {
     "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel",
-    "g1_scalar_mul": "g1_scalar_mul_kernel", "fr_inv": "fr_inv_kernel",
+    "g1_scalar_mul": "g1_scalar_mul_kernel",
+    "g1_fixed_table": "g1_fixed_table_kernel",
+    "g1_msm_fixed": "g1_msm_fixed_kernel", "fr_inv": "fr_inv_kernel",
     "fr_powers": "fr_powers_kernel", "fr_suffix_scan": "fr_suffix_scan_kernel",
     "fr_open_quotient": "fr_open_quotient_kernel",
     "fr_eval_rows": "fr_eval_partial_kernel",
@@ -505,6 +523,14 @@ def path_inputs(rng, dev):
     lp[3] = cv.g1_infinity((), dev)
     ls = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
     ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1], dev)
+    # the aggregation's Lagrange-Y MSMs (C_y and W_y) at the mainnet shape
+    # of [cli] and [mesh], 256 keys (Z != 1, one at infinity), and at
+    # [round]'s 16: the keys' window table and two MSMs' scalars
+    lag = random_points(rng, 256, dev)[0]
+    lag[3] = cv.g1_infinity((), dev)
+    tab = kernels.g1_fixed_table(lag)
+    fsc = FR.from_limbs16(random_scalar_limbs(rng, 512).reshape(2, 256, 16),
+                          dev)
     # the coordinator's challenge: m rows of 2^16 coefficients at one alpha
     rows = fr_from_canonical_limbs(
         random_scalar_limbs(rng, m * n).reshape(m, n, 16), dev)
@@ -518,7 +544,11 @@ def path_inputs(rng, dev):
                                  ls16=ls[:16].contiguous(),
                                  lp256=lp[:256].contiguous(),
                                  ls256=ls[:256].contiguous(),
-                                 diffs=FR.sub(x1, aggregation_dom(m, dev)))
+                                 diffs=FR.sub(x1, aggregation_dom(m, dev)),
+                                 lag=lag, tab=tab, fsc=fsc,
+                                 lag16=lag[:m].contiguous(),
+                                 tab16=tab[:m].contiguous(),
+                                 fsc16=fsc[:, :m].contiguous())
 
 
 #: the label of the path fr_eval_rows replaced in ``other_ms``
@@ -579,6 +609,48 @@ def bucket_add_count(digits: torch.Tensor) -> int:
     return int(nz.sum()) - int((nz & first).sum())
 
 
+def inverse_steps(t: torch.Tensor) -> list:
+    """Steps of fr_inv's binary inverse on each element (none for 0)."""
+    return [almost_inverse(a)[2] if a else 0 for a in FR.limbs_to_ints(t)]
+
+
+def inverse_ops(t: torch.Tensor) -> int:
+    """Integer operations of fr_inv on these elements: each nonzero one's
+    steps (this run's data) and the two closing Montgomery products."""
+    return sum(n * OPS_INV_STEP + 2 * OPS_FR_MUL for n in inverse_steps(t)
+               if n)
+
+
+def fixed_msm_ops(scalars: torch.Tensor) -> int:
+    """Integer operations of MSMs over a fixed-base window table on these
+    (K, M, 8) canonical scalars: for each nonzero byte d, bitlen(d) − 1
+    doubles and popcount(d) − 1 adds from its top bit; then one add fewer
+    than its nonzero bytes an MSM, to sum the terms."""
+    d = scalars.cpu().numpy().view(np.uint8).reshape(scalars.shape[0], -1)
+    bits = np.unpackbits(d[..., None], axis=-1)          # top bit first
+    pop = bits.sum(-1).astype(np.int64)
+    bitlen = np.where(pop > 0, 8 - np.argmax(bits, axis=-1), 0)
+    doubles = int(np.maximum(bitlen - 1, 0).sum())
+    adds = int(np.maximum(pop - 1, 0).sum()
+               + np.maximum((pop > 0).sum(1) - 1, 0).sum())
+    return OPS_G1_DOUBLE * doubles + OPS_G1_ADD * adds
+
+
+def fixed_depth(m: int) -> int:
+    """Longest chain of dependent point operations in g1_msm_fixed at m
+    bases: a term's 7 doubles and 8 adds, then the trees over the 32·m
+    terms."""
+    return (tmsm.WINDOW_BITS - 1) + tmsm.WINDOW_BITS + (
+        tmsm.NUM_WINDOWS * m - 1).bit_length()
+
+
+def aggregation_msms_before(points, scalars):
+    """The aggregation's MSMs as the port ran them before g1_msm_fixed: for
+    each, one ladder launch (a thread a point) and a g1_sum tree of
+    g1_add launches (msm.msm_naive)."""
+    return torch.stack([tmsm.msm_naive(points, s) for s in scalars])
+
+
 def path_calls(x):
     """{kernel: (kernel call, plain call, repetitions, comparison, bytes
     moved (each input read once, each output written once), integer
@@ -599,7 +671,21 @@ def path_calls(x):
                           2 * G1_BYTES * n + FR_BYTES * n,
                           scalar_mul_ops(ls)),
         "fr_inv": (lambda: kernels.fr_inv(x1), lambda: fr_inv_plain(x1), 20,
-                   fr, 2 * FR_BYTES, INV_CHAIN * OPS_FR_MUL),
+                   fr, 2 * FR_BYTES, inverse_ops(x1)),
+        # the aggregation's table (once per SRS) and its two MSMs at 256
+        # keys; the table's bound counts the doubles of the finite keys
+        "g1_fixed_table": (
+            lambda: kernels.g1_fixed_table(x.lag),
+            lambda: tmsm.fixed_table_plain(x.lag), 2, limbs,
+            G1_BYTES * x.lag.shape[0] * (1 + tmsm.NUM_WINDOWS),
+            OPS_G1_DOUBLE * tmsm.WINDOW_BITS * (tmsm.NUM_WINDOWS - 1)
+            * int((x.lag[:, 2] != 0).any(-1).sum())),
+        "g1_msm_fixed": (
+            lambda: kernels.g1_msm_fixed(x.tab, x.fsc),
+            lambda: tmsm.msm_fixed_plain(x.tab, x.fsc), 10, limbs,
+            G1_BYTES * x.tab.shape[0] * tmsm.NUM_WINDOWS
+            + 4 * x.fsc.numel() + G1_BYTES * x.fsc.shape[0],
+            fixed_msm_ops(x.fsc)),
         "fr_powers": (lambda: kernels.fr_powers(x1, n, a),
                       lambda: fr_powers_plain(x1, n, a), 50, fr,
                       FR_BYTES * (2 * n + 1),
@@ -725,6 +811,7 @@ def phase_kernels(rng, dev, int_ops_per_s):
     say("[kernels] K1 g1_scalar_mul: 16 points, scalars 0, 1, r-1 and "
         "random, the point at infinity: equal limb for limb to plain and to "
         "the K1 launch loop")
+    phase_fixed_msm_kernels(rng, dev, record)
 
     # K4: the same cases over Fq (0, 1, q−1, q−2, equal, broadcast)
     a = random_field(FQ, rng, n, dev)
@@ -847,7 +934,9 @@ def phase_kernels(rng, dev, int_ops_per_s):
              "msm_reduce": (tmsm.reduce_depth(nb), "point operations"),
              "msm_combine": (windows * (tmsm.WINDOW_BITS + 1),
                              "point operations"),
-             "fr_inv": (INV_CHAIN, "Fr products")}
+             "fr_inv": (inverse_steps(x.x1)[0], "binary-inverse steps"),
+             "g1_msm_fixed": (fixed_depth(x.tab.shape[0]),
+                              "point operations")}
     for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
         r = res[name]
         r["ms"], got = time_cuda(kern, reps)
@@ -899,6 +988,25 @@ def phase_kernels(rng, dev, int_ops_per_s):
               ("fr_inv", "16 elements", same_fr,
                lambda: kernels.fr_inv(x.diffs),
                lambda: fr_inv_plain(x.diffs)),
+              # the aggregation's two MSMs at [round]'s 16 keys; and at 256
+              # and 16 the yardsticks: K2's batched Pippenger, and the
+              # ladder and tree of the aggregation before g1_msm_fixed
+              ("g1_msm_fixed", "16 keys, 2 MSMs", limbs,
+               lambda: kernels.g1_msm_fixed(x.tab16, x.fsc16),
+               lambda: tmsm.msm_fixed_plain(x.tab16, x.fsc16)),
+              ("g1_msm_fixed", "K2 msm_many, 256 keys, 2 MSMs", same_points,
+               lambda: tmsm.msm_many(x.lag, x.fsc),
+               lambda: kernels.g1_msm_fixed(x.tab, x.fsc)),
+              ("g1_msm_fixed", "K2 msm_many, 16 keys, 2 MSMs", same_points,
+               lambda: tmsm.msm_many(x.lag16, x.fsc16),
+               lambda: kernels.g1_msm_fixed(x.tab16, x.fsc16)),
+              ("g1_msm_fixed", "ladder + g1_sum (before), 256 keys, 2 MSMs",
+               same_points, lambda: aggregation_msms_before(x.lag, x.fsc),
+               lambda: kernels.g1_msm_fixed(x.tab, x.fsc)),
+              ("g1_msm_fixed", "ladder + g1_sum (before), 16 keys, 2 MSMs",
+               same_points,
+               lambda: aggregation_msms_before(x.lag16, x.fsc16),
+               lambda: kernels.g1_msm_fixed(x.tab16, x.fsc16)),
               # one element: what each of the 418 launches of the inverse
               # cost the host before fr_inv
               ("fr_mul", "one element", same_fr,
@@ -933,12 +1041,61 @@ def phase_kernels(rng, dev, int_ops_per_s):
         lambda: cv.g1_scalar_mul_plain(x.lp256, x.ls256), 1, warm=False)[0]}
     say("[kernels] g1_scalar_mul at 256 points: plain "
         f"{ladder['other_plain_ms']['256 points']:.2f} ms")
+    fixed = res["g1_msm_fixed"]
+    b16, by16 = bound(G1_BYTES * x.m * tmsm.NUM_WINDOWS + 4 * x.fsc16.numel()
+                      + G1_BYTES * 2, fixed_msm_ops(x.fsc16), int_ops_per_s)
+    fixed["other_bound_ms"] = {"16 keys, 2 MSMs": b16}
+    for m, label in ((x.tab.shape[0], "256 keys, 2 MSMs"),
+                     (x.m, "16 keys, 2 MSMs")):
+        ms = fixed["ms"] if m == x.tab.shape[0] else fixed["other_ms"][label]
+        k2 = fixed["other_ms"][f"K2 msm_many, {label}"]
+        old = fixed["other_ms"][f"ladder + g1_sum (before), {label}"]
+        say(f"[kernels] the aggregation's MSMs at {label}: g1_msm_fixed "
+            f"{ms:.4f} ms ({fixed_depth(m)} dependent point operations, "
+            f"{ms / fixed_depth(m) * 1e3:.2f} us each), K2 msm_many "
+            f"{k2:.4f} ms, the ladder + g1_sum before {old:.4f} ms"
+            + (f"; bound {b16:.6f} ms ({by16})" if m == x.m else "")
+            + ("; faster than K2" if ms < k2 else
+               "; SLOWER than K2: the aggregation should take K2 here"))
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
     say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
         f"shape is {x.m}): "
         f"{time_cuda(lambda: kernels.fr_sub(x.a, x.b), 50)[0]:.4f} ms")
     return res
+
+
+def phase_fixed_msm_kernels(rng, dev, record):
+    """K1 ``g1_fixed_table`` and ``g1_msm_fixed`` (the aggregation's MSMs)
+    against their plain versions, limb for limb (on CPU copies at 16 keys,
+    on the card at 256), and the MSMs against the oracle: keys of known
+    discrete log with Z != 1, one at infinity; three MSMs a call, the first
+    with scalars 0, 1, r - 1 and r - 2 then random, the second random, the
+    third all r - 1."""
+    g = o.G1.from_affine(o.G1_GEN)
+    for m in (16, 256):
+        pts, logs = random_points(rng, m, dev)
+        pts[3] = cv.g1_infinity((), dev)
+        logs[3] = 0
+        ks = [[0, 1, o.R - 1, o.R - 2]
+              + limbs_to_ints(random_scalar_limbs(rng, m - 4)),
+              limbs_to_ints(random_scalar_limbs(rng, m)), [o.R - 1] * m]
+        sc = torch.stack([cv.fr_to_scalar_limbs(k, dev) for k in ks])
+        table = kernels.g1_fixed_table(pts)
+        got = kernels.g1_msm_fixed(table, sc)
+        on = (lambda t: t) if m > 16 else (lambda t: t.cpu())
+        record("g1_fixed_table", same_limbs(
+            table, tmsm.fixed_table_plain(on(pts))))
+        record("g1_msm_fixed", same_limbs(
+            got, tmsm.msm_fixed_plain(on(table), on(sc))))
+        for c, k in enumerate(ks):
+            total = sum(a * b for a, b in zip(k, logs)) % o.R
+            check(cv.g1_affine(got[c])[0]
+                  == o.G1.to_affine(o.G1.mul(g, total)),
+                  f"g1_msm_fixed at {m} keys: MSM {c} != oracle")
+    say("[kernels] K1 g1_fixed_table and g1_msm_fixed at 16 and 256 keys "
+        "(one at infinity), 3 MSMs a call (scalars 0, 1, r-1, r-2, random; "
+        "all r-1): equal limb for limb to plain; the MSMs equal the oracle")
 
 
 def phase_opening_kernels(rng, dev, record):
@@ -955,9 +1112,16 @@ def phase_opening_kernels(rng, dev, record):
     (K3 ``fr_eval_rows``) against their y."""
     vals = random_fr(rng, 64, dev)                 # 0, 1, r−1, r−2, random
     diffs = FR.sub(vals[10], aggregation_dom(1 << ROUND_MACHINES_SCALE, dev))
-    for t in (vals, diffs, vals[:1], vals[1:2]):
+    # the limbs 1 (the Montgomery form of 1/R) take the inverse's doubling
+    # before its closing products
+    one_limb = FR.ints_to_limbs([1], dev)
+    for t in (vals, diffs, vals[:1], vals[1:2], one_limb):
         record("fr_inv", same_fr(kernels.fr_inv(t.contiguous()),
                                  fr_inv_plain(t.cpu())))
+    both = torch.cat([vals, diffs, one_limb])
+    check(FR.decode(kernels.fr_inv(both))
+          == [pow(v, o.R - 2, o.R) for v in FR.decode(both)],
+          "fr_inv != the oracle's x^(r-2)")
     xs = [vals[i].contiguous() for i in (0, 1, 2, 9)]
     big = 1 << LOG_N
     for n_pow in (1, 1000, big):
@@ -1005,7 +1169,8 @@ def phase_opening_kernels(rng, dev, record):
     check(FR.decode(tpoly.poly_open_scalars(c, xs[3])[0])
           == [o.poly_eval(FR.decode(c), x_int)], "opening: y != f(x)")
     say("[kernels] K3 fr_inv (64 values incl. 0, 1, r-1, r-2; the 16 "
-        "aggregation differences) and fr_powers (x = 0, 1, r-1, random; "
+        "aggregation differences; the limbs 1), also equal to the oracle, "
+        "and fr_powers (x = 0, 1, r-1, random; "
         "n = 1, 1000, 2^16, with and without c): equal to plain; y of the "
         "3000-coefficient row equals the oracle's f(x)")
 
@@ -1120,7 +1285,8 @@ def phase_device_times(res, dev):
     calls["fr_butterfly"] = lambda: kernels.fr_butterfly(v, tw, LOG_N // 2)
     graph_launches = {"fq_mul": 20, "fq_add": 20, "fq_sub": 20,
                       "msm_buckets": 5, "msm_reduce": 5, "msm_combine": 5,
-                      "g1_scalar_mul": 2, "fr_inv": 20}
+                      "g1_scalar_mul": 2, "fr_inv": 20,
+                      "g1_fixed_table": 2, "g1_msm_fixed": 20}
     for name, r in res.items():
         r["device_ms"] = time_graph(calls[name],
                                     graph_launches.get(name, 100))
@@ -1134,9 +1300,24 @@ def phase_device_times(res, dev):
               ("fr_mul", "one element, device"): (
                   lambda: kernels.fr_mul(x.x1, x.xi1), 100),
               ("fr_eval_rows", OPENINGS + ", device"): (
-                  lambda: openings_y(x.rows, x.alpha), 5)}
+                  lambda: openings_y(x.rows, x.alpha), 5),
+              ("g1_msm_fixed", "16 keys, 2 MSMs, device"): (
+                  lambda: kernels.g1_msm_fixed(x.tab16, x.fsc16), 20),
+              ("g1_msm_fixed", "ladder + g1_sum (before), 256 keys, 2 "
+               "MSMs, device"): (
+                  lambda: aggregation_msms_before(x.lag, x.fsc), 2),
+              ("g1_msm_fixed", "K2 msm_many, 256 keys, 2 MSMs, device"): (
+                  lambda: tmsm.msm_many(x.lag, x.fsc), 5),
+              ("g1_msm_fixed", "K2 msm_many, 16 keys, 2 MSMs, device"): (
+                  lambda: tmsm.msm_many(x.lag16, x.fsc16), 5)}
     for (name, label), (fn, launches) in others.items():
-        ms = time_graph(fn, launches)
+        try:
+            ms = time_graph(fn, launches)
+        except RuntimeError as exc:      # a yardstick that does not capture
+            check(label.startswith("K2 "), f"{name}, {label}: {exc}")
+            say(f"[device] {name}, {label}: not measured (no CUDA graph: "
+                f"{str(exc).splitlines()[0]})")
+            continue
         res[name].setdefault("other_ms", {})[label] = ms
         say(f"[device] {name}, {label.split(',')[0]}: {ms:.4f} ms a call "
             "by graph replay")
@@ -1539,11 +1720,13 @@ def phase_round(rng, dev):
     t_agg = time.perf_counter() - t0
     agg_launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                     if v - before[k]}
-    check(agg_launches.get("fr_inv") == 2
-          and agg_launches.get("g1_scalar_mul") == 2
+    check(agg_launches.get("fr_inv") == 1
+          and agg_launches.get("g1_msm_fixed") == 1
+          and agg_launches.get("g1_fixed_table") == 1
+          and "g1_scalar_mul" not in agg_launches
           and "g1_double" not in agg_launches,
-          f"aggregate: not 2 fr_inv and 2 ladders without a K1 double "
-          f"({agg_launches})")
+          f"aggregate: not one fr_inv, one g1_msm_fixed and the keys' table "
+          f"once, with no ladder and no K1 double ({agg_launches})")
     lag_b = _lagrange_coeffs_at(beta, m)
     check(FR.decode(agg.value)[0]
           == sum(a * b for a, b in zip(lag_b, ys)) % o.R,
@@ -1580,6 +1763,7 @@ def phase_round(rng, dev):
 
     # after the counts are read: the aggregation warm, on the host's clock
     times = []
+    before = dict(kernels.LAUNCHES)
     for _ in range(AGGREGATE_WARM_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1589,9 +1773,16 @@ def phase_round(rng, dev):
         check(torch.equal(again.proof_y, agg.proof_y)
               and torch.equal(again.value, agg.value),
               "a repeated aggregate gave another proof")
+    warm = {k: (v - before[k]) // AGGREGATE_WARM_RUNS
+            for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    check(warm.get("g1_msm_fixed") == 1 and "g1_fixed_table" not in warm
+          and warm.get("fr_inv") == 1,
+          f"a warm aggregate: not one g1_msm_fixed and one fr_inv without "
+          f"the table ({warm})")
     say(f"[round] pianist.aggregate warm: median "
         f"{statistics.median(times):.2f} ms over {len(times)} "
-        f"({', '.join(f'{t:.2f}' for t in times)} ms)")
+        f"({', '.join(f'{t:.2f}' for t in times)} ms); launches a call "
+        f"{warm} (the keys' table kept by the SRS)")
     return launches
 
 
@@ -1920,6 +2111,14 @@ def cli_full_round(tmp, dev):
         f"{sec['aggregation'] * 1e3:.1f} ms + verify "
         f"{sec['verify'] * 1e3:.1f} ms; peak device memory {peak:.1f} MiB")
     say(f"[cli] aggregate launches {used}")
+    # a row proved (the 256 and the warm-up's) is one MSM launch of each K2
+    # kernel and one inverse of its own alpha
+    check(used.get("fr_inv") == used.get("msm_buckets", 0) + 1
+          and used.get("g1_msm_fixed") == 1
+          and used.get("g1_fixed_table") == 1
+          and "g1_scalar_mul" not in used,
+          f"aggregate: not one fr_inv a row and one for the aggregation, "
+          f"one g1_msm_fixed and one table, no ladder ({used})")
 
     # one byte of the sidecar flipped: check must fail on its digest
     with open(files[2], "r+b") as f:
@@ -2101,6 +2300,7 @@ def mesh_deployment(dev, tmp):
         return out
     par.prove_gathered = keep
     torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
     try:
         with LogLines("zkp_subnet_tpu_torch.launch") as log, Timed(
                 shard=(par, "shard_srs"), draw=(pianist, "_uniform_fr"),
@@ -2117,7 +2317,17 @@ def mesh_deployment(dev, tmp):
     finally:
         par.prove_gathered = prove_gathered
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
     check(rc == 0, f"launch.main: rc {rc}")
+    # a prove inverts alpha once for its 256 rows and aggregates with one
+    # inverse and one g1_msm_fixed; shard_srs builds the keys' table once
+    check(used.get("fr_inv") == 2 * MESH_ROUNDS
+          and used.get("g1_msm_fixed") == MESH_ROUNDS
+          and used.get("g1_fixed_table") == 1
+          and "g1_scalar_mul" not in used,
+          f"launch.main: not 2 fr_inv and one g1_msm_fixed a round, the "
+          f"table once and no ladder ({used})")
     check(f"loaded SRS from {setup}" in log.lines,
           f"launch.main did not load [cli]'s files: {log.lines}")
     mesh_line = [x for x in log.lines if x.startswith("mesh ")]
@@ -2150,7 +2360,8 @@ def mesh_deployment(dev, tmp):
             f"{r['aggregation'] * 1e3:.1f} ms; prove {r['prove']:.3f} s = "
             f"{m / r['prove']:.1f} rows/s ({m / (r['fft'] + r['prove']):.1f}"
             " rows/s with the NTT)")
-    say(f"[mesh] peak device memory {peak:.1f} MiB")
+    say(f"[mesh] peak device memory {peak:.1f} MiB; launch.main's launches "
+        f"{used}")
 
     (sharded, coeff, alpha, beta, _), (out, (_, evals, _)) = kept
     srs = Srs.load(setup, pre, lazy=True)
@@ -2280,7 +2491,7 @@ def phase_mesh(dev, tmp):
     for k, v in launches.items():
         if k not in CLI_IDLE:
             check(v > 0, f"the [mesh] path launched {k} {v} times")
-    say(f"[mesh] launches {launches}")
+    say(f"[mesh] launches {launches}; fr_inv {launches['fr_inv']} in all")
     say(f"[mesh] wall {time.perf_counter() - t0:.1f} s")
     return launches
 

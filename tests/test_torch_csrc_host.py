@@ -1,7 +1,7 @@
 """The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
 fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
 integers and the port's plain point formulas: the field operations, the
-inversion chain (fr::inv), a run of powers (fr::pow_run), the point add
+binary inverse (fr::inv), a run of powers (fr::pow_run), the point add
 and double, and the double-and-add ladder (g1_scalar_mul).
 
 The headers' carry chains are PTX (csrc/ptx.cuh), which only the card runs.
@@ -218,11 +218,17 @@ def test_point_formulas_match_plain(host_binary):
 
 
 def test_inverse_chain_matches_python_integers(host_binary):
-    """fr::inv (the chain of K3 fr_inv) on 0, 1, r − 1 and random values
-    against x^(r−2) mod r, limb for limb in Montgomery form."""
+    """fr::inv (K3 fr_inv: Kaliski's binary inverse, then the products by
+    2^j and 2^514) on 0, 1, r − 1, r − 2, small values, powers of two (in
+    Montgomery form: inputs whose runs of trailing zeros cross whole words,
+    and the one that makes j = 255), their Montgomery forms, and random
+    values, against x^(r−2) mod r, limb for limb in Montgomery form."""
     rng = np.random.default_rng(13)
-    vals = [0, 1, 2, o.R - 1] + [int.from_bytes(rng.bytes(40), "little")
-                                 % o.R for _ in range(12)]
+    r_inv = pow(1 << 256, -1, o.R)
+    edges = [0, 1, 2, 3, o.R - 1, o.R - 2, (o.R - 1) // 2] + [
+        1 << e for e in (31, 32, 64, 200, 254)]
+    vals = edges + [e * r_inv % o.R for e in edges] + [
+        int.from_bytes(rng.bytes(40), "little") % o.R for _ in range(200)]
     mont = [v * (1 << 256) % o.R for v in vals]
     got = _run(host_binary, [(8, (_words(m, 8),)) for m in mont])
     assert [_int(g) for g in got] == [pow(v, o.R - 2, o.R) * (1 << 256)

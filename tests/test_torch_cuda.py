@@ -6,8 +6,8 @@ The module imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: none (integer arithmetic; points compared as affine points,
-``msm_buckets``, ``msm_reduce``, ``msm_combine`` and ``g1_scalar_mul``
-limb for limb).
+``msm_buckets``, ``msm_reduce``, ``msm_combine``, ``g1_scalar_mul``,
+``g1_fixed_table`` and ``g1_msm_fixed`` limb for limb).
 """
 
 import numpy as np
@@ -359,13 +359,16 @@ def _edge_fr(seed, n):
 
 
 def test_fr_inv_kernel_matches_plain(dev):
-    """0, 1, r − 1, the 16 differences β − ω^i of the aggregation, and
-    random values, limb for limb against the plain chain and Fermat."""
+    """0, 1, r − 1, r − 2, the limbs 1 (the input whose closing product
+    takes a doubling first), the 16 differences β − ω^i of the
+    aggregation, and random values, limb for limb against the plain
+    version (the same binary inverse on Python integers) and Fermat."""
     from zkp_subnet_tpu_torch.models import pianist
-    a = _edge_fr(21, 200)
+    a = torch.cat([_edge_fr(21, 200), FR.encode([o.R - 2]),
+                   FR.ints_to_limbs([1])])
     dom, _ = pianist.aggregation_constants(16)
     diffs = FR.sub(a[100], dom)
-    for x in (a, diffs, a[1:2], a[:1]):
+    for x in (a, diffs, a[1:2], a[:1], a[-1:]):
         got = kernels.fr_inv(x.to(dev)).cpu()
         assert torch.equal(got, fr_inv_plain(x))
     assert FR.decode(kernels.fr_inv(a.to(dev))) == [
@@ -461,6 +464,33 @@ def test_g1_scalar_mul_kernel_matches_plain(dev, n):
     assert tcv.g1_affine(got[:8]) == want
 
 
+@pytest.mark.parametrize("m", [16, 256])
+def test_g1_msm_fixed_kernel_matches_plain(dev, m):
+    """The aggregation's MSMs: K1 g1_fixed_table and g1_msm_fixed (3 MSMs
+    in one call) limb for limb against their plain versions on the card,
+    and against the oracle: a base at infinity, Z ≠ 1, scalars 0, 1,
+    r − 1, r − 2 and random; one launch of each (the MSM's two kernels
+    counted as one call)."""
+    pts, dlogs, ks = _instance(m, 31)
+    pts = tcv.g1_double_plain(pts).to(dev)              # Z ≠ 1
+    pts[3] = tcv.g1_infinity((), dev)
+    dlogs = [2 * d % o.R for d in dlogs]
+    dlogs[3] = 0
+    rows = [[0, 1, o.R - 1, o.R - 2] + ks[4:], ks[::-1], [o.R - 1] * m]
+    sc = torch.stack([tcv.fr_to_scalar_limbs(k, dev) for k in rows])
+    before = dict(kernels.LAUNCHES)
+    table = tmsm.fixed_table(pts)
+    got = tmsm.msm_fixed(table, sc)
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+    assert used == {"g1_fixed_table": 1, "g1_msm_fixed": 1}
+    assert torch.equal(table, tmsm.fixed_table_plain(pts))
+    assert torch.equal(got, tmsm.msm_fixed_plain(table, sc))
+    for c, k in enumerate(rows):
+        assert tcv.g1_affine(got[c]) == [o.G1.to_affine(o.G1.mul(
+            G, sum(a * b for a, b in zip(k, dlogs)) % o.R))], c
+
+
 def test_new_kernels_refuse_what_they_do_not_take(dev):
     """Misaligned (16-byte words), non-contiguous and wrongly typed tensors
     are refused by the opening's kernels; the ladder reads 4-byte words, so
@@ -504,6 +534,15 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
     pskew.copy_(pts)
     assert torch.equal(kernels.g1_scalar_mul(pskew, sc),
                        kernels.g1_scalar_mul(pts, sc))
+    table = kernels.g1_fixed_table(pts)
+    with pytest.raises(ValueError):
+        kernels.g1_msm_fixed(table, sc[None, :4])          # 4 scalars, 8 keys
+    with pytest.raises(ValueError):
+        kernels.g1_msm_fixed(table[:, :8], sc[None])       # 8 windows
+    with pytest.raises(ValueError):
+        kernels.g1_msm_fixed(table, sc[None].to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.g1_fixed_table(pts[None])
 
 
 @pytest.mark.parametrize("rows, n, shared", [

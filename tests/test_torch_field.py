@@ -106,13 +106,33 @@ def test_plain_ops_broadcast_a_single_operand(name):
 
 
 def test_fr_inv_plain_matches_jax_and_oracle():
-    """The plain version of K3 fr_inv (the kernel's left-to-right chain)
+    """The plain version of K3 fr_inv (the kernel's binary inverse)
     against the JAX package's inverse, limb for limb, 0 ↦ 0 included."""
     xs = _values(tf.FR.p, 6, n=6)                  # JFR.inv's shape above
     ja = JFR.encode(xs)
     got = tf.fr_inv_plain(tf.FR.from_limbs16(np.asarray(ja)))
     assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(JFR.inv(ja)))
     assert tf.FR.decode(got) == [pow(x, o.R - 2, o.R) for x in xs]
+
+
+def test_fr_inv_plain_edges_and_itsalmost_inverse():
+    """fr_inv_plain on 0, 1, r − 1, r − 2, powers of two, their Montgomery
+    forms (Montgomery 1 is the input that makes j = 255) and random values
+    against x^(r−2), in a batch of any shape; and Kaliski's almost inverse
+    under it: x = a^(−1)·2^k with 255 ≤ k ≤ 510, the bound the kernel's
+    two closing products rely on."""
+    r_inv = pow(1 << 256, -1, o.R)
+    edges = [0, 1, 2, o.R - 1, o.R - 2, 1 << 32, 1 << 254]
+    xs = edges + [e * r_inv % o.R for e in edges] + _values(o.R, 9, n=11)
+    a = tf.FR.encode(xs).view(5, 5, 8)
+    got = tf.fr_inv_plain(a)
+    assert got.shape == a.shape
+    assert tf.FR.decode(got) == [pow(x, o.R - 2, o.R) for x in xs]
+    for x in tf.FR.limbs_to_ints(a):
+        if x:
+            y, k, steps = tf.almost_inverse(x)
+            assert 255 <= k <= 510 and y == pow(x, -1, o.R) * 2**k % o.R
+            assert 1 <= steps <= k
 
 
 def test_fr_powers_plain_matches_jax_and_oracle():
@@ -189,6 +209,10 @@ def _cuda_scalar(header: str, name: str):
                          _source(header)).group(1), 16)
 
 
+def _cuda_scalar_int(header: str, name: str) -> int:
+    return int(re.search(rf"{name} = (\d+);", _source(header)).group(1))
+
+
 def test_kernel_constants_match_the_fields():
     """The constants written into csrc/fq.cuh and csrc/fr.cuh."""
     R = 1 << 384
@@ -197,6 +221,10 @@ def test_kernel_constants_match_the_fields():
     assert _cuda_scalar("fq.cuh", "INV") == (-pow(o.Q, -1, 1 << 32)) % (1 << 32)
     assert _cuda_array("fr.cuh", "P") == o.R
     assert _cuda_scalar("fr.cuh", "INV") == (-pow(o.R, -1, 1 << 32)) % (1 << 32)
+    # fr::inv's last product, and the top j with 2^j < r
+    assert _cuda_array("fr.cuh", "INV_FIX") == pow(2, 514, o.R)
+    top = _cuda_scalar_int("fr.cuh", "INV_TOP_BIT")
+    assert 1 << top < o.R < 1 << (top + 1)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -220,7 +248,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                  lambda: kernels.fr_open_quotient(a, a[:1], a[0], a[0], a),
                  lambda: kernels.fr_eval_rows(a[None], a[:1]),
                  lambda: kernels.g1_scalar_mul(
-                     torch.zeros((2, 3, 12), dtype=torch.int32), a)):
+                     torch.zeros((2, 3, 12), dtype=torch.int32), a),
+                 lambda: kernels.g1_fixed_table(
+                     torch.zeros((2, 3, 12), dtype=torch.int32)),
+                 lambda: kernels.g1_msm_fixed(
+                     torch.zeros((2, 32, 3, 12), dtype=torch.int32),
+                     a[None])):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert (tf.FR._mul_kernel, tf.FR._add_kernel, tf.FR._sub_kernel,
@@ -230,7 +263,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (tf.FQ._mul_kernel, tf.FQ._add_kernel, tf.FQ._sub_kernel) == \
         (kernels.fq_mul, kernels.fq_add, kernels.fq_sub)
     assert sorted(kernels.LAUNCHES) == sorted(
-        ["g1_add", "g1_double", "g1_scalar_mul", "msm_buckets",
+        ["g1_add", "g1_double", "g1_scalar_mul", "g1_fixed_table",
+         "g1_msm_fixed", "msm_buckets",
          "msm_reduce", "msm_combine", "fr_mul", "fr_add", "fr_sub",
          "fr_inv", "fr_powers", "fr_suffix_scan", "fr_open_quotient",
          "fr_eval_rows", "fq_mul", "fq_add", "fq_sub", "fr_butterfly"])

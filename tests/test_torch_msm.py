@@ -422,3 +422,48 @@ def test_bucket_depth_bounded_whatever_the_digits():
     assert tmsm.bucket_depth(8192) == 40
     assert tmsm.bucket_depth(29, 8) == 7 + 2 + 1
     assert tmsm.bucket_depth(300) == 1 + 8 + 1
+
+
+# -- msm_fixed: MSMs over fixed bases through their window table -------------
+
+@pytest.fixture(scope="module")
+def fixed_16():
+    """16 bases [a_i]G in projective form with Z ≠ 1 (one of them infinity)
+    and their window table."""
+    pts, dlogs, _ = _instance(16, 31)
+    pts = tcv.g1_double(pts)
+    pts[5] = tcv.g1_infinity(())
+    dlogs = [2 * d % o.R for d in dlogs]
+    dlogs[5] = 0
+    return pts, dlogs, tmsm.fixed_table(pts)
+
+
+def test_fixed_table_plain_holds_the_windows(fixed_16):
+    """fixed_table: table[i, w] = [2^(8w)]P_i, against the oracle."""
+    pts, dlogs, table = fixed_16
+    assert table.shape == (16, 32, 3, 12)
+    for i, w in ((0, 0), (1, 1), (2, 31), (5, 7), (15, 16)):
+        assert tcv.g1_affine(table[i, w]) == [o.G1.to_affine(o.G1.mul(
+            G, dlogs[i] * pow(2, 8 * w, o.R) % o.R))], (i, w)
+
+
+@pytest.mark.parametrize("m, threads", [(4, 128), (16, 128), (16, 4)])
+def test_msm_fixed_plain_matches_naive_and_oracle(fixed_16, m, threads):
+    """msm_fixed's plain version (the kernel's windowed terms and sums) for
+    K = 3 MSMs at once against the oracle, and the first against msm_naive
+    (the ladder and a tree): scalars 0, 1, r − 1, r − 2 and random, a base
+    at infinity, at M = 4 and 16; with 4 terms a block, the second pass
+    walks 32 block sums a lane."""
+    pts, dlogs, table = fixed_16
+    rng = np.random.default_rng(37 + m)
+    ks = [[0, 1, o.R - 1, o.R - 2][:m] + _ints(m - 4, rng)
+          for _ in range(3)]
+    ks[2] = [o.R - 1] * m
+    sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in ks])
+    got = tmsm.msm_fixed_plain(table[:m], sc, threads)
+    for c in range(3):
+        assert tcv.g1_affine(got[c]) == [_want(dlogs[:m], ks[c])], c
+    assert tcv.g1_affine(tmsm.msm_naive(pts[:m], sc[0])) == \
+        tcv.g1_affine(got[0])
+    if threads == tmsm.FIXED_THREADS:
+        assert torch.equal(tmsm.msm_fixed(table[:m], sc), got)

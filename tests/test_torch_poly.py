@@ -217,3 +217,20 @@ def test_eval_many_quotient_add_scale_match_jax():
         assert np.array_equal(FR.to_limbs16(got),
                               np.asarray(scale(jc, jxs[i]))), point
         assert FR.decode(got) == [a * point % o.R for a in row]
+
+
+@pytest.mark.parametrize("x_kind", ["random", "zero"])
+def test_open_with_a_precomputed_inverse_is_the_same(x_kind):
+    """poly_open_scalars and open_pieces_plain handed 1/x (as the callers
+    that open many rows at one x do) give the opening without it, limb for
+    limb, at a random x and at x = 0 (1/0 = 0)."""
+    rng = np.random.default_rng(41)
+    c = FR.encode([int(v) for v in rng.integers(0, 1 << 62, 20)])
+    x = FR.encode([0 if x_kind == "zero" else
+                   int.from_bytes(rng.bytes(40), "little") % o.R])[0]
+    xi = FR.inv(x)
+    for got, want in ((tpoly.poly_open_scalars(c, x, xi),
+                       tpoly.poly_open_scalars(c, x)),
+                      (tpoly.open_pieces_plain(c, x, 8, xi),
+                       tpoly.open_pieces_plain(c, x, 8))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

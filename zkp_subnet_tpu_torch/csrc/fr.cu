@@ -20,8 +20,8 @@
 // Bound on the H100. The elementwise kernels: a multiply reads 64 bytes and
 // writes 32 for 128 wide multiply-adds, so at 2^16 elements bytes bound
 // them (~2 us); one element per thread, moved as two 16-byte words each
-// way. The opening's kernels: fr_inv is one dependent chain of 417
-// products a thread (latency; no bytes to speak of); fr_powers (the
+// way. The opening's kernels: fr_inv is one thread's binary extended
+// Euclid (latency; no bytes to speak of, see below); fr_powers (the
 // function needs two products an element; the kernel does about three at
 // 2^16, a walk of the table shared by a thread's four) and the two scan
 // passes (an add an element, a product or two in the second) are bound by
@@ -59,8 +59,16 @@ constexpr int THREADS = 256;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// out_i = a_i^(r-2) = 1/a_i (0 for 0): one thread an element, the whole
-// chain (fr::inv) in registers.
+// out_i = 1/a_i (0 for 0), Montgomery in and out: one thread an element,
+// in registers. Replaces pallas_g1.py:pfield over lane8.BFR as reached from
+// field.inv (zkp_subnet_tpu/ops/field.py:343: Fermat's a^(r-2) by
+// pow_static, 418 products). Bound: latency, one thread's chain of
+// dependent steps, whatever the element count (1 for an opening's point,
+// M for the aggregation's differences). Fermat's chain here was 417
+// dependent Montgomery products (0.204 ms on an H100); fr::inv is Kaliski's
+// binary inverse instead, ~180 steps of 8-word carry chains and shifts and
+// two products at the end (0.024 ms). It is VARIABLE TIME: its inputs are
+// public (the challenge point, beta - w^i); never hand it a secret.
 constexpr int INV_THREADS = 64;
 
 __global__ void __launch_bounds__(INV_THREADS)

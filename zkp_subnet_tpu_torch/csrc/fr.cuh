@@ -19,11 +19,12 @@ static __constant__ uint32_t ONE[L] = {
     0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
     0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
 
-// r - 2, the exponent of Fermat's inverse: 255 bits, 164 of them set.
-static __constant__ uint32_t INV_EXPONENT[L] = {
-    0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u,
-    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
-constexpr int INV_EXPONENT_BITS = 255;
+// 2^514 mod r: the last product of inv (see there).
+static __constant__ uint32_t INV_FIX[L] = {
+    0xcfca71b4u, 0x2667a643u, 0x1e49708fu, 0xadb3b72eu,
+    0xc950e63cu, 0x174c5259u, 0x7d67fc44u, 0x1d236766u};
+// The largest j with 2^j < r.
+constexpr int INV_TOP_BIT = 254;
 
 __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b) {
@@ -52,20 +53,158 @@ __device__ __forceinline__ bool is_zero(const uint32_t* a) {
   return any == 0;
 }
 
-// r = a^(r-2) = 1/a (0 for a = 0): left-to-right square-and-multiply over
-// the exponent's bits below the top one, 254 squarings and 163 products,
-// all in registers. The bits are the same for every thread, so a warp
-// never diverges. r may alias a.
-__device__ __forceinline__ void inv(uint32_t* r, const uint32_t* a) {
-  uint32_t base[L], acc[L];
-  copy(base, a);
-  copy(acc, a);
-#pragma unroll 1
-  for (int bit = INV_EXPONENT_BITS - 2; bit >= 0; bit--) {
-    mul(acc, acc, acc);
-    if ((INV_EXPONENT[bit >> 5] >> (bit & 31)) & 1) mul(acc, acc, base);
+// Trailing zero bits of a word that is not 0.
+__device__ __forceinline__ int ctz32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+// The low word of (hi:lo) >> t and the high word of (hi:lo) << t, for
+// 0 <= t < 32: one funnel shift each on the card.
+__device__ __forceinline__ uint32_t funnel_right(uint32_t lo, uint32_t hi,
+                                                 int t) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, t);
+#else
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> t);
+#endif
+}
+
+__device__ __forceinline__ uint32_t funnel_left(uint32_t lo, uint32_t hi,
+                                                int t) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_l(lo, hi, t);
+#else
+  return (uint32_t)(((((uint64_t)hi << 32) | lo) << t) >> 32);
+#endif
+}
+
+// x >>= z and y <<= z for the z trailing zero bits of x (x != 0, and y
+// small enough that nothing leaves its top); returns z. Whole words first,
+// then the rest; every index is static, so x and y stay in registers.
+__device__ __forceinline__ int shift_out_twos(uint32_t* x, uint32_t* y) {
+  int z = 0;
+  while (x[0] == 0) {
+#pragma unroll
+    for (int j = 0; j < L - 1; j++) x[j] = x[j + 1];
+    x[L - 1] = 0;
+#pragma unroll
+    for (int j = L - 1; j > 0; j--) y[j] = y[j - 1];
+    y[0] = 0;
+    z += 32;
   }
-  copy(r, acc);
+  const int t = ctz32(x[0]);
+#pragma unroll
+  for (int j = 0; j < L - 1; j++) x[j] = funnel_right(x[j], x[j + 1], t);
+  x[L - 1] >>= t;
+#pragma unroll
+  for (int j = L - 1; j > 0; j--) y[j] = funnel_left(y[j - 1], y[j], t);
+  y[0] <<= t;
+  return z + t;
+}
+
+// r = a + b as 256-bit integers (the caller knows there is no carry out).
+__device__ __forceinline__ void add_wide(uint32_t* r, const uint32_t* a,
+                                         const uint32_t* b) {
+  r[0] = ptx::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < L - 1; j++) r[j] = ptx::addc_cc(a[j], b[j]);
+  r[L - 1] = ptx::addc(a[L - 1], b[L - 1]);
+}
+
+// r = a - b mod 2^256; returns all ones where a < b, else 0.
+__device__ __forceinline__ uint32_t sub_wide(uint32_t* r, const uint32_t* a,
+                                             const uint32_t* b) {
+  r[0] = ptx::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < L; j++) r[j] = ptx::subc_cc(a[j], b[j]);
+  return ptx::subc(0, 0);
+}
+
+// out = 1/a in Montgomery form (a = xR gives x^(-1)R), 0 for a = 0.
+// VARIABLE TIME: the steps taken depend on the value of a. Hand it public
+// values only (the port's callers: an opening's point and the aggregation's
+// differences beta - w^i); never a secret such as the SRS's trapdoor.
+//
+// Kaliski's almost Montgomery inverse (IEEE Trans. Computers 44(8), 1995)
+// as a binary extended Euclid on the limbs: from u = r, v = a, s = 1, z = 0
+// it keeps r = u·s + v·z with u and v odd, and each step subtracts the
+// smaller of u, v from the larger, adds the two cofactors, and shifts the
+// trailing zeros of the difference out of it and into the other cofactor,
+// k counting the bits shifted. It ends at u = v = 1 with
+// x = a^(-1)·2^k mod r, 255 <= k <= 510 (each bit comes off u or v).
+// ~180 steps of a few carry chains and shifts each, in place of
+// Fermat's 417 dependent products. Then a^(-1)R = x·2^(512-k), for a = xR
+// in Montgomery form (the inverse of aR is wanted times R²): two Montgomery
+// products, by 2^j with j = 510 - k (after one doubling of x where
+// j = 255, so that 2^j < r) and by 2^514 mod r: x·2^j·2^514·2^(-512).
+// out may alias a.
+__device__ __forceinline__ void inv(uint32_t* out, const uint32_t* a) {
+  if (is_zero(a)) {
+#pragma unroll
+    for (int j = 0; j < L; j++) out[j] = 0;
+    return;
+  }
+  uint32_t u[L], v[L], s[L], z[L], d[L], e[L];
+#pragma unroll
+  for (int j = 0; j < L; j++) {
+    u[j] = P[j];
+    v[j] = a[j];
+    s[j] = j == 0;
+    z[j] = 0;
+  }
+  int k = shift_out_twos(v, z);
+  // A step without branches but the last, so that the lanes of a warp
+  // (the aggregation's M differences) stay together. Where v > u the pairs
+  // (u, s) and (v, z) trade places first, by selects, so that the step
+  // is always Kaliski's u > v one; r = u·s + v·z holds either way, and
+  // `swapped` records the parity of the trades. On an H100 (PERF.md,
+  // zkp_subnet_tpu_torch/kernel_ab.py over copies) one element took
+  // 0.0237 ms this way, 0.0301 with a branch a step (0.0879 for 16 lanes
+  // that diverge) and 0.0345 with selects of all four values a step.
+  uint32_t swapped = 0;
+#pragma unroll 1
+  while (true) {
+    const uint32_t u_below = sub_wide(d, u, v);  // all ones where u < v
+    sub_wide(e, v, u);
+    if (is_zero(d)) break;  // u = v = 1
+#pragma unroll
+    for (int j = 0; j < L; j++) {
+      const uint32_t t = s[j];
+      v[j] = u_below ? u[j] : v[j];  // the smaller
+      d[j] = u_below ? e[j] : d[j];  // the larger less the smaller
+      s[j] = u_below ? z[j] : t;
+      z[j] = u_below ? t : z[j];
+    }
+    swapped ^= u_below;
+    add_wide(z, z, s);
+    k += shift_out_twos(d, s);
+    copy(u, d);
+  }
+  // The last step, u = v = 1: a·s = 2^k and a·z = -2^k for the pairs as
+  // Kaliski keeps them, so x = a^(-1)·2^(k+1) is 2z where they traded
+  // places an odd number of times, else r - 2z.
+#pragma unroll
+  for (int j = L - 1; j > 0; j--) z[j] = (z[j] << 1) | (z[j - 1] >> 31);
+  z[0] <<= 1;
+  k++;
+  mont::reduce_once<L>(z, z, P);  // 2z < 2r
+  sub_wide(d, P, z);
+#pragma unroll
+  for (int j = 0; j < L; j++) d[j] = swapped ? z[j] : d[j];
+  int j = 510 - k;
+  if (j > INV_TOP_BIT) {
+    add(d, d, d);
+    j--;
+  }
+  uint32_t t[L];
+#pragma unroll
+  for (int w = 0; w < L; w++) t[w] = w == (j >> 5) ? 1u << (j & 31) : 0u;
+  mul(d, d, t);
+  mul(out, d, INV_FIX);
 }
 
 // T[j] = x^(2^j) for j < bits: a chain of bits - 1 squarings.

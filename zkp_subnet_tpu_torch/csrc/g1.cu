@@ -35,6 +35,32 @@
 // registers for the whole ladder (no point leaves the SM between steps),
 // the double and add of g1.cuh with the carry chains of mont.cuh, the
 // scalar read a word at a time from memory.
+//
+// g1_msm_fixed: K MSMs over the same M fixed bases in two launches, for the
+// Pianist aggregation's C_y = sum y_i·L_i and W_y = sum q_i·L_i over the
+// Lagrange-Y keys L_i (M = 16 or 256). Replaces pallas_g1.py:pfield over
+// lazy8.ZFQ as reached through dispatch_ldouble/dispatch_ladd from the
+// naive MSM of zkp_subnet_tpu/ops/msm.py:msm_auto (:589-598: a ladder a
+// point, then a tree sum). Bound: the operations are those of one ladder
+// a point (~M·256 doubles), which keep the card busy for microseconds at
+// these M; what costs is the chain of dependent point operations, 256
+// steps of a ladder in one thread (6.95 ms on an H100 at 256 points). The
+// design cuts the chain: the bases are fixed, so a table D[i][w] =
+// [2^(8w)]L_i, w < 32, is built once per SRS and device (g1_fixed_table:
+// one thread a base, 248 doubles), and sum_i k_i·L_i = sum_{i,w}
+// d_{i,w}·D[i][w] over the scalars' bytes d_{i,w}. Launch 1, grid
+// (blocks, K): a thread a term (i, w) computes d·D[i][w] by an 8-bit
+// double-and-add (7 doubles, an add a set bit), and each block of
+// FIXED_THREADS consecutive terms sums them by a tree in shared memory;
+// launch 2, one block an MSM, adds the blocks' partial sums (a thread
+// walks every n-th partial, then a tree). The longest chain is 7 doubles
+// + 8 adds + log2(32·M) adds (28 at M = 256) in place of ~384. The field
+// operations are expanded in place (FqInline): as calls (FqCall, msm.cu's
+// choice for its chains) the MSM ran 1.25x slower on an H100 (0.476
+// against 0.382 ms at 256 keys; zkp_subnet_tpu_torch/kernel_ab.py over a
+// copy with that one choice changed; PERF.md has the times).
+// Deterministic: a fixed order of adds, which
+// ops/msm.py:msm_fixed_plain repeats, so the two agree limb for limb.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -83,6 +109,106 @@ g1_scalar_mul_kernel(const uint32_t* __restrict__ p,
   g1_store(out + G1_WORDS * i, P);
 }
 
+constexpr int FIXED_WINDOWS = 32;  // 8-bit windows of a 256-bit scalar
+constexpr int FIXED_BITS = 8;
+// terms a block of launch 1 sums, and the most threads of launch 2;
+// ops/msm.py:FIXED_THREADS is its mirror
+constexpr int FIXED_THREADS = 128;
+
+// table[i][w] = [2^(8w)]P_i for w < FIXED_WINDOWS: one thread a point, a
+// store every 8 doubles.
+__global__ void __launch_bounds__(LADDER_THREADS)
+g1_fixed_table_kernel(const uint32_t* __restrict__ p,
+                      uint32_t* __restrict__ table, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  G1 P;
+  g1_load(P, p + G1_WORDS * i);
+  uint32_t* row = table + G1_WORDS * FIXED_WINDOWS * i;
+  g1_store(row, P);
+#pragma unroll 1
+  for (int w = 1; w < FIXED_WINDOWS; w++) {
+#pragma unroll 1
+    for (int b = 0; b < FIXED_BITS; b++) g1_double(P, P);
+    g1_store(row + G1_WORDS * w, P);
+  }
+}
+
+// Launch 1. Term j < terms = 32·M of MSM k = blockIdx.y is D = table[j]
+// (point i = j / 32, window w = j % 32) times the byte j of the MSM's
+// scalars (byte w of k_i, little-endian). A thread's term from infinity:
+// for the digit's bits b = 7..0, a double (none at b = 7) and an add of D
+// where b is set. Terms past the end are infinity. The block's tree: at
+// step s = FIXED_THREADS/2 .. 1, thread t < s adds the point of t + s to
+// its own. partial[k][blockIdx.x] = the block's sum.
+__global__ void __launch_bounds__(FIXED_THREADS)
+g1_msm_fixed_kernel(const uint32_t* __restrict__ table,
+                    const uint8_t* __restrict__ digits,
+                    uint32_t* __restrict__ partial, int terms) {
+  __shared__ uint32_t sh[G1_WORDS * FIXED_THREADS];
+  const int t = threadIdx.x;
+  const long long j = blockIdx.x * (long long)FIXED_THREADS + t;
+  G1 acc, Q;
+  g1_set_infinity(acc);
+  if (j < terms) {
+    g1_load(Q, table + G1_WORDS * j);
+    const uint32_t d = digits[(long long)blockIdx.y * terms + j];
+#pragma unroll 1
+    for (int b = FIXED_BITS - 1; b >= 0; b--) {
+      if (b != FIXED_BITS - 1) g1_double(acc, acc);
+      if ((d >> b) & 1) g1_add(acc, acc, Q);
+    }
+  }
+  g1_store_shared<FIXED_THREADS>(sh, t, acc);
+  __syncthreads();
+#pragma unroll 1
+  for (int s = FIXED_THREADS / 2; s >= 1; s /= 2) {
+    if (t < s) {
+      g1_load_shared<FIXED_THREADS>(Q, sh, t + s);
+      g1_add(acc, acc, Q);
+      g1_store_shared<FIXED_THREADS>(sh, t, acc);
+    }
+    __syncthreads();
+  }
+  if (t == 0)
+    g1_store(partial + G1_WORDS * ((long long)blockIdx.y * gridDim.x +
+                                   blockIdx.x),
+             acc);
+}
+
+// Launch 2: one block of n threads (a power of two <= FIXED_THREADS) an
+// MSM. Thread t starts from partial t (infinity past the end) and adds
+// partials t + n, t + 2n, ...; then the tree of launch 1 over the n.
+__global__ void __launch_bounds__(FIXED_THREADS)
+g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ partial,
+                        uint32_t* __restrict__ out, int parts) {
+  __shared__ uint32_t sh[G1_WORDS * FIXED_THREADS];
+  const int t = threadIdx.x, n = blockDim.x;
+  const uint32_t* mine = partial + G1_WORDS * (long long)blockIdx.x * parts;
+  G1 acc, Q;
+  if (t < parts)
+    g1_load(acc, mine + G1_WORDS * t);
+  else
+    g1_set_infinity(acc);
+#pragma unroll 1
+  for (int b = t + n; b < parts; b += n) {
+    g1_load(Q, mine + G1_WORDS * b);
+    g1_add(acc, acc, Q);
+  }
+  g1_store_shared<FIXED_THREADS>(sh, t, acc);
+  __syncthreads();
+#pragma unroll 1
+  for (int s = n / 2; s >= 1; s /= 2) {
+    if (t < s) {
+      g1_load_shared<FIXED_THREADS>(Q, sh, t + s);
+      g1_add(acc, acc, Q);
+      g1_store_shared<FIXED_THREADS>(sh, t, acc);
+    }
+    __syncthreads();
+  }
+  if (t == 0) g1_store(out + G1_WORDS * (long long)blockIdx.x, acc);
+}
+
 }  // namespace
 
 extern "C" int zkp_g1_add(const void* p, const void* q, void* out,
@@ -116,5 +242,41 @@ extern "C" int zkp_g1_scalar_mul(const void* p, const void* scalars,
                            (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)scalars, (uint32_t*)out, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// table: (n, FIXED_WINDOWS, 3, 12).
+extern "C" int zkp_g1_fixed_table(const void* p, void* table, long long n,
+                                  void* stream) {
+  if (n > 0) {
+    const long long blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
+    g1_fixed_table_kernel<<<(unsigned)blocks, LADDER_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (uint32_t*)table, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// table (m, FIXED_WINDOWS, 3, 12) from g1_fixed_table; scalars (k, m, 8)
+// canonical 32-bit words (read as k rows of 32·m digit bytes); partial
+// (k, ceil(32·m / FIXED_THREADS), 3, 12) scratch; out (k, 3, 12). windows,
+// threads: the caller's FIXED_WINDOWS and FIXED_THREADS, refused unless
+// they are these.
+extern "C" int zkp_g1_msm_fixed(const void* table, const void* scalars,
+                                void* partial, void* out, int k, int m,
+                                int windows, int threads, void* stream) {
+  if (windows != FIXED_WINDOWS || threads != FIXED_THREADS || k < 1 ||
+      k > 65535 || m < 1 || m > (1 << 20))
+    return (int)cudaErrorInvalidValue;
+  const int terms = FIXED_WINDOWS * m;
+  const int parts = (terms + FIXED_THREADS - 1) / FIXED_THREADS;
+  int n = 1;
+  while (n < parts && n < FIXED_THREADS) n *= 2;
+  g1_msm_fixed_kernel<<<dim3((unsigned)parts, (unsigned)k), FIXED_THREADS, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)table, (const uint8_t*)scalars, (uint32_t*)partial,
+      terms);
+  g1_msm_fixed_sum_kernel<<<(unsigned)k, n, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)partial, (uint32_t*)out, parts);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,30 @@ __device__ __forceinline__ void g1_set_infinity(G1& P) {
   }
 }
 
+// A point in shared memory, word j of thread t at sh[j·STRIDE + t]
+// (threads of a warp on consecutive banks).
+template <int STRIDE>
+__device__ __forceinline__ void g1_store_shared(uint32_t* sh, int t,
+                                                const G1& P) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++) {
+    sh[j * STRIDE + t] = P.X[j];
+    sh[(fq::L + j) * STRIDE + t] = P.Y[j];
+    sh[(2 * fq::L + j) * STRIDE + t] = P.Z[j];
+  }
+}
+
+template <int STRIDE>
+__device__ __forceinline__ void g1_load_shared(G1& P, const uint32_t* sh,
+                                               int t) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++) {
+    P.X[j] = sh[j * STRIDE + t];
+    P.Y[j] = sh[(fq::L + j) * STRIDE + t];
+    P.Z[j] = sh[(2 * fq::L + j) * STRIDE + t];
+  }
+}
+
 // The field operations the point formulas below are written over. FqInline
 // expands every operation in place (K1 and the bucket kernel: many warps of
 // independent adds, all operands in registers; as calls they ran 1.6-1.8x

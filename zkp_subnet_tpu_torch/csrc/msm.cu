@@ -68,28 +68,6 @@ constexpr int BUCKET_THREADS = 256;  // ops/msm.py:BUCKET_THREADS is its mirror
 constexpr int BUCKET_MIN_BLOCKS = 1;
 constexpr int BUCKETS = 256;  // a row's buckets: every value of a uint8 digit
 
-// A point in shared memory, word j of thread t at sh[j·BUCKET_THREADS + t]
-// (threads of a warp on consecutive banks).
-__device__ __forceinline__ void g1_store_shared(uint32_t* sh, int t,
-                                                const G1& P) {
-#pragma unroll
-  for (int j = 0; j < fq::L; j++) {
-    sh[j * BUCKET_THREADS + t] = P.X[j];
-    sh[(fq::L + j) * BUCKET_THREADS + t] = P.Y[j];
-    sh[(2 * fq::L + j) * BUCKET_THREADS + t] = P.Z[j];
-  }
-}
-
-__device__ __forceinline__ void g1_load_shared(G1& P, const uint32_t* sh,
-                                               int t) {
-#pragma unroll
-  for (int j = 0; j < fq::L; j++) {
-    P.X[j] = sh[j * BUCKET_THREADS + t];
-    P.Y[j] = sh[(fq::L + j) * BUCKET_THREADS + t];
-    P.Z[j] = sh[(2 * fq::L + j) * BUCKET_THREADS + t];
-  }
-}
-
 // One block a row: the row's n digit-sorted entries in tiles of
 // T = ceil(n / BUCKET_THREADS), thread t owning entries [tT, tT + T).
 //  1. Every bucket of the row is set to infinity.
@@ -163,22 +141,22 @@ msm_buckets_kernel(const uint32_t* __restrict__ points,
 
   for (int d = 1; d < BUCKET_THREADS; d *= 2) {
     if (!__syncthreads_or(!flag)) break;
-    g1_store_shared(sh, t, acc);
+    g1_store_shared<BUCKET_THREADS>(sh, t, acc);
     sh_flag[t] = flag;
     __syncthreads();
     if (!flag && t >= d) {
       G1 prev;
-      g1_load_shared(prev, sh, t - d);
+      g1_load_shared<BUCKET_THREADS>(prev, sh, t - d);
       flag = sh_flag[t - d];
       g1_add(acc, prev, acc);
     }
   }
   __syncthreads();
-  g1_store_shared(sh, t, acc);
+  g1_store_shared<BUCKET_THREADS>(sh, t, acc);
   __syncthreads();
   if (has_h) {
     G1 S, H;
-    g1_load_shared(S, sh, t - 1);
+    g1_load_shared<BUCKET_THREADS>(S, sh, t - 1);
     g1_load(H, out + G1_WORDS * first);
     g1_add(H, S, H);
     g1_store(out + G1_WORDS * first, H);

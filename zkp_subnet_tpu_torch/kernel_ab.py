@@ -1,5 +1,6 @@
-"""K1 ``g1_add``/``g1_double``/``g1_scalar_mul`` and K2 ``msm_buckets`` of
-several checkouts of this repository, timed in turns on one card on the same
+"""K1 ``g1_add``/``g1_double``/``g1_scalar_mul``, K2 ``msm_buckets``, the
+Pianist aggregation's two Lagrange-Y MSMs and K3 ``fr_inv`` of several
+checkouts of this repository, timed in turns on one card on the same
 inputs.
 
 Run from the root of a checkout, on a machine with one CUDA card:
@@ -11,18 +12,23 @@ archive``, or a copy whose sources were edited to try one design choice.
 Each is driven through its own package, in a process of its own: its
 ``kernels.build()`` compiles its sources into its own ``build/`` (all
 checkouts at once), and its wrappers ``g1_add``, ``g1_double``,
-``msm_buckets(points, *msm.bucket_runs(scalars, groups))`` and, where the
-checkout has it, the ladder ``g1_scalar_mul`` (at 2^16 points and at 16,
-the first MSM's scalars) are timed. The
+``msm_buckets(points, *msm.bucket_runs(scalars, groups))``, ``fr_inv`` (of
+one random element, and of 16 with 0, 1 and r − 1 among them) and, where
+the checkout has it, the ladder ``g1_scalar_mul`` (at 2^16 points and at
+16, the first MSM's scalars) are timed; and the aggregation's two MSMs
+over 256 and over 16 keys, as the checkout's aggregation runs them:
+``g1_msm_fixed`` over the keys' window table (built untimed) where it has
+one, else a ladder and a ``g1_sum`` tree an MSM (``msm.msm_naive``). The
 inputs are made once, from a seed, by this checkout's package: 2^16 points
 with Z ≠ 1, and the scalars of two MSMs of 2^16 points (8 point groups:
 512 rows of 8192 entries, the main path's shape), uniform, and all equal
 to 1. Device ms: CUDA events around the replay of a CUDA graph of several
 launches. Every checkout is timed twice, in the order given and then in
 the reverse order. Its outputs must equal those of the first checkout
-that has the kernel: the K1 kernels limb for limb, the bucket sums as
-points. Then, for each checkout,
-the registers and spills of the four kernels (``-Xptxas -v``) and the SASS
+that has the kernel: the K1 kernels and the inverses limb for limb,
+the bucket sums and the aggregation's MSMs as points. Then, for each
+checkout, the registers and spills of the kernels (``KERNELS``, from
+``-Xptxas -v``) and the SASS
 instruction mix of ``g1_add_kernel`` (``cuobjdump -sass``; a static count,
 which for a kernel without loops is what each thread executes). The last
 lines are the card (``nvidia-smi`` name and power limit) and one JSON
@@ -44,7 +50,8 @@ SEED = 20261016
 #: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder
 REPS_POINT, REPS_BUCKETS, REPS_LADDER = 100, 5, 2
 KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel",
-           "g1_scalar_mul_kernel")
+           "g1_scalar_mul_kernel", "fr_inv_kernel", "g1_msm_fixed_kernel",
+           "g1_fixed_table_kernel")
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -118,6 +125,19 @@ def child_time(inputs: str, reference: str) -> dict:
                                 REPS_LADDER)
         fns["g1_scalar_mul 16 points"] = (
             lambda: kernels.g1_scalar_mul(p16, k16), REPS_LADDER)
+    for n, x in ((1, data["fr"][3:4]), (16, data["fr"])):
+        x = x.to(dev)
+        fns[f"fr_inv {n}"] = (lambda x=x: kernels.fr_inv(x), REPS_POINT)
+    for m in (256, 16):
+        keys = p[:m].contiguous()
+        sc = data["scalars"]["uniform"][:, :m].contiguous().to(dev)
+        if hasattr(kernels, "g1_msm_fixed"):
+            table = kernels.g1_fixed_table(keys)
+            fn = (lambda t=table, s=sc: kernels.g1_msm_fixed(t, s))
+        else:
+            fn = (lambda k=keys, s=sc: torch.stack(
+                [tmsm.msm_naive(k, c) for c in s]))
+        fns[f"aggregation 2 MSMs {m} keys"] = (fn, REPS_LADDER)
     outs = {name: fn() for name, (fn, _) in fns.items()}
     torch.cuda.synchronize()
     ms = {name: _graph_ms(fn, reps) for name, (fn, reps) in fns.items()}
@@ -128,7 +148,7 @@ def child_time(inputs: str, reference: str) -> dict:
         ref.update(missing)
         torch.save(ref, reference)
     ref = {k: v.to(dev) for k, v in ref.items()}
-    equal = {k: (torch.equal(v, ref[k]) if k.startswith("g1_")
+    equal = {k: (torch.equal(v, ref[k]) if k.startswith(("g1_", "fr_"))
                  else _same_points(kernels, v, ref[k]))
              for k, v in outs.items()}
     return {"ms": ms, "equal": equal, "package": kernels.CSRC}
@@ -152,7 +172,13 @@ def _inputs(path: str) -> None:
     limbs[..., 15] = rng.integers(0, 0x73ED, (2, n), dtype=np.uint32)
     ones = np.zeros((2, n, 16), np.uint32)
     ones[..., 0] = 1
-    torch.save({"p": p.cpu(), "q": p.roll(1, 0).cpu(), "scalars": {
+    # Fr elements (Montgomery): 0, 1, r - 1, then random below r
+    fr = rng.integers(0, 1 << 16, (16, 16), dtype=np.uint32)
+    fr[:, 15] = rng.integers(0, 0x73ED, 16, dtype=np.uint32)
+    fr[0], fr[1] = 0, FR.to_limbs16(FR.encode([1]))[0]
+    fr[2] = FR.to_limbs16(FR.encode([FR.p - 1]))[0]
+    torch.save({"p": p.cpu(), "q": p.roll(1, 0).cpu(),
+                "fr": FR.from_limbs16(fr), "scalars": {
         "uniform": FR.from_limbs16(limbs, dev).cpu(),
         "all-ones": FR.from_limbs16(ones, dev).cpu()}}, path)
 

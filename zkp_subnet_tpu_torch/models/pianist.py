@@ -17,7 +17,10 @@ bivariate opening at (α, β):
     e(C_y − f(α,β)·G1, G2) == e(W_y, [τ_Y − β]G2)  (Y opening, Lagrange KZG)
 
 Where the JAX package maps over the worker axis with ``vmap``, the port
-hands every worker's bases to one ``msm_auto_many``. Random draws take an
+hands every worker's bases to one ``msm_auto_many``. Where it runs the
+aggregation's Lagrange-Y MSMs as naive ladders (``msm_auto``), the port
+runs both through one ``msm_fixed`` over a window table of the keys that
+the SRS builds once (``Srs.lagrange_table``). Random draws take an
 explicit ``torch.Generator``; they are uniform but not the JAX package's
 numbers.
 """
@@ -77,8 +80,11 @@ def commit_all(srs: Srs, rows: torch.Tensor) -> torch.Tensor:
 def open_all(srs: Srs, rows: torch.Tensor,
              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """All workers' openings at the shared point x: ((M, 8), (M, 3, 12)),
-    the limbs of ``worker_open`` for each."""
-    outs = [tpoly.poly_open_scalars(rows[i], x) for i in range(rows.shape[0])]
+    the limbs of ``worker_open`` for each. x is inverted once for all the
+    rows (one K3 ``fr_inv`` on the card, not one a row)."""
+    xi = FR.inv(x)
+    outs = [tpoly.poly_open_scalars(rows[i], x, xi)
+            for i in range(rows.shape[0])]
     ys = torch.stack([y for y, _ in outs])
     return ys, tmsm.msm_auto_many(_worker_bases(srs, rows.shape[0]),
                                   torch.stack([q for _, q in outs]))
@@ -127,32 +133,56 @@ def _lagrange_eval_domain(m: int, device=None) -> torch.Tensor:
     return FR.powers(w, m)                       # (m, 8)
 
 
-def aggregate_core(lagrange_y: torch.Tensor, commitments: torch.Tensor,
+def _rows(t: torch.Tensor, b: int, m: int) -> torch.Tensor:
+    """(M, 8) or (B, 1, 8) broadcast to a contiguous (B, M, 8): the
+    elementwise Fr kernels take operands of one shape (or one element)."""
+    return t.expand(b, m, FR.L).contiguous()
+
+
+def _tree_sum_rows(t: torch.Tensor, add) -> torch.Tensor:
+    """Σ along dim 1 of (B, M, ...) by halving (M a power of two)."""
+    while t.shape[1] > 1:
+        half = t.shape[1] // 2
+        t = add(t[:, :half].contiguous(), t[:, half:].contiguous())
+    return t[:, 0]
+
+
+def aggregate_core(lagrange_table: torch.Tensor, commitments: torch.Tensor,
                    proofs: torch.Tensor, evals: torch.Tensor,
                    beta: torch.Tensor, dom: torch.Tensor,
                    m_inv: torch.Tensor):
-    """The aggregation math. lagrange_y, commitments, proofs (M, 3, 12);
-    evals (M, 8), beta (8,), dom (M, 8) = domain points ω^i, m_inv (8,) =
-    1/M, all Montgomery. Returns (C, W, C_y, W_y, value)."""
-    m = evals.shape[0]
-    C = cv.g1_sum(commitments)
-    W = cv.g1_sum(proofs)
+    """The aggregation math for B challenges at once. lagrange_table: the
+    Lagrange-Y keys' window table (``Srs.lagrange_table``, (M, 32, 3, 12));
+    commitments, proofs (B, M, 3, 12); evals (B, M, 8), beta (B, 8), all
+    Montgomery; dom (M, 8) = domain points ω^i, m_inv (8,) = 1/M. Returns
+    (C, W, C_y, W_y, value), each with the leading B.
 
-    # C_y = Σ y_i·V_i  (an MSM over the Lagrange-Y basis)
-    C_y = tmsm.msm_auto(lagrange_y, FR.from_mont(evals))
+    On the card: one K3 ``fr_inv`` for the B·M differences (the quotient's
+    1/(ω^i − β) is the negation of 1/(β − ω^i), so the difference's sign
+    moves to the numerator), and one ``msm_fixed`` call (K1
+    ``g1_msm_fixed``, two launches) for the 2·B MSMs C_y = Σ y_i·V_i and
+    W_y = Σ q_i·V_i, once value and q are known; C and W by one tree of K1
+    adds over both."""
+    b, m = evals.shape[:2]
+    dom_b = _rows(dom, b, m)
+    C, W = _tree_sum_rows(torch.stack([commitments, proofs], 1).reshape(
+        2 * b, m, 3, -1), cv.g1_add).view(b, 2, 3, -1).unbind(1)
 
     # y(β) via barycentric: (β^m − 1)/m · Σ y_i·ω^i/(β − ω^i)
-    inv_diff = FR.inv(FR.sub(beta, dom))                    # 1/(β − ω^i)
-    s = FR.mont_mul(FR.mont_mul(evals, dom), inv_diff)
-    while s.shape[0] > 1:
-        half = s.shape[0] // 2
-        s = FR.add(s[:half], s[half:])
+    inv_diff = FR.inv(FR.sub(_rows(beta[:, None], b, m), dom_b))
+    s = _tree_sum_rows(FR.mont_mul(FR.mont_mul(evals, dom_b), inv_diff),
+                       FR.add)
     num = FR.sub(FR.pow_static(beta, m), FR.ones((), beta.device))
-    value = FR.mont_mul(FR.mont_mul(num, m_inv), s[0])
+    value = FR.mont_mul(FR.mont_mul(num, m_inv), s)
 
     # quotient in Lagrange form: q_i = (y_i − v)/(ω^i − β)
-    q_evals = FR.mont_mul(FR.sub(evals, value), FR.inv(FR.sub(dom, beta)))
-    W_y = tmsm.msm_auto(lagrange_y, FR.from_mont(q_evals))
+    #                                = (v − y_i)/(β − ω^i)
+    q_evals = FR.mont_mul(FR.sub(_rows(value[:, None], b, m), evals),
+                          inv_diff)
+    # C_y = Σ y_i·V_i and W_y = Σ q_i·V_i: MSMs over the Lagrange-Y basis
+    scalars = FR.from_mont(torch.stack([evals, q_evals], 1))
+    C_y, W_y = tmsm.msm_fixed(lagrange_table, scalars.reshape(
+        2 * b, m, FR.L)).view(b, 2, 3, -1).unbind(1)
     return C, W, C_y, W_y, value
 
 
@@ -170,8 +200,9 @@ def aggregate(srs: Srs, commitments: torch.Tensor, proofs: torch.Tensor,
     commitments/proofs: (M, 3, 12); evals: (M, 8) Montgomery; beta (8,).
     """
     dom, m_inv = aggregation_constants(srs.machines, evals.device)
-    C, W, C_y, W_y, value = aggregate_core(
-        srs.lagrange_y, commitments, proofs, evals, beta, dom, m_inv)
+    C, W, C_y, W_y, value = (x[0] for x in aggregate_core(
+        srs.lagrange_table(), commitments[None], proofs[None], evals[None],
+        beta[None], dom, m_inv))
     return AggregatedProof(commitment=C, proof_x=W, evals=evals,
                            commitment_y=C_y, proof_y=W_y, value=value)
 

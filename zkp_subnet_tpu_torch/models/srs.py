@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import curve as cv
+from ..ops import msm as tmsm
 from ..ops.field import FQ, FR
 from ..utils import encoding as enc
 from ..utils import oracle as o
@@ -161,6 +162,19 @@ class Srs:
             cache[i] = from_numpy_points(
                 np.ascontiguousarray(self.worker_bases[i]), self.device)
         return cache[i]
+
+    def lagrange_table(self) -> torch.Tensor:
+        """The window table of ``lagrange_y`` (``msm.fixed_table``: (M, 32,
+        3, 12), [2^(8w)]·V_i; 1.18 MB at M = 256) that the aggregation's
+        MSMs read: built on first use, on the SRS's device, and kept. It is
+        derived state: never written to the SRS files. A shard of the
+        multi-device prove (``parallel.pianist.shard_srs``) holds the table
+        of all M keys, though its ``lagrange_y`` holds its own rows only:
+        the aggregation runs on every rank."""
+        cache = self.__dict__
+        if "_lagrange_table" not in cache:
+            cache["_lagrange_table"] = tmsm.fixed_table(self.lagrange_y)
+        return cache["_lagrange_table"]
 
     # -- carriers ------------------------------------------------------------
 

@@ -27,7 +27,7 @@ Fq arithmetic stays in registers (``csrc/g1.cu``).
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ MASK16 = 0xFFFF
 
 __all__ = ["PrimeField", "FR", "FQ", "fr_mul", "fr_add",
            "fr_mul_plain", "fr_add_plain", "fr_sub_plain", "fr_inv_plain",
+           "almost_inverse",
            "fr_powers_plain", "fq_mul_plain", "fq_add_plain", "fq_sub_plain"]
 
 
@@ -283,8 +284,10 @@ class PrimeField:
         return out
 
     def inv(self, a):
-        """Batched inversion by Fermat, a^(p−2); 0 ↦ 0. One launch of the
-        field's inverse kernel on a CUDA tensor where it has one (Fr)."""
+        """Batched inversion, 0 ↦ 0: one launch of the field's inverse
+        kernel on a CUDA tensor where it has one (Fr: K3 ``fr_inv``, a
+        binary inverse whose time depends on a, so public values only),
+        else Fermat's a^(p−2) by ``pow_static``."""
         if a.is_cuda and self._inv_kernel is not None:
             return self._inv_kernel(a.contiguous())
         return self.pow_static(a, self.p - 2)
@@ -336,17 +339,56 @@ def fr_sub_plain(a, b):
     return FR.sub_plain(a, b)
 
 
+def almost_inverse(a: int) -> Tuple[int, int, int]:
+    """(x, k, steps) with x = a^(−1)·2^k mod r, for 0 < a < r: Kaliski's
+    almost Montgomery inverse as ``fr::inv`` (csrc/fr.cuh) runs it on the
+    card, step for step. u = r, v = a, cofactors s = 1, z = 0: subtract the
+    smaller of u, v from the larger, add the cofactors, shift the trailing
+    zeros of the difference out of it and into the other cofactor."""
+    r = FR.p
+    u, v, s, z = r, a, 1, 0
+    t = (v & -v).bit_length() - 1
+    v, k, steps = v >> t, t, 0
+    while True:
+        steps += 1
+        if u > v:
+            u, z = u - v, z + s
+            t = (u & -u).bit_length() - 1
+            u, s = u >> t, s << t
+        elif u < v:
+            v, s = v - u, s + z
+            t = (v & -v).bit_length() - 1
+            v, z = v >> t, z << t
+        else:                                   # u = v = 1: the last step
+            z, t = z << 1, 1
+            k += t
+            break
+        k += t
+    return r - z % r, k, steps
+
+
 def fr_inv_plain(a):
-    """Plain version of K3 ``fr_inv``: a^(r−2) by the kernel's chain,
-    left-to-right square-and-multiply over the exponent's bits below the
-    top one (254 squarings, 163 products); 0 ↦ 0."""
-    e = FR.p - 2
-    acc = a
-    for bit in range(e.bit_length() - 2, -1, -1):
-        acc = FR.mont_mul_plain(acc, acc)
-        if (e >> bit) & 1:
-            acc = FR.mont_mul_plain(acc, a)
-    return acc
+    """Plain version of K3 ``fr_inv``: 1/a elementwise over (..., 8)
+    Montgomery limbs (a = xR gives x^(−1)R), 0 ↦ 0, by the kernel's
+    algorithm on Python integers: Kaliski's almost inverse
+    (``almost_inverse``: a^(−1)·2^k, 255 ≤ k ≤ 510), then the kernel's
+    two Montgomery products, by 2^j for j = 510 − k (once doubled where
+    j = 255) and by 2^514 mod r, which leave a^(−1)·R² = the inverse of
+    aR times R. The kernel's running time depends on a: it takes public
+    values only, and so does this."""
+    r, r_inv = FR.p, FR.mont_rinv
+    out = []
+    for x in FR.limbs_to_ints(a):
+        if x == 0:
+            out.append(0)
+            continue
+        y, k, _ = almost_inverse(x)
+        j = 510 - k
+        if j > 254:
+            y, j = 2 * y % r, j - 1
+        y = y * (1 << j) * r_inv % r
+        out.append(y * pow(2, 514, r) * r_inv % r)
+    return FR.ints_to_limbs(out, a.device).reshape(a.shape)
 
 
 def fr_powers_plain(x, n: int, c=None,

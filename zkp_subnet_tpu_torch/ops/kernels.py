@@ -49,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: launches per kernel since the last ``reset_launches()``
 LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
+                                 "g1_fixed_table", "g1_msm_fixed",
                                  "msm_buckets", "msm_reduce", "msm_combine",
                                  "fr_mul", "fr_add", "fr_sub", "fr_inv",
                                  "fr_powers", "fr_suffix_scan",
@@ -72,6 +73,15 @@ EVAL_PER_THREAD = 4
 
 #: rows of one ``fr_eval_rows`` launch at most (the grid's second dimension)
 MAX_EVAL_ROWS = 65535
+
+#: windows of the fixed-base table, 8 bits each (FIXED_WINDOWS of
+#: csrc/g1.cu), and the terms a block of ``g1_msm_fixed``'s first launch
+#: sums (FIXED_THREADS): its C entry refuses others
+FIXED_WINDOWS = 32
+FIXED_THREADS = 128
+
+#: MSMs of one ``g1_msm_fixed`` call at most (the grid's second dimension)
+MAX_FIXED_MSMS = 65535
 
 _lib = None
 #: guards the build, the load and ``LAUNCHES``
@@ -215,6 +225,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "zkp_g1_add": [p, p, p, i64, p],
         "zkp_g1_double": [p, p, i64, p],
         "zkp_g1_scalar_mul": [p, p, p, i64, p],
+        "zkp_g1_fixed_table": [p, p, i64, p],
+        "zkp_g1_msm_fixed": [p, p, p, p, i32, i32, i32, i32, p],
         "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
         "zkp_msm_reduce": [p, p, i32, i32, p],
         "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
@@ -322,6 +334,59 @@ def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     if n:
         _launch("g1_scalar_mul", _load().zkp_g1_scalar_mul,
                 p.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def g1_fixed_table(p: torch.Tensor) -> torch.Tensor:
+    """table[i, w] = [2^(8w)]P_i, w < FIXED_WINDOWS: (M, 3, 12) points →
+    (M, 32, 3, 12), the fixed-base table of ``g1_msm_fixed``.
+
+    Replaces, with ``g1_msm_fixed``, pallas_g1.py:pfield over lazy8.ZFQ as
+    the naive MSM reaches it (dispatch_ldouble). Bound: latency, one
+    thread's 248 dependent doubles a point; built once per SRS and device.
+    One thread a point, a store every 8 doubles."""
+    _check(p, "p", tail=(3, 12))
+    if p.dim() != 3:
+        raise ValueError("g1_fixed_table: expected (M, 3, 12)")
+    out = torch.empty((p.shape[0], FIXED_WINDOWS, 3, 12), dtype=torch.int32,
+                      device=p.device)
+    if p.shape[0]:
+        _launch("g1_fixed_table", _load().zkp_g1_fixed_table,
+                p.data_ptr(), out.data_ptr(), p.shape[0])
+    return out
+
+
+def g1_msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """K MSMs Σ_i k_{c,i}·P_i over the bases of a fixed-base table:
+    ``table`` (M, 32, 3, 12) from ``g1_fixed_table``, ``scalars`` (K, M, 8)
+    canonical int32 → (K, 3, 12).
+
+    Replaces pallas_g1.py:pfield over lazy8.ZFQ as reached from
+    zkp_subnet_tpu/ops/msm.py:msm_auto's naive path (a ladder a point and a
+    tree sum: the Pianist aggregation's C_y and W_y). Bound: latency, the
+    chain of dependent point operations. Two launches: a thread a (base,
+    window) term d·[2^(8w)]P_i by an 8-bit double-and-add and a tree a block
+    in shared memory, then a block an MSM adding the blocks' sums; the
+    chain is 7 doubles and 8 + log2(32·M) adds, where the ladder's is 256
+    steps."""
+    _check(table, "table", tail=(FIXED_WINDOWS, 3, 12))
+    _check(scalars, "scalars", tail=(8,))
+    if (table.dim() != 4 or scalars.dim() != 3
+            or scalars.shape[1] != table.shape[0]
+            or table.device != scalars.device):
+        raise ValueError("g1_msm_fixed: table (M, 32, 3, 12) and scalars "
+                         "(K, M, 8) on one device expected")
+    k, m = scalars.shape[:2]
+    if not 1 <= k <= MAX_FIXED_MSMS or not 1 <= m <= 1 << 20:
+        raise ValueError(f"g1_msm_fixed: 1..{MAX_FIXED_MSMS} MSMs of "
+                         "1..2^20 bases expected")
+    parts = -(-FIXED_WINDOWS * m // FIXED_THREADS)
+    partial = torch.empty((k, parts, 3, 12), dtype=torch.int32,
+                          device=table.device)
+    out = torch.empty((k, 3, 12), dtype=torch.int32, device=table.device)
+    _launch("g1_msm_fixed", _load().zkp_g1_msm_fixed, table.data_ptr(),
+            scalars.data_ptr(), partial.data_ptr(), out.data_ptr(), k, m,
+            FIXED_WINDOWS, FIXED_THREADS)
     return out
 
 
@@ -490,12 +555,15 @@ def _one_element(t: torch.Tensor, name: str) -> None:
 
 
 def fr_inv(a: torch.Tensor) -> torch.Tensor:
-    """1/a by Fermat, a^(r−2), over (..., 8) Montgomery tensors; 0 ↦ 0.
+    """1/a over (..., 8) Montgomery tensors; 0 ↦ 0. VARIABLE TIME: public
+    inputs only (an opening's point, the aggregation's β − ω^i).
 
     Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield("mont_mul", BFR) as
-    reached from field.pow_static (418 products, one launch each when run
-    eagerly). Bound: one dependent chain of 417 products a thread
-    (latency). One launch, one thread an element."""
+    reached from field.inv → pow_static (Fermat's a^(r−2), 418 products).
+    Bound: latency, one thread's chain of dependent steps. One launch, one
+    thread an element: Kaliski's binary inverse on the limbs (~180 steps
+    of carry chains and shifts, where Fermat's chain is 417 products),
+    then two Montgomery products (csrc/fr.cuh)."""
     _check(a, "a", tail=(8,))
     _aligned("fr_inv", a)
     out = torch.empty_like(a)

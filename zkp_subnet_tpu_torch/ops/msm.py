@@ -7,10 +7,12 @@ N ≤ 2048, Pippenger above. ``msm_many``/``msm_auto_many`` take (K, N, 8)
 scalars, K MSMs over the same points, and run them side by side through
 every launch, as the JAX package holds a row's commit and opening MSMs in
 one jitted program (``zkp_subnet_tpu/runtime/worker.py:35-42``); ``msm`` is
-the K = 1 case. ``msm_auto_many`` also takes points of their own a row
-(K, N, 3, 12), as Pianist's ``commit_all``/``open_all`` give it every
-worker's bases; ``msm_auto_groups`` takes K MSMs over each of G point
-sets.
+the K = 1 case. ``msm_fixed`` runs K MSMs over fixed bases (the Pianist
+aggregation's Lagrange-Y keys) through their window table
+(``fixed_table``), a K1 kernel of two launches. ``msm_auto_many`` also
+takes points of their own a row (K, N, 3, 12), as Pianist's
+``commit_all``/``open_all`` give it every worker's bases;
+``msm_auto_groups`` takes K MSMs over each of G point sets.
 
 The Pippenger here is 8-bit windows (32 windows × 256 buckets) in Hopper
 shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
@@ -370,6 +372,97 @@ def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     if shared:
         return msm_many(points, scalars)
     return torch.stack([msm(p, s) for p, s in zip(points, scalars)])
+
+
+# -- K1 g1_msm_fixed: MSMs over fixed bases through a window table ------------
+
+#: terms a block of ``g1_msm_fixed``'s first launch sums by its tree, and
+#: the most threads of its second; the mirror of ``csrc/g1.cu:FIXED_THREADS``
+FIXED_THREADS = kernels.FIXED_THREADS
+
+
+def fixed_table_plain(points: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 ``g1_fixed_table``: (M, 3, 12) → (M, 32, 3, 12),
+    table[i, w] = [2^(8w)]P_i, by the kernel's doubles in the kernel's
+    order (8 a window, all points at once)."""
+    rows = [points]
+    for _ in range(NUM_WINDOWS - 1):
+        p = rows[-1]
+        for _ in range(WINDOW_BITS):
+            p = g1_double_plain(p)
+        rows.append(p)
+    return torch.stack(rows, dim=1)
+
+
+def fixed_table(points: torch.Tensor) -> torch.Tensor:
+    """The window table of fixed bases for ``msm_fixed``: K1
+    ``g1_fixed_table`` on a CUDA tensor, its plain version on the CPU."""
+    if points.is_cuda:
+        return kernels.g1_fixed_table(points.contiguous())
+    return fixed_table_plain(points)
+
+
+def _tree_rows(points: torch.Tensor, width: int) -> torch.Tensor:
+    """(K, n, 3, 12) with n ≤ width (a power of two) → (K, 3, 12): padded
+    with infinity to ``width``, then at s = width/2 … 1 entry t < s adds
+    entry t + s, as a block's threads do through shared memory."""
+    k, n = points.shape[:2]
+    if n < width:
+        points = torch.cat([points, g1_infinity((k, width - n),
+                                                points.device)], dim=1)
+    s = width // 2
+    while s >= 1:
+        points = g1_add_plain(points[:, :s], points[:, s:2 * s])
+        s //= 2
+    return points[:, 0]
+
+
+def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor,
+                    threads: int = FIXED_THREADS) -> torch.Tensor:
+    """Plain version of K1 ``g1_msm_fixed``: (M, 32, 3, 12) table, (K, M, 8)
+    canonical scalars → (K, 3, 12), by the kernel's adds in the kernel's
+    order. Term j = 32·i + w of MSM c is d·table[i, w], d the byte w of
+    k_{c,i}, by an 8-bit double-and-add from infinity (no double at the top
+    bit, an add where a bit is set); blocks of ``threads`` consecutive terms
+    (the CPU tests pass fewer) sum by the tree of ``_tree_rows``; then n =
+    the power of two ≥ the blocks' count, at most ``threads``, lanes: lane
+    t takes the block sums t, t + n, … in order, and the tree sums the
+    lanes."""
+    k, m = scalars.shape[:2]
+    terms = NUM_WINDOWS * m
+    digits = scalar_digits(scalars, WINDOW_BITS).reshape(k, terms)
+    base = table.reshape(1, terms, 3, FQ.L)
+    acc = g1_infinity((k, terms), table.device)
+    for b in range(WINDOW_BITS - 1, -1, -1):
+        if b != WINDOW_BITS - 1:
+            acc = g1_double_plain(acc)
+        bit = ((digits >> b) & 1).bool()
+        acc = torch.where(bit[..., None, None], g1_add_plain(acc, base), acc)
+    parts = -(-terms // threads)
+    pad = g1_infinity((k, parts * threads - terms), table.device)
+    blocks = torch.cat([acc, pad], dim=1).reshape(k * parts, threads, 3,
+                                                  FQ.L)
+    partial = _tree_rows(blocks, threads).reshape(k, parts, 3, FQ.L)
+    n = 1
+    while n < parts and n < threads:
+        n *= 2
+    lanes = partial[:, :n]
+    for start in range(n, parts, n):
+        more = partial[:, start:start + n]
+        lanes = torch.cat([g1_add_plain(lanes[:, :more.shape[1]], more),
+                           lanes[:, more.shape[1]:]], dim=1)
+    return _tree_rows(lanes, n)
+
+
+def msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """K MSMs over the M fixed bases of ``table`` (``fixed_table``'s), one
+    call: scalars (K, M, 8) canonical → (K, 3, 12). K1 ``g1_msm_fixed`` on
+    a CUDA tensor (two launches whatever K), its plain version on the CPU.
+    The Pianist aggregation's Lagrange-Y MSMs (C_y and W_y of every
+    challenge) go through it."""
+    if table.is_cuda or scalars.is_cuda:
+        return kernels.g1_msm_fixed(table.contiguous(), scalars.contiguous())
+    return msm_fixed_plain(table, scalars)
 
 
 def msm_auto_groups(points: torch.Tensor,

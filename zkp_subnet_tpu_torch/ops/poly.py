@@ -7,7 +7,8 @@ at x, with t_k = c_k·x^k:
     q_j  = x^{-(j+1)}·S_{j+1}        (q = (f(X) − f(x))/(X − x))
 
 On a CUDA tensor an opening is four launches of kernel K3 (``csrc/fr.cu``)
-and reads nothing back to the host: ``fr_inv`` (1/x), ``fr_powers`` (the
+and reads nothing back to the host: ``fr_inv`` (1/x; skipped where the
+caller opens many rows at one x and hands 1/x in), ``fr_powers`` (the
 terms t_k), ``fr_suffix_scan`` (each tile's suffix sums and total) and
 ``fr_open_quotient`` (the carry over the tiles, y = S_0, the scaled
 quotient, the x = 0 corner). Their plain versions (``fr_inv_plain``,
@@ -61,23 +62,25 @@ def _scan_from_right(terms: torch.Tensor, add) -> torch.Tensor:
     return terms
 
 
-def _open_pieces(coeffs: torch.Tensor, x: torch.Tensor):
+def _open_pieces(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
     """(y, q') with q'_j = x^{-(j+1)}·S_{j+1} at full width n (q'_{n−1} = 0),
-    composed over the elementwise Fr ops (the CPU's path)."""
+    composed over the elementwise Fr ops (the CPU's path); ``xi`` = 1/x
+    where the caller has it."""
     n = coeffs.shape[0]
     terms = fr_mul(coeffs, FR.powers(x, n))         # t_k = c_k·x^k
     suffix = _scan_from_right(terms, fr_add)
-    xi = FR.inv(x).reshape(1, FR.L)                # 0 ↦ 0
+    xi = (FR.inv(x) if xi is None else xi).reshape(1, FR.L)   # 0 ↦ 0
     inv_pw = fr_mul(FR.powers(xi, n), xi)           # x^{-1} .. x^{-n}
     s_next = torch.cat([suffix[1:], FR.zeros((1,), coeffs.device)])
     return suffix[0], fr_mul(s_next, inv_pw)
 
 
-def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor):
+def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
     """(y Montgomery, q (n, 8) canonical) of ``fr_open_quotient`` in four K3
-    launches; x stays on the card."""
+    launches, three where the caller hands over ``xi`` = 1/x; x stays on the
+    card."""
     coeffs, x = coeffs.contiguous(), x.contiguous()
-    xi = kernels.fr_inv(x)
+    xi = kernels.fr_inv(x) if xi is None else xi.contiguous()
     terms = kernels.fr_powers(x, coeffs.shape[0], coeffs)
     local, totals = kernels.fr_suffix_scan(terms)
     return kernels.fr_open_quotient(local, totals, x, xi, coeffs)
@@ -124,10 +127,11 @@ def fr_open_quotient_plain(local: torch.Tensor, totals: torch.Tensor,
 
 
 def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
-                      tile: int = SCAN_TILE):
+                      tile: int = SCAN_TILE, xi=None):
     """The four plain versions composed as ``_open_on_card`` launches the
-    kernels: (y, q (n, 8))."""
-    xi = fr_inv_plain(x.reshape(FR.L))
+    kernels: (y, q (n, 8)); ``fr_inv_plain`` is skipped where ``xi`` = 1/x
+    is given."""
+    xi = fr_inv_plain(x.reshape(FR.L)) if xi is None else xi.reshape(FR.L)
     terms = fr_powers_plain(x, coeffs.shape[0], coeffs)
     local, totals = fr_suffix_scan_plain(terms, tile)
     return fr_open_quotient_plain(local, totals, x, xi, coeffs, tile)
@@ -211,16 +215,19 @@ def poly_quotient(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return poly_eval_and_quotient(coeffs, x)[1]
 
 
-def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor):
+def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
     """(f(x) Montgomery (8,), quotient scalars (N, 8) CANONICAL, q[N−1] = 0)
     for a KZG opening (``zkp_subnet_tpu/ops/poly.py:140-172``).
 
-    The x = 0 corner stays exact: the quotient is then c[1:] (a commit-only
-    request runs the opening with x = 0). On the card that choice is made
-    by the kernel, so x is never read back to the host."""
+    ``xi``: 1/x (Montgomery, ``FR.inv(x)``) where the caller opens many
+    rows at one x and inverts it once for all of them; else the opening
+    inverts x itself (one K3 ``fr_inv`` on the card). The x = 0 corner
+    stays exact: the quotient is then c[1:] (a commit-only request runs the
+    opening with x = 0). On the card that choice is made by the kernel, so
+    x is never read back to the host."""
     if coeffs.is_cuda:
-        return _open_on_card(coeffs, x)
-    y, q = _open_pieces(coeffs, x)
+        return _open_on_card(coeffs, x, xi)
+    y, q = _open_pieces(coeffs, x, xi)
     if bool(FR.is_zero(x)):
         q = torch.cat([coeffs[1:], FR.zeros((1,), coeffs.device)])
     return y, from_mont_wide(q)

@@ -38,7 +38,7 @@ from ..models.srs import Srs, entry_device, from_numpy_points
 from ..ops import msm as tmsm
 from ..ops import ntt as tntt
 from ..ops import poly as tpoly
-from ..ops.field import FQ
+from ..ops.field import FQ, FR
 
 BATCH_AXIS = "batch"
 MACHINES_AXIS = "machines"
@@ -135,9 +135,10 @@ def shard_srs(srs: Srs, mesh: DeviceMesh) -> Srs:
     """The SRS with only this rank's worker slices: rows [r·Ml, (r+1)·Ml) of
     ``worker_bases`` (one contiguous (Ml, T, 3, 12) tensor) and of
     ``lagrange_y``, r the rank's coordinate on the machines axis, all on the
-    rank's device. ``scale``/``machines_scale`` stay the whole SRS's, so
-    ``machines`` is still M. A lazy SRS (a sidecar memmap) is read for
-    those rows only, one worker at a time."""
+    rank's device; its ``lagrange_table()`` is the window table of all M
+    keys (the aggregation's, built here once). ``scale``/``machines_scale``
+    stay the whole SRS's, so ``machines`` is still M. A lazy SRS (a sidecar
+    memmap) is read for those rows only, one worker at a time."""
     dev = mesh_device(mesh)
     n, r = _machines(mesh)
     if srs.machines % n:
@@ -154,9 +155,15 @@ def shard_srs(srs: Srs, mesh: DeviceMesh) -> Srs:
         for j in range(ml):
             local[j] = from_numpy_points(
                 np.ascontiguousarray(bases[lo + j]), dev)
-    return dataclasses.replace(
+    keys = srs.lagrange_y.to(dev).contiguous()
+    shard = dataclasses.replace(
         srs, g1_x=srs.g1_x.to(dev), worker_bases=local,
-        lagrange_y=srs.lagrange_y[lo:lo + ml].to(dev).contiguous())
+        lagrange_y=keys[lo:lo + ml].contiguous())
+    # the aggregation runs replicated on every rank, over all M keys: their
+    # window table, built here once (not gathered and built a prove)
+    with on_device(dev):
+        shard.__dict__["_lagrange_table"] = tmsm.fixed_table(keys)
+    return shard
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +190,12 @@ def commit_open(bases: torch.Tensor, rows: torch.Tensor,
     alpha (8,) → commitments (Bl, Ml, 3, 12), evals (Bl, Ml, 8), proofs
     (Bl, Ml, 3, 12). Worker i's Bl commitments and Bl openings are 2·Bl MSMs
     over its bases, batched (``msm_auto_groups``), as the worker batches
-    its commit and opening (``kzg.commit_open``)."""
+    its commit and opening (``kzg.commit_open``). Every row opens at alpha,
+    so alpha is inverted once for all Bl·Ml rows (one K3 ``fr_inv``)."""
     bl, ml = rows.shape[:2]
-    opened = [[tpoly.poly_open_scalars(rows[b, i], alpha) for b in range(bl)]
-              for i in range(ml)]
+    alpha_inv = FR.inv(alpha)
+    opened = [[tpoly.poly_open_scalars(rows[b, i], alpha, alpha_inv)
+               for b in range(bl)] for i in range(ml)]
     evals = torch.stack([torch.stack([y for y, _ in w]) for w in opened], 1)
     canonical = tpoly.from_mont_wide(rows)               # one launch
     scalars = torch.stack([
@@ -232,13 +241,11 @@ def prove_gathered(srs: Srs, rows: torch.Tensor, alpha: torch.Tensor,
     with on_device(dev):
         com, ev, prf = commit_open(srs.worker_bases, rows.contiguous(),
                                    alpha)
-        coms, evals, prfs, lags = gather(
-            mesh, (com, ev, prf, srs.lagrange_y), (1, 1, 1, 0))
+        coms, evals, prfs = gather(mesh, (com, ev, prf), (1, 1, 1))
         dom, m_inv = pn.aggregation_constants(srs.machines, dev)
-        aggs = [pn.aggregate_core(lags, coms[b], prfs[b], evals[b], beta[b],
-                                  dom, m_inv)
-                for b in range(rows.shape[0])]
-    C, W, C_y, W_y, value = (torch.stack(x) for x in zip(*aggs))
+        C, W, C_y, W_y, value = pn.aggregate_core(
+            srs.lagrange_table(), coms, prfs, evals, beta.contiguous(), dom,
+            m_inv)
     return (DistributedProof(com, ev, prf, C, W, C_y, W_y, value),
             (coms, evals, prfs))
 
@@ -250,9 +257,11 @@ def prove(srs: Srs, rows: torch.Tensor, alpha: torch.Tensor,
     srs: ``shard_srs``'s; rows: this rank's (Bl, Ml, T, 8) Montgomery
     coefficients; alpha (8,) the shared opening point; beta (Bl, 8) each
     challenge's Y point. Local commit + open, one all-gather of
-    commitments, proofs, evals and Lagrange keys over the machines axis,
-    then the aggregation replicated on every rank (``_prove_block``,
-    ``zkp_subnet_tpu/parallel/pianist.py:80-106``)."""
+    commitments, proofs and evals over the machines axis, then the
+    aggregation of all Bl challenges at once, replicated on every rank
+    (``_prove_block``, ``zkp_subnet_tpu/parallel/pianist.py:80-106``, which
+    gathers the Lagrange keys too: here every rank holds their table from
+    ``shard_srs``)."""
     return prove_gathered(srs, rows, alpha, beta, mesh)[0]
 
 
