@@ -622,10 +622,25 @@ def inverse_ops(t: torch.Tensor) -> int:
 
 
 def fixed_msm_ops(scalars: torch.Tensor) -> int:
-    """Integer operations of MSMs over a fixed-base window table on these
-    (K, M, 8) canonical scalars: for each nonzero byte d, bitlen(d) − 1
-    doubles and popcount(d) − 1 adds from its top bit; then one add fewer
-    than its nonzero bytes an MSM, to sum the terms."""
+    """Integer operations that K MSMs over a fixed-base window table need on
+    these (K, M, 8) canonical scalars, the table given (the bound): no
+    doubles, by buckets over the byte digits. An MSM adds each nonzero term
+    into its digit's bucket (a copy the first of a bucket), then sums the
+    buckets from its top digit t down (a running sum, an add a nonempty
+    bucket but the first, and t − 1 adds of it to the total): nonzero terms
+    + t − 2 adds."""
+    d = scalars.cpu().numpy().view(np.uint8).reshape(scalars.shape[0], -1)
+    nz = (d != 0).sum(1)
+    top = d.max(1).astype(np.int64)
+    return OPS_G1_ADD * int(np.where(nz > 0, nz + top - 2, 0).sum())
+
+
+def fixed_kernel_ops(scalars: torch.Tensor) -> int:
+    """Integer operations of g1_msm_fixed's own method on these (K, M, 8)
+    canonical scalars (for comparison with the bound): for each nonzero
+    byte d, bitlen(d) − 1 doubles and popcount(d) − 1 adds from its top
+    bit; then one add fewer than its nonzero bytes an MSM, to sum the
+    terms."""
     d = scalars.cpu().numpy().view(np.uint8).reshape(scalars.shape[0], -1)
     bits = np.unpackbits(d[..., None], axis=-1)          # top bit first
     pop = bits.sum(-1).astype(np.int64)
@@ -1045,16 +1060,21 @@ def phase_kernels(rng, dev, int_ops_per_s):
     b16, by16 = bound(G1_BYTES * x.m * tmsm.NUM_WINDOWS + 4 * x.fsc16.numel()
                       + G1_BYTES * 2, fixed_msm_ops(x.fsc16), int_ops_per_s)
     fixed["other_bound_ms"] = {"16 keys, 2 MSMs": b16}
-    for m, label in ((x.tab.shape[0], "256 keys, 2 MSMs"),
-                     (x.m, "16 keys, 2 MSMs")):
-        ms = fixed["ms"] if m == x.tab.shape[0] else fixed["other_ms"][label]
+    for m, label, sc in ((x.tab.shape[0], "256 keys, 2 MSMs", x.fsc),
+                         (x.m, "16 keys, 2 MSMs", x.fsc16)):
+        big = m == x.tab.shape[0]
+        ms = fixed["ms"] if big else fixed["other_ms"][label]
+        b_ms = fixed["bound_ms"] if big else b16
         k2 = fixed["other_ms"][f"K2 msm_many, {label}"]
         old = fixed["other_ms"][f"ladder + g1_sum (before), {label}"]
+        own_ms = fixed_kernel_ops(sc) / int_ops_per_s * 1e3
         say(f"[kernels] the aggregation's MSMs at {label}: g1_msm_fixed "
             f"{ms:.4f} ms ({fixed_depth(m)} dependent point operations, "
             f"{ms / fixed_depth(m) * 1e3:.2f} us each), K2 msm_many "
-            f"{k2:.4f} ms, the ladder + g1_sum before {old:.4f} ms"
-            + (f"; bound {b16:.6f} ms ({by16})" if m == x.m else "")
+            f"{k2:.4f} ms, the ladder + g1_sum before {old:.4f} ms; bound "
+            f"{b_ms:.6f} ms (buckets over the table, no doubles), "
+            f"{ms / b_ms:.0f} x it; the kernel's own double-and-add terms "
+            f"{own_ms:.6f} ms at the integer rate"
             + ("; faster than K2" if ms < k2 else
                "; SLOWER than K2: the aggregation should take K2 here"))
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
@@ -1311,16 +1331,10 @@ def phase_device_times(res, dev):
               ("g1_msm_fixed", "K2 msm_many, 16 keys, 2 MSMs, device"): (
                   lambda: tmsm.msm_many(x.lag16, x.fsc16), 5)}
     for (name, label), (fn, launches) in others.items():
-        try:
-            ms = time_graph(fn, launches)
-        except RuntimeError as exc:      # a yardstick that does not capture
-            check(label.startswith("K2 "), f"{name}, {label}: {exc}")
-            say(f"[device] {name}, {label}: not measured (no CUDA graph: "
-                f"{str(exc).splitlines()[0]})")
-            continue
+        ms = time_graph(fn, launches)
         res[name].setdefault("other_ms", {})[label] = ms
-        say(f"[device] {name}, {label.split(',')[0]}: {ms:.4f} ms a call "
-            "by graph replay")
+        say(f"[device] {name}, {label.removesuffix(', device')}: {ms:.4f} "
+            "ms a call by graph replay")
     for name, r in res.items():
         r["profiler_ms"] = time_profiler(calls[name], 20)
         prof = ("no device time" if r["profiler_ms"] is None

@@ -541,6 +541,11 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
         kernels.g1_msm_fixed(table[:, :8], sc[None])       # 8 windows
     with pytest.raises(ValueError):
         kernels.g1_msm_fixed(table, sc[None].to(torch.int64))
+    many = kernels.FIXED_MAX_KEYS + 1                      # 513 keys
+    with pytest.raises(ValueError, match="1..512 bases"):
+        kernels.g1_msm_fixed(tcv.g1_infinity((many, 32), dev),
+                             torch.zeros((1, many, 8), dtype=torch.int32,
+                                         device=dev))
     with pytest.raises(ValueError):
         kernels.g1_fixed_table(pts[None])
 

@@ -148,6 +148,18 @@ def test_fixed_base_mul_matches_oracle_and_jax():
         o.G1.mul(G, k))) for k in ks]
 
 
+def test_tree_sum_over_fr_rows_pads_with_zero():
+    """tree_sum along dim 1 of (B, N, 8) Fr elements, N not a power of two
+    (padded with the given zero), against Python's sums."""
+    from zkp_subnet_tpu_torch.ops.field import FR
+    rng = np.random.default_rng(18)
+    vals = [[int.from_bytes(rng.bytes(40), "little") % o.R
+             for _ in range(5)] for _ in range(3)]
+    t = torch.stack([FR.encode(v) for v in vals])
+    got = tcv.tree_sum(t, FR.add, FR.zeros(()))
+    assert FR.decode(got) == [sum(v) % o.R for v in vals]
+
+
 def test_sum_select_matches_oracle():
     d = _dlogs(5, 16)                       # not a power of two: pads
     p = _points(d)

@@ -447,23 +447,32 @@ def test_fixed_table_plain_holds_the_windows(fixed_16):
             G, dlogs[i] * pow(2, 8 * w, o.R) % o.R))], (i, w)
 
 
-@pytest.mark.parametrize("m, threads", [(4, 128), (16, 128), (16, 4)])
-def test_msm_fixed_plain_matches_naive_and_oracle(fixed_16, m, threads):
+@pytest.mark.parametrize("m", [4, 16])
+def test_msm_fixed_plain_matches_naive_and_oracle(fixed_16, m):
     """msm_fixed's plain version (the kernel's windowed terms and sums) for
     K = 3 MSMs at once against the oracle, and the first against msm_naive
     (the ladder and a tree): scalars 0, 1, r − 1, r − 2 and random, a base
-    at infinity, at M = 4 and 16; with 4 terms a block, the second pass
-    walks 32 block sums a lane."""
+    at infinity, at M = 4 (one block) and 16 (four block sums)."""
     pts, dlogs, table = fixed_16
     rng = np.random.default_rng(37 + m)
     ks = [[0, 1, o.R - 1, o.R - 2][:m] + _ints(m - 4, rng)
           for _ in range(3)]
     ks[2] = [o.R - 1] * m
     sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in ks])
-    got = tmsm.msm_fixed_plain(table[:m], sc, threads)
+    got = tmsm.msm_fixed_plain(table[:m], sc)
     for c in range(3):
         assert tcv.g1_affine(got[c]) == [_want(dlogs[:m], ks[c])], c
     assert tcv.g1_affine(tmsm.msm_naive(pts[:m], sc[0])) == \
         tcv.g1_affine(got[0])
-    if threads == tmsm.FIXED_THREADS:
-        assert torch.equal(tmsm.msm_fixed(table[:m], sc), got)
+    assert torch.equal(tmsm.msm_fixed(table[:m], sc), got)
+
+
+def test_msm_fixed_refuses_more_keys_than_one_block_sums():
+    """msm_fixed sums its first pass's block sums in one block: at most
+    FIXED_MAX_KEYS = 512 keys (the aggregation has 16 or 256), refused
+    past that before any work."""
+    assert tmsm.kernels.FIXED_MAX_KEYS == 512
+    m = tmsm.kernels.FIXED_MAX_KEYS + 1
+    table = tcv.g1_infinity((m, 32))
+    with pytest.raises(ValueError, match="at most 512"):
+        tmsm.msm_fixed(table, torch.zeros((1, m, 8), dtype=torch.int32))

@@ -52,8 +52,9 @@
 // (blocks, K): a thread a term (i, w) computes d·D[i][w] by an 8-bit
 // double-and-add (7 doubles, an add a set bit), and each block of
 // FIXED_THREADS consecutive terms sums them by a tree in shared memory;
-// launch 2, one block an MSM, adds the blocks' partial sums (a thread
-// walks every n-th partial, then a tree). The longest chain is 7 doubles
+// launch 2, one block an MSM, adds the blocks' partial sums by a tree (at
+// most FIXED_THREADS of them: M <= FIXED_MAX_KEYS = 512, twice the
+// aggregation's 256). The longest chain is 7 doubles
 // + 8 adds + log2(32·M) adds (28 at M = 256) in place of ~384. The field
 // operations are expanded in place (FqInline): as calls (FqCall, msm.cu's
 // choice for its chains) the MSM ran 1.25x slower on an H100 (0.476
@@ -114,6 +115,8 @@ constexpr int FIXED_BITS = 8;
 // terms a block of launch 1 sums, and the most threads of launch 2;
 // ops/msm.py:FIXED_THREADS is its mirror
 constexpr int FIXED_THREADS = 128;
+// keys at most: launch 1's blocks fit one block of launch 2
+constexpr int FIXED_MAX_KEYS = FIXED_THREADS * FIXED_THREADS / FIXED_WINDOWS;
 
 // table[i][w] = [2^(8w)]P_i for w < FIXED_WINDOWS: one thread a point, a
 // store every 8 doubles.
@@ -176,9 +179,9 @@ g1_msm_fixed_kernel(const uint32_t* __restrict__ table,
              acc);
 }
 
-// Launch 2: one block of n threads (a power of two <= FIXED_THREADS) an
-// MSM. Thread t starts from partial t (infinity past the end) and adds
-// partials t + n, t + 2n, ...; then the tree of launch 1 over the n.
+// Launch 2: one block of n threads (the power of two >= parts, parts <=
+// FIXED_THREADS) an MSM. Thread t takes partial t (infinity past the end);
+// then the tree of launch 1 over the n.
 __global__ void __launch_bounds__(FIXED_THREADS)
 g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ partial,
                         uint32_t* __restrict__ out, int parts) {
@@ -190,11 +193,6 @@ g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ partial,
     g1_load(acc, mine + G1_WORDS * t);
   else
     g1_set_infinity(acc);
-#pragma unroll 1
-  for (int b = t + n; b < parts; b += n) {
-    g1_load(Q, mine + G1_WORDS * b);
-    g1_add(acc, acc, Q);
-  }
   g1_store_shared<FIXED_THREADS>(sh, t, acc);
   __syncthreads();
 #pragma unroll 1
@@ -261,17 +259,17 @@ extern "C" int zkp_g1_fixed_table(const void* p, void* table, long long n,
 // canonical 32-bit words (read as k rows of 32·m digit bytes); partial
 // (k, ceil(32·m / FIXED_THREADS), 3, 12) scratch; out (k, 3, 12). windows,
 // threads: the caller's FIXED_WINDOWS and FIXED_THREADS, refused unless
-// they are these.
+// they are these; m at most FIXED_MAX_KEYS.
 extern "C" int zkp_g1_msm_fixed(const void* table, const void* scalars,
                                 void* partial, void* out, int k, int m,
                                 int windows, int threads, void* stream) {
   if (windows != FIXED_WINDOWS || threads != FIXED_THREADS || k < 1 ||
-      k > 65535 || m < 1 || m > (1 << 20))
+      k > 65535 || m < 1 || m > FIXED_MAX_KEYS)
     return (int)cudaErrorInvalidValue;
   const int terms = FIXED_WINDOWS * m;
   const int parts = (terms + FIXED_THREADS - 1) / FIXED_THREADS;
   int n = 1;
-  while (n < parts && n < FIXED_THREADS) n *= 2;
+  while (n < parts) n *= 2;
   g1_msm_fixed_kernel<<<dim3((unsigned)parts, (unsigned)k), FIXED_THREADS, 0,
                         (cudaStream_t)stream>>>(
       (const uint32_t*)table, (const uint8_t*)scalars, (uint32_t*)partial,

@@ -139,14 +139,6 @@ def _rows(t: torch.Tensor, b: int, m: int) -> torch.Tensor:
     return t.expand(b, m, FR.L).contiguous()
 
 
-def _tree_sum_rows(t: torch.Tensor, add) -> torch.Tensor:
-    """Σ along dim 1 of (B, M, ...) by halving (M a power of two)."""
-    while t.shape[1] > 1:
-        half = t.shape[1] // 2
-        t = add(t[:, :half].contiguous(), t[:, half:].contiguous())
-    return t[:, 0]
-
-
 def aggregate_core(lagrange_table: torch.Tensor, commitments: torch.Tensor,
                    proofs: torch.Tensor, evals: torch.Tensor,
                    beta: torch.Tensor, dom: torch.Tensor,
@@ -165,13 +157,14 @@ def aggregate_core(lagrange_table: torch.Tensor, commitments: torch.Tensor,
     adds over both."""
     b, m = evals.shape[:2]
     dom_b = _rows(dom, b, m)
-    C, W = _tree_sum_rows(torch.stack([commitments, proofs], 1).reshape(
-        2 * b, m, 3, -1), cv.g1_add).view(b, 2, 3, -1).unbind(1)
+    C, W = cv.tree_sum(torch.stack([commitments, proofs], 1).reshape(
+        2 * b, m, 3, -1), cv.g1_add, cv.g1_infinity((), evals.device)).view(
+            b, 2, 3, -1).unbind(1)
 
     # y(β) via barycentric: (β^m − 1)/m · Σ y_i·ω^i/(β − ω^i)
     inv_diff = FR.inv(FR.sub(_rows(beta[:, None], b, m), dom_b))
-    s = _tree_sum_rows(FR.mont_mul(FR.mont_mul(evals, dom_b), inv_diff),
-                       FR.add)
+    s = cv.tree_sum(FR.mont_mul(FR.mont_mul(evals, dom_b), inv_diff),
+                    FR.add, FR.zeros((), evals.device))
     num = FR.sub(FR.pow_static(beta, m), FR.ones((), beta.device))
     value = FR.mont_mul(FR.mont_mul(num, m_inv), s)
 

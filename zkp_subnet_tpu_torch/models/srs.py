@@ -47,6 +47,10 @@ FORMAT_VERSION = 1
 #: about chunk·(32·8 B of digits + 3 point buffers of 144 B) at any scale
 GEN_CHUNK = 1 << 16
 
+#: where an ``Srs`` keeps its Lagrange-Y keys' window table (not a field:
+#: derived state, never written)
+_LAGRANGE_TABLE = "_lagrange_table"
+
 
 def entry_device(device=None) -> torch.device:
     """The device of an entry point: ``None`` means the CUDA device, and is
@@ -168,13 +172,19 @@ class Srs:
         3, 12), [2^(8w)]·V_i; 1.18 MB at M = 256) that the aggregation's
         MSMs read: built on first use, on the SRS's device, and kept. It is
         derived state: never written to the SRS files. A shard of the
-        multi-device prove (``parallel.pianist.shard_srs``) holds the table
-        of all M keys, though its ``lagrange_y`` holds its own rows only:
-        the aggregation runs on every rank."""
-        cache = self.__dict__
-        if "_lagrange_table" not in cache:
-            cache["_lagrange_table"] = tmsm.fixed_table(self.lagrange_y)
-        return cache["_lagrange_table"]
+        multi-device prove holds the table of all M keys
+        (``keep_lagrange_table``)."""
+        if _LAGRANGE_TABLE not in self.__dict__:
+            self.keep_lagrange_table(self.lagrange_y)
+        return self.__dict__[_LAGRANGE_TABLE]
+
+    def keep_lagrange_table(self, keys: torch.Tensor) -> None:
+        """Build the window table of ``keys`` (all M Lagrange-Y keys, on
+        this SRS's device) and keep it as ``lagrange_table()``: a shard of
+        the multi-device prove (``parallel.pianist.shard_srs``) whose
+        ``lagrange_y`` holds its own rows only, since the aggregation runs
+        on every rank over all M."""
+        self.__dict__[_LAGRANGE_TABLE] = tmsm.fixed_table(keys)
 
     # -- carriers ------------------------------------------------------------
 

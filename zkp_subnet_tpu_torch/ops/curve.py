@@ -255,19 +255,25 @@ def g1_fixed_base_mul(tables: torch.Tensor,
     return acc
 
 
-def g1_sum(points: torch.Tensor) -> torch.Tensor:
-    """Σ of an (N, 3, 12) tensor → (3, 12), by a halving tree of adds
-    (padded with infinity to a power of two)."""
-    n = points.shape[0]
+def tree_sum(t: torch.Tensor, add, zero: torch.Tensor) -> torch.Tensor:
+    """Σ along dim 1 of a (B, N, ...) tensor of elements → (B, ...), by a
+    halving tree of ``add`` over the contiguous halves, padded with
+    ``zero`` (one element) to a power of two: ``g1_sum``'s points, and the
+    aggregation's points and Fr elements a challenge."""
+    b, n = t.shape[:2]
     target = 1 << max(0, (n - 1).bit_length())
     if target != n:
-        points = torch.cat([points, g1_infinity((target - n,),
-                                                points.device)])
-    while points.shape[0] > 1:
-        half = points.shape[0] // 2
-        points = g1_add(points[:half].contiguous(),
-                        points[half:].contiguous())
-    return points[0]
+        t = torch.cat([t, zero.expand((b, target - n) + zero.shape)], 1)
+    while t.shape[1] > 1:
+        half = t.shape[1] // 2
+        t = add(t[:, :half].contiguous(), t[:, half:].contiguous())
+    return t[:, 0]
+
+
+def g1_sum(points: torch.Tensor) -> torch.Tensor:
+    """Σ of an (N, 3, 12) tensor → (3, 12), by ``tree_sum``'s tree of
+    adds."""
+    return tree_sum(points[None], g1_add, g1_infinity((), points.device))[0]
 
 
 def fr_to_scalar_limbs(xs: Sequence[int], device=None) -> torch.Tensor:

@@ -79,6 +79,9 @@ MAX_EVAL_ROWS = 65535
 #: sums (FIXED_THREADS): its C entry refuses others
 FIXED_WINDOWS = 32
 FIXED_THREADS = 128
+#: keys of one ``g1_msm_fixed`` call at most: its first launch's block sums
+#: fit one block of its second (FIXED_MAX_KEYS of csrc/g1.cu)
+FIXED_MAX_KEYS = FIXED_THREADS * FIXED_THREADS // FIXED_WINDOWS
 
 #: MSMs of one ``g1_msm_fixed`` call at most (the grid's second dimension)
 MAX_FIXED_MSMS = 65535
@@ -377,9 +380,9 @@ def g1_msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
         raise ValueError("g1_msm_fixed: table (M, 32, 3, 12) and scalars "
                          "(K, M, 8) on one device expected")
     k, m = scalars.shape[:2]
-    if not 1 <= k <= MAX_FIXED_MSMS or not 1 <= m <= 1 << 20:
+    if not 1 <= k <= MAX_FIXED_MSMS or not 1 <= m <= FIXED_MAX_KEYS:
         raise ValueError(f"g1_msm_fixed: 1..{MAX_FIXED_MSMS} MSMs of "
-                         "1..2^20 bases expected")
+                         f"1..{FIXED_MAX_KEYS} bases expected")
     parts = -(-FIXED_WINDOWS * m // FIXED_THREADS)
     partial = torch.empty((k, parts, 3, 12), dtype=torch.int32,
                           device=table.device)

@@ -61,7 +61,7 @@ import torch
 
 from . import kernels
 from .curve import (g1_add, g1_add_plain, g1_double_plain, g1_infinity,
-                    g1_scalar_mul, g1_sum, scalar_digits)
+                    g1_scalar_mul, g1_sum, scalar_digits, tree_sum)
 from .field import FQ
 
 WINDOW_BITS = 8
@@ -402,33 +402,20 @@ def fixed_table(points: torch.Tensor) -> torch.Tensor:
     return fixed_table_plain(points)
 
 
-def _tree_rows(points: torch.Tensor, width: int) -> torch.Tensor:
-    """(K, n, 3, 12) with n ≤ width (a power of two) → (K, 3, 12): padded
-    with infinity to ``width``, then at s = width/2 … 1 entry t < s adds
-    entry t + s, as a block's threads do through shared memory."""
-    k, n = points.shape[:2]
-    if n < width:
-        points = torch.cat([points, g1_infinity((k, width - n),
-                                                points.device)], dim=1)
-    s = width // 2
-    while s >= 1:
-        points = g1_add_plain(points[:, :s], points[:, s:2 * s])
-        s //= 2
-    return points[:, 0]
-
-
-def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor,
-                    threads: int = FIXED_THREADS) -> torch.Tensor:
+def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor
+                    ) -> torch.Tensor:
     """Plain version of K1 ``g1_msm_fixed``: (M, 32, 3, 12) table, (K, M, 8)
-    canonical scalars → (K, 3, 12), by the kernel's adds in the kernel's
-    order. Term j = 32·i + w of MSM c is d·table[i, w], d the byte w of
-    k_{c,i}, by an 8-bit double-and-add from infinity (no double at the top
-    bit, an add where a bit is set); blocks of ``threads`` consecutive terms
-    (the CPU tests pass fewer) sum by the tree of ``_tree_rows``; then n =
-    the power of two ≥ the blocks' count, at most ``threads``, lanes: lane
-    t takes the block sums t, t + n, … in order, and the tree sums the
-    lanes."""
+    canonical scalars → (K, 3, 12), M ≤ ``kernels.FIXED_MAX_KEYS``, by the
+    kernel's adds in the kernel's order. Term j = 32·i + w of MSM c is
+    d·table[i, w], d the byte w of k_{c,i}, by an 8-bit double-and-add
+    from infinity (no double at the top bit, an add where a bit is set);
+    blocks of ``FIXED_THREADS`` consecutive terms sum by ``tree_sum`` (at
+    s = 64 … 1 entry t < s adds entry t + s, as a block's threads do
+    through shared memory), and so do the blocks' sums."""
     k, m = scalars.shape[:2]
+    if m > kernels.FIXED_MAX_KEYS:
+        raise ValueError(f"msm_fixed: {m} bases, at most "
+                         f"{kernels.FIXED_MAX_KEYS}")
     terms = NUM_WINDOWS * m
     digits = scalar_digits(scalars, WINDOW_BITS).reshape(k, terms)
     base = table.reshape(1, terms, 3, FQ.L)
@@ -438,20 +425,13 @@ def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor,
             acc = g1_double_plain(acc)
         bit = ((digits >> b) & 1).bool()
         acc = torch.where(bit[..., None, None], g1_add_plain(acc, base), acc)
-    parts = -(-terms // threads)
-    pad = g1_infinity((k, parts * threads - terms), table.device)
-    blocks = torch.cat([acc, pad], dim=1).reshape(k * parts, threads, 3,
-                                                  FQ.L)
-    partial = _tree_rows(blocks, threads).reshape(k, parts, 3, FQ.L)
-    n = 1
-    while n < parts and n < threads:
-        n *= 2
-    lanes = partial[:, :n]
-    for start in range(n, parts, n):
-        more = partial[:, start:start + n]
-        lanes = torch.cat([g1_add_plain(lanes[:, :more.shape[1]], more),
-                           lanes[:, more.shape[1]:]], dim=1)
-    return _tree_rows(lanes, n)
+    parts = -(-terms // FIXED_THREADS)
+    inf = g1_infinity((), table.device)
+    blocks = torch.cat([acc, inf.expand(k, parts * FIXED_THREADS - terms, 3,
+                                        FQ.L)], dim=1)
+    partial = tree_sum(blocks.reshape(k * parts, FIXED_THREADS, 3, FQ.L),
+                       g1_add_plain, inf)
+    return tree_sum(partial.reshape(k, parts, 3, FQ.L), g1_add_plain, inf)
 
 
 def msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:

@@ -162,7 +162,7 @@ def shard_srs(srs: Srs, mesh: DeviceMesh) -> Srs:
     # the aggregation runs replicated on every rank, over all M keys: their
     # window table, built here once (not gathered and built a prove)
     with on_device(dev):
-        shard.__dict__["_lagrange_table"] = tmsm.fixed_table(keys)
+        shard.keep_lagrange_table(keys)
     return shard
 
 
