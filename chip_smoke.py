@@ -18,11 +18,12 @@ Phases (each prints a line; any failure exits non-zero):
    on edge cases at the main path's 2^16 points, runs across its tiles and
    one bucket holding a whole row, against the plain version on the card;
    the opening's K3 kernels ``fr_inv`` (also against the oracle, and on
-   r − 2 and the aggregation's differences), ``fr_powers``,
-   ``fr_suffix_scan`` and ``fr_open_quotient`` at x = 0, 1, r − 1 and
-   random, on rows of
-   zeros and of a length that is no multiple of the tile, and the whole
-   opening with the host forbidden to wait for the card; the K1 ladder
+   r − 2 and the aggregation's differences), ``fr_power_tables``,
+   ``fr_powers``, ``fr_suffix_scan`` and ``fr_open_quotient`` at x = 0, 1,
+   r − 1 and random, one row and four at one x, on rows of zeros, of a
+   length that is no multiple of the tile and of one whose powers take
+   three levels of the tables, and the whole opening of one row and of
+   four with the host forbidden to wait for the card; the K1 ladder
    ``g1_scalar_mul`` with scalars 0, 1, r − 1 and the point at infinity, at
    16 and 2^16 points, also against the loop of K1 launches it replaces;
    the aggregation's fixed-base MSM ``g1_msm_fixed`` and its table
@@ -39,14 +40,17 @@ Phases (each prints a line; any failure exits non-zero):
    K2, the depth of the dependency chain and ms ÷ depth, and
    ``msm_buckets`` on scalars that are all 1 beside uniform ones; the
    aggregation's two MSMs at 16 and 256 bases by ``g1_msm_fixed`` beside
-   K2's ``msm_many`` and beside the ladder and tree they replace;
+   K2's ``msm_many`` and beside the ladder and tree they replace; the
+   opening's kernels also at the [mesh] batch, 256 rows of 2^16 at one
+   point (held to the plain versions on four of the rows), and the whole
+   opening at one row and at the batch;
 4. ``[main]``, the worker's path: a 2^16-base SRS slice [τ^j]G1 built on the
    card, a ``Worker`` over it, and three 2^16-coefficient ``Prove`` requests
    (two with a challenge point, one commit-only), each checked by the
    trapdoor τ and the pairing verify, with kernel launch counts (one launch
    of each K2 kernel a request: the commit's and the opening's MSMs run as
-   one batched MSM; the opening in four K3 launches, at most six K3-family
-   launches and no ``fr_add`` a request; the slice's setup one ladder
+   one batched MSM; the opening in five K3 launches, at most seven
+   K3-family launches and no ``fr_add`` a request; the slice's setup one ladder
    launch and no K1 double); then the median of warm commit+open requests and the
    peak device memory; then skewed rows, as Pianist wire polynomials are
    (three of 90% zeros and ones, one of all ones), each checked the same
@@ -93,7 +97,8 @@ Phases (each prints a line; any failure exits non-zero):
    commit+open of 256 rows, the gather and the aggregation (rows/s, peak
    device memory, the backend, which must be NCCL; the launches: one
    ``fr_inv`` and one ``g1_msm_fixed`` a prove, none of the ladder, the
-   table once, in ``shard_srs``); the last round's
+   table once, in ``shard_srs``; the local commit+open of 256 rows one
+   launch of each opening kernel); the last round's
    aggregated proof verifies (and not once tampered), eight sampled
    workers pass ``worker_verify`` and the trapdoor self-check and equal
    ``pianist.worker_commit``/``worker_open`` limb for limb, and
@@ -154,6 +159,7 @@ from zkp_subnet_tpu_torch.ops.field import (FQ, FR, almost_inverse,
                                             fq_add_plain, fq_mul_plain,
                                             fq_sub_plain, fr_add_plain,
                                             fr_inv_plain, fr_mul_plain,
+                                            fr_power_tables_plain,
                                             fr_powers_plain, fr_sub_plain)
 from zkp_subnet_tpu_torch.parallel import launch
 from zkp_subnet_tpu_torch.parallel import pianist as par
@@ -226,8 +232,19 @@ G1_BYTES, FQ_BYTES, FR_BYTES = 144, 48, 32
 # add and the shifts of two 8-word values, four carry chains' worth
 OPS_INV_STEP = 4 * OPS_FR_LIN
 # the K3 kernels of one opening, and K3's elementwise ones
-K3_FAMILY = ("fr_mul", "fr_add", "fr_sub", "fr_inv", "fr_powers",
-             "fr_suffix_scan", "fr_open_quotient", "fr_eval_rows")
+K3_FAMILY = ("fr_mul", "fr_add", "fr_sub", "fr_inv", "fr_power_tables",
+             "fr_powers", "fr_suffix_scan", "fr_open_quotient",
+             "fr_eval_rows")
+# the opening's kernels after the inverse, one launch each for any rows at
+# one point
+OPENING = ("fr_power_tables", "fr_powers", "fr_suffix_scan",
+           "fr_open_quotient")
+# [mesh]'s opening: the rows a prove opens at one point (256 workers of
+# 2^16 at 24/8), and the rows of that batch held to the plain versions
+MESH_BATCH = 256
+BATCH_SAMPLED = (0, 1, 128, 255)
+# a row length whose powers take three levels of the tables (> 2^16)
+THREE_LEVELS = 70000
 LADDER_BITS = 256
 # the kernels that time far above the rest at the path's shape: the plain
 # version runs once (no warm-up call) and the kernel a few times
@@ -257,6 +274,9 @@ KERNELS = {
     # pfield over lane8.BFR as field.pow_static/powers and poly._fmul/_fadd
     # reach it
     "fr_inv": (_CSRC + "fr.cu", _PALLAS + ":181"),
+    # the tables of powers of the opening's point and of its inverse, the
+    # chain of squarings the two kernels after it ran in every block before
+    "fr_power_tables": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_powers": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_suffix_scan": (_CSRC + "fr.cu", _PALLAS + ":181"),
     "fr_open_quotient": (_CSRC + "fr.cu", _PALLAS + ":181"),
@@ -278,6 +298,7 @@ KERNEL_FUNCTIONS = {
     "g1_scalar_mul": "g1_scalar_mul_kernel",
     "g1_fixed_table": "g1_fixed_table_kernel",
     "g1_msm_fixed": "g1_msm_fixed_kernel", "fr_inv": "fr_inv_kernel",
+    "fr_power_tables": "fr_power_tables_kernel",
     "fr_powers": "fr_powers_kernel", "fr_suffix_scan": "fr_suffix_scan_kernel",
     "fr_open_quotient": "fr_open_quotient_kernel",
     "fr_eval_rows": "fr_eval_partial_kernel",
@@ -512,13 +533,21 @@ def path_inputs(rng, dev):
     qa = random_field(FQ, rng, 4096, dev).repeat(n_srs // 4096 + 1, 1)[:n_srs]
     qa = qa.contiguous()
     qb = qa.roll(1, 0).contiguous()
-    # one opening at 2^16 (x random, its inverse, the first pass's output),
-    # and the ladders of build_srs (2^16 points) and of the aggregation's
-    # naive MSMs (16), with scalars 0, 1, r - 1 and the point at infinity
-    # in the first rows
+    # one opening at 2^16 (x random, its inverse, the tables of both, the
+    # first pass's output), and the ladders of build_srs (2^16 points) and
+    # of the aggregation's naive MSMs (16), with scalars 0, 1, r - 1 and
+    # the point at infinity in the first rows
     x1 = random_fr(rng, 5, dev)[4].contiguous()
     xi1 = kernels.fr_inv(x1)
+    tab1 = kernels.fr_power_tables(x1, n, xi1)
     local, totals = kernels.fr_suffix_scan(a)
+    # [mesh]'s batch: 256 rows of 2^16 at x1, each row a times its own
+    # factor, and the first pass over them laid end to end
+    batch = kernels.fr_mul(
+        a.repeat(MESH_BATCH, 1),
+        random_fr(rng, MESH_BATCH, dev).repeat_interleave(n, 0)).view(
+            MESH_BATCH, n, 8)
+    blocal, btotals = tpoly._scan_on_card(batch)
     lp = p.clone()
     lp[3] = cv.g1_infinity((), dev)
     ls = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
@@ -538,8 +567,10 @@ def path_inputs(rng, dev):
                                  n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
                                  sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
                                  runs1=runs1, runs_ones=runs_ones, bk=bk,
-                                 wins=wins, x1=x1, xi1=xi1, local=local,
-                                 totals=totals, lp=lp, ls=ls,
+                                 wins=wins, x1=x1, xi1=xi1, tab1=tab1,
+                                 local=local, totals=totals, batch=batch,
+                                 blocal=blocal, btotals=btotals, lp=lp,
+                                 ls=ls,
                                  lp16=lp[:16].contiguous(),
                                  ls16=ls[:16].contiguous(),
                                  lp256=lp[:256].contiguous(),
@@ -557,7 +588,7 @@ OPENINGS = "16 rows by 16 openings, y kept (the path before)"
 
 def openings_y(rows, alpha):
     """The rows at alpha as ``poly_eval`` took them before ``fr_eval_rows``:
-    one opening a row (four K3 launches), the quotient dropped."""
+    one opening a row (five K3 launches), the quotient dropped."""
     return torch.stack([tpoly._open_on_card(r, alpha[0])[0] for r in rows])
 
 
@@ -666,6 +697,33 @@ def aggregation_msms_before(points, scalars):
     return torch.stack([tmsm.msm_naive(points, s) for s in scalars])
 
 
+def powers_need(rows, n):
+    """(bytes, operations) that x^k·c_{b,k} over rows × n needs: c read and
+    out written once; x^k by one product from x^(k−1) (once for all
+    rows), then one by c_{b,k}."""
+    return (FR_BYTES * (2 * rows * n + 1),
+            (rows * n + n - 1) * OPS_FR_MUL)
+
+
+def quotient_need(rows, n):
+    """(bytes, operations) of the quotient pass over rows × n at one x:
+    local read and q written once (and the tiles' totals, x, 1/x, y); an
+    add and a product an element, the powers of 1/x once for all rows, and
+    the adds of the tiles' carries."""
+    tiles = -(-n // tpoly.SCAN_TILE)
+    return (FR_BYTES * (rows * (2 * n + tiles + 1) + 2),
+            rows * n * (OPS_FR_LIN + OPS_FR_MUL) + (n - 2) * OPS_FR_MUL
+            + rows * tiles * OPS_FR_LIN)
+
+
+def scan_need(rows, n):
+    """(bytes, operations) of the scan's first pass over rows × n: terms
+    read, local sums written once, the tiles' totals; an add an element."""
+    tiles = -(-n // tpoly.SCAN_TILE)
+    return (FR_BYTES * rows * (2 * n + tiles),
+            rows * (n - 1) * OPS_FR_LIN)
+
+
 def path_calls(x):
     """{kernel: (kernel call, plain call, repetitions, comparison, bytes
     moved (each input read once, each output written once), integer
@@ -677,9 +735,8 @@ def path_calls(x):
     rows_b, nb = bk.shape[:2]
     bucket_adds = bucket_add_count(runs[1])        # this run's data
     windows = tmsm.NUM_WINDOWS
-    x1, xi1, local, totals, lp, ls = x.x1, x.xi1, x.local, x.totals, x.lp, \
-        x.ls
-    tiles = totals.shape[0]
+    x1, xi1, tab1, local, totals, lp, ls = x.x1, x.xi1, x.tab1, x.local, \
+        x.totals, x.lp, x.ls
     return {
         "g1_scalar_mul": (lambda: kernels.g1_scalar_mul(lp, ls),
                           lambda: cv.g1_scalar_mul_plain(lp, ls), 3, limbs,
@@ -701,20 +758,24 @@ def path_calls(x):
             G1_BYTES * x.tab.shape[0] * tmsm.NUM_WINDOWS
             + 4 * x.fsc.numel() + G1_BYTES * x.fsc.shape[0],
             fixed_msm_ops(x.fsc)),
-        "fr_powers": (lambda: kernels.fr_powers(x1, n, a),
-                      lambda: fr_powers_plain(x1, n, a), 50, fr,
-                      FR_BYTES * (2 * n + 1),
-                      # x^k by one product from x^(k−1), then one by c_k
-                      (2 * n - 1) * OPS_FR_MUL),
+        # what the tables hold, each entry one product from another; the
+        # kernel's time is its chain of ~9 products a level (latency)
+        "fr_power_tables": (
+            lambda: kernels.fr_power_tables(x1, n, xi1),
+            lambda: fr_power_tables_plain(x1, n, xi1), 50, same_limbs,
+            FR_BYTES * (2 + tab1.numel() // 8),
+            tab1.numel() // 8 * OPS_FR_MUL),
+        "fr_powers": (lambda: kernels.fr_powers(tab1[0], n, a),
+                      lambda: fr_powers_plain(tab1[0], n, a), 50, fr,
+                      *powers_need(1, n)),
         "fr_suffix_scan": (lambda: kernels.fr_suffix_scan(a),
                            lambda: tpoly.fr_suffix_scan_plain(a), 50,
-                           same_fr_pair, FR_BYTES * (2 * n + tiles),
-                           (n - 1) * OPS_FR_LIN),
+                           same_fr_pair, *scan_need(1, n)),
         "fr_open_quotient": (
-            lambda: kernels.fr_open_quotient(local, totals, x1, xi1, a),
-            lambda: tpoly.fr_open_quotient_plain(local, totals, x1, xi1, a),
-            50, same_fr_pair, FR_BYTES * (2 * n + tiles + 3),
-            n * (OPS_FR_LIN + 2 * OPS_FR_MUL) + tiles * OPS_FR_LIN),
+            lambda: kernels.fr_open_quotient(local, totals, x1, tab1[1], a),
+            lambda: tpoly.fr_open_quotient_plain(local, totals, x1, tab1[1],
+                                                 a),
+            50, same_fr_pair, *quotient_need(1, n)),
         # Horner's one product and one add an element is the least any
         # method needs; the coefficients read once
         "fr_eval_rows": (lambda: kernels.fr_eval_rows(x.rows, x.alpha),
@@ -950,6 +1011,8 @@ def phase_kernels(rng, dev, int_ops_per_s):
              "msm_combine": (windows * (tmsm.WINDOW_BITS + 1),
                              "point operations"),
              "fr_inv": (inverse_steps(x.x1)[0], "binary-inverse steps"),
+             # a level's 8-step scan and the next level's base
+             "fr_power_tables": (9 * x.tab1.shape[1] - 1, "products"),
              "g1_msm_fixed": (fixed_depth(x.tab.shape[0]),
                               "point operations")}
     for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
@@ -1052,6 +1115,14 @@ def phase_kernels(rng, dev, int_ops_per_s):
             f"{b_ms:.6f} ms ({b_by}), "
             f"{ladder['other_ms'][label] / b_ms:.0f} x it: latency, one "
             "thread's chain of steps a point")
+    # the aggregation's 16 inverses: each element's steps on this input and
+    # its two closing products, as the one-element row counts them
+    res["fr_inv"]["other_bound_ms"] = {"16 elements": bound(
+        2 * FR_BYTES * x.diffs.shape[0], inverse_ops(x.diffs),
+        int_ops_per_s)[0]}
+    say(f"[kernels] fr_inv at 16 elements: steps {inverse_steps(x.diffs)}; "
+        f"bound {res['fr_inv']['other_bound_ms']['16 elements']:.7f} ms "
+        "(operations)")
     ladder["other_plain_ms"] = {"256 points": time_cuda(
         lambda: cv.g1_scalar_mul_plain(x.lp256, x.ls256), 1, warm=False)[0]}
     say("[kernels] g1_scalar_mul at 256 points: plain "
@@ -1077,12 +1148,74 @@ def phase_kernels(rng, dev, int_ops_per_s):
             f"{own_ms:.6f} ms at the integer rate"
             + ("; faster than K2" if ms < k2 else
                "; SLOWER than K2: the aggregation should take K2 here"))
+    time_opening_batch(x, res, int_ops_per_s, record)
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
     say(f"[kernels] fr_sub at 2^{LOG_N} elements (for scale; its path's "
         f"shape is {x.m}): "
         f"{time_cuda(lambda: kernels.fr_sub(x.a, x.b), 50)[0]:.4f} ms")
     return res
+
+
+def batch_calls(x):
+    """{(kernel, label): (call, plain call on BATCH_SAMPLED rows, (bytes,
+    operations), launches a CUDA graph replays)} at [mesh]'s batch of
+    MESH_BATCH rows of 2^16 at one point: the opening's kernels, one launch
+    each, and the whole opening (1/x given) of one row and of the batch,
+    under ``fr_open_quotient``."""
+    n, b, rows = x.n, MESH_BATCH, list(BATCH_SAMPLED)
+    label = f"{b} x 2^{LOG_N}"
+
+    def need(rows_):
+        parts = (powers_need(rows_, n), scan_need(rows_, n),
+                 quotient_need(rows_, n))
+        return tuple(sum(p[i] for p in parts) for i in range(2))
+    return {
+        ("fr_powers", label): (
+            lambda: kernels.fr_powers(x.tab1[0], n, x.batch),
+            lambda: fr_powers_plain(x.tab1[0], n, x.batch[rows]),
+            powers_need(b, n), 10),
+        ("fr_suffix_scan", label): (
+            lambda: tpoly._scan_on_card(x.batch),
+            lambda: tpoly.fr_suffix_scan_plain(x.batch[rows]),
+            scan_need(b, n), 10),
+        ("fr_open_quotient", label): (
+            lambda: kernels.fr_open_quotient(x.blocal, x.btotals, x.x1,
+                                             x.tab1[1], x.batch),
+            lambda: tpoly.fr_open_quotient_plain(
+                x.blocal[rows], x.btotals[rows], x.x1, x.tab1[1],
+                x.batch[rows]), quotient_need(b, n), 10),
+        ("fr_open_quotient", "whole opening, 1 row"): (
+            lambda: tpoly._open_on_card(x.a, x.x1, x.xi1),
+            lambda: tpoly.open_pieces_plain(x.a, x.x1, xi=x.xi1),
+            need(1), 20),
+        ("fr_open_quotient", f"whole opening, {label}"): (
+            lambda: tpoly._open_on_card(x.batch, x.x1, x.xi1),
+            lambda: tpoly.open_pieces_plain(x.batch[rows], x.x1, xi=x.xi1),
+            need(b), 5)}
+
+
+def time_opening_batch(x, res, int_ops_per_s, record):
+    """``batch_calls`` on the host's loop: each against its plain version
+    (on BATCH_SAMPLED rows of the batch), its ms a call and its bound
+    (``other_ms``, ``other_bound_ms``)."""
+    rows = list(BATCH_SAMPLED)
+    for (name, label), (kern, plain, (nbytes, ops), _) in \
+            batch_calls(x).items():
+        ms, got = time_cuda(kern, 5)
+        if "1 row" not in label:
+            got = tuple(t[rows] for t in got) if isinstance(got, tuple) \
+                else got[rows]
+        same = same_fr_pair if isinstance(got, tuple) else same_fr
+        record(name, same(got, plain()))
+        del got
+        b_ms, b_by = bound(nbytes, ops, int_ops_per_s)
+        res[name].setdefault("other_ms", {})[label] = ms
+        res[name].setdefault("other_bound_ms", {})[label] = b_ms
+        say(f"[kernels] {name}, {label}: equal to plain (rows "
+            f"{'0' if '1 row' in label else rows}); {ms:.4f} ms a call on "
+            f"the host's loop, bound {b_ms:.5f} ms ({b_by}), "
+            f"{ms / b_ms:.1f} x it")
 
 
 def phase_fixed_msm_kernels(rng, dev, record):
@@ -1120,16 +1253,18 @@ def phase_fixed_msm_kernels(rng, dev, record):
 
 def phase_opening_kernels(rng, dev, record):
     """K3's opening kernels against their plain versions (on CPU copies;
-    at 2^16 on the card): ``fr_inv`` on 0, 1, r − 1, r − 2, the 16
-    differences β − ω^i of the aggregation and random values; ``fr_powers``
-    at x = 0, 1, r − 1 and random, n = 1, 1000 and 2^16, with and without
-    c; the two scan passes on a random row and a row of zeros at 2^16 and
-    a row of 3000 (no multiple of the tile), at the same points; the whole
-    opening (``poly_open_scalars``) against the plain versions composed,
-    while the host may not wait for the card
-    (``torch.cuda.set_sync_debug_mode("error")``: no value of x comes
-    back); ``poly_eval_and_quotient`` against the same, and ``poly_eval``
-    (K3 ``fr_eval_rows``) against their y."""
+    at 2^16 and more on the card): ``fr_inv`` on 0, 1, r − 1, r − 2, the 16
+    differences β − ω^i of the aggregation and random values;
+    ``fr_power_tables`` (of x and 1/x, and of x alone) and ``fr_powers``
+    (no c, one row, four rows) at x = 0, 1, r − 1 and random, n = 1, 1000,
+    3000, 2^16 and THREE_LEVELS; the two scan passes on one row and on four
+    at once (random, zeros, 2^16, 3000: no multiple of the tile,
+    THREE_LEVELS), at the same points; the whole opening of those rows
+    (``poly_open_scalars``) against the plain versions composed and, for
+    four rows, against each row's own opening, while the host may not wait
+    for the card (``torch.cuda.set_sync_debug_mode("error")``: no value of
+    x comes back); ``poly_eval_and_quotient`` against the same, and
+    ``poly_eval`` (K3 ``fr_eval_rows``) against their y."""
     vals = random_fr(rng, 64, dev)                 # 0, 1, r−1, r−2, random
     diffs = FR.sub(vals[10], aggregation_dom(1 << ROUND_MACHINES_SCALE, dev))
     # the limbs 1 (the Montgomery form of 1/R) take the inverse's doubling
@@ -1144,27 +1279,59 @@ def phase_opening_kernels(rng, dev, record):
           "fr_inv != the oracle's x^(r-2)")
     xs = [vals[i].contiguous() for i in (0, 1, 2, 9)]
     big = 1 << LOG_N
-    for n_pow in (1, 1000, big):
+
+    def four(c):
+        """Four distinct rows from one."""
+        return torch.stack([c, c.roll(1, 0), c.flip(0), FR.mont_mul(c, c)])
+    for n_pow in (1, 1000, 3000, big, THREE_LEVELS):
         c = random_fr(rng, n_pow, dev)
-        host = n_pow < big
-        for x in xs:
-            xp, cp = (x.cpu(), c.cpu()) if host else (x, c)
-            record("fr_powers", same_fr(kernels.fr_powers(x, n_pow),
-                                        fr_powers_plain(xp, n_pow)))
-            record("fr_powers", same_fr(kernels.fr_powers(x, n_pow, c),
-                                        fr_powers_plain(xp, n_pow, cp)))
-    rows = (("random", random_fr(rng, big, dev)),
-            ("all zeros", FR.zeros((big,), dev)),
-            ("3000 coefficients", random_fr(rng, 3000, dev)))
-    for label, c in rows:
-        local, totals = kernels.fr_suffix_scan(c)
-        record("fr_suffix_scan", same_fr_pair(
-            (local, totals), tpoly.fr_suffix_scan_plain(c)))
+        c4 = four(c)
+        on = (lambda t: t.cpu()) if n_pow < big else (lambda t: t)
         for x in xs:
             xi = kernels.fr_inv(x)
+            tables = kernels.fr_power_tables(x, n_pow, xi)
+            want = fr_power_tables_plain(on(x), n_pow, on(xi))
+            record("fr_power_tables", same_limbs(tables, want))
+            record("fr_power_tables", same_limbs(
+                kernels.fr_power_tables(x, n_pow), want[:1]))
+            t0 = on(tables[0])
+            for cc in (None, c, c4):
+                record("fr_powers", same_fr(
+                    kernels.fr_powers(tables[0], n_pow, cc),
+                    fr_powers_plain(t0, n_pow, None if cc is None
+                                    else on(cc))))
+    levels = kernels.fr_power_tables(xs[3], THREE_LEVELS).shape[1]
+    check(levels == 3, f"{THREE_LEVELS} powers: {levels} levels, not 3")
+    say("[kernels] K3 fr_power_tables (x and 1/x; x alone) and fr_powers "
+        "(no c, one row, four rows) at x = 0, 1, r-1, random, n = 1, 1000, "
+        f"3000, 2^{LOG_N}, {THREE_LEVELS} (three levels): equal to plain "
+        "limb for limb")
+    rand = random_fr(rng, big, dev)
+    three = random_fr(rng, THREE_LEVELS, dev)
+    short = random_fr(rng, 3000, dev)
+    rows = (("random", rand), ("all zeros", FR.zeros((big,), dev)),
+            ("3000 coefficients", short),
+            (f"{THREE_LEVELS} coefficients", three),
+            (f"4 rows of 2^{LOG_N}", four(rand)),
+            ("4 rows of 3000", four(short)),
+            (f"4 rows of {THREE_LEVELS}", four(three)))
+    for label, c in rows:
+        batched = c.dim() == 3
+        local, totals = tpoly._scan_on_card(c if batched else c[None])
+        if not batched:
+            local, totals = local[0], totals[0]
+        record("fr_suffix_scan", same_fr_pair(
+            (local, totals), tpoly.fr_suffix_scan_plain(c)))
+        if not batched:
+            record("fr_suffix_scan", same_fr_pair(
+                (local, totals), kernels.fr_suffix_scan(c)))
+        for x in xs:
+            tables = kernels.fr_power_tables(x, c.shape[-2],
+                                             kernels.fr_inv(x))
             record("fr_open_quotient", same_fr_pair(
-                kernels.fr_open_quotient(local, totals, x, xi, c),
-                tpoly.fr_open_quotient_plain(local, totals, x, xi, c)))
+                kernels.fr_open_quotient(local, totals, x, tables[1], c),
+                tpoly.fr_open_quotient_plain(local, totals, x, tables[1],
+                                             c)))
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -1173,6 +1340,12 @@ def phase_opening_kernels(rng, dev, record):
                 torch.cuda.set_sync_debug_mode("default")
             record("fr_open_quotient", same_fr_pair(
                 got, tpoly.open_pieces_plain(c, x)))
+            if batched:
+                for b in range(c.shape[0]):
+                    record("fr_open_quotient", same_fr_pair(
+                        (got[0][b], got[1][b]),
+                        tpoly.poly_open_scalars(c[b], x)))
+                continue
             y, q = tpoly.poly_eval_and_quotient(c, x)
             y_plain, q_plain = tpoly.open_pieces_plain(c, x)
             record("fr_open_quotient", same_fr_pair(
@@ -1182,17 +1355,17 @@ def phase_opening_kernels(rng, dev, record):
             f"{tuple(local.shape)} in tiles of {tpoly.SCAN_TILE}), at x = 0, "
             "1, r-1 and random: equal to plain; poly_open_scalars equals "
             "the plain versions composed, with no wait for the card on the "
-            "host, and so does poly_eval_and_quotient; poly_eval "
-            "(fr_eval_rows) gives the same y")
+            "host"
+            + (", and each row's own opening" if batched else
+               ", and so does poly_eval_and_quotient; poly_eval "
+               "(fr_eval_rows) gives the same y"))
     x_int = FR.decode(xs[3])[0]
-    c = rows[2][1]
-    check(FR.decode(tpoly.poly_open_scalars(c, xs[3])[0])
-          == [o.poly_eval(FR.decode(c), x_int)], "opening: y != f(x)")
+    check(FR.decode(tpoly.poly_open_scalars(short, xs[3])[0])
+          == [o.poly_eval(FR.decode(short), x_int)], "opening: y != f(x)")
     say("[kernels] K3 fr_inv (64 values incl. 0, 1, r-1, r-2; the 16 "
-        "aggregation differences; the limbs 1), also equal to the oracle, "
-        "and fr_powers (x = 0, 1, r-1, random; "
-        "n = 1, 1000, 2^16, with and without c): equal to plain; y of the "
-        "3000-coefficient row equals the oracle's f(x)")
+        "aggregation differences; the limbs 1), also equal to the oracle: "
+        "equal to plain; y of the 3000-coefficient row equals the oracle's "
+        "f(x)")
 
 
 def phase_eval_rows_kernel(rng, dev, record):
@@ -1330,6 +1503,8 @@ def phase_device_times(res, dev):
                   lambda: tmsm.msm_many(x.lag, x.fsc), 5),
               ("g1_msm_fixed", "K2 msm_many, 16 keys, 2 MSMs, device"): (
                   lambda: tmsm.msm_many(x.lag16, x.fsc16), 5)}
+    others.update({(name, label + ", device"): (call[0], call[3])
+                   for (name, label), call in batch_calls(x).items()})
     for (name, label), (fn, launches) in others.items():
         ms = time_graph(fn, launches)
         res[name].setdefault("other_ms", {})[label] = ms
@@ -1386,16 +1561,16 @@ def selfcheck(resp, row_ints, x_int, commit_only, tau=TAU, key=1):
 
 def check_request_launches(used, label):
     """One request's launches: one of each K2 kernel (a batched commit +
-    opening), the opening in four K3 launches (one each of fr_inv,
-    fr_powers and the two scan passes; no fr_add), at most six K3-family
-    launches in all, and no K1 double or ladder."""
-    for k in ("msm_buckets", "msm_reduce", "msm_combine", "fr_inv",
-              "fr_powers", "fr_suffix_scan", "fr_open_quotient"):
+    opening), the opening in five K3 launches (one each of fr_inv, the
+    tables, fr_powers and the two scan passes; no fr_add), at most seven
+    K3-family launches in all, and no K1 double or ladder."""
+    for k in ("msm_buckets", "msm_reduce", "msm_combine", "fr_inv")\
+            + OPENING:
         check(used[k] == 1, f"{label}: {used[k]} {k} launches, not 1")
     for k in ("fr_add", "g1_double", "g1_scalar_mul"):
         check(used[k] == 0, f"{label}: {used[k]} {k} launches, not 0")
     k3 = sum(used[k] for k in K3_FAMILY)
-    check(k3 <= 6, f"{label}: {k3} K3-family launches, more than 6")
+    check(k3 <= 7, f"{label}: {k3} K3-family launches, more than 7")
     check(used["g1_add"] > 0 and used["fr_mul"] > 0,
           f"{label}: no g1_add or fr_mul launch")
 
@@ -1445,8 +1620,7 @@ def phase_main_path(rng, dev):
             + f"; launches {({k: v for k, v in used.items() if v})}")
     launches = dict(kernels.LAUNCHES)
     for k in ("g1_add", "g1_scalar_mul", "msm_buckets", "msm_reduce",
-              "msm_combine", "fr_mul", "fr_inv", "fr_powers",
-              "fr_suffix_scan", "fr_open_quotient"):
+              "msm_combine", "fr_mul", "fr_inv") + OPENING:
         check(launches[k] > 0, f"main path never launched {k}")
 
     torch.cuda.reset_peak_memory_stats()
@@ -1494,7 +1668,7 @@ def phase_main_path(rng, dev):
         skew_times.append(dt)
         say(f"[main] skewed request ({label}): {dt * 1e3:.2f} ms, trapdoor "
             "self-check PASS, pairing verify PASS; one launch of each K2 "
-            "kernel, the opening in four K3 launches")
+            "kernel, the opening in five K3 launches")
     say(f"[main] skewed 2^{LOG_N} rows: median "
         f"{statistics.median(skew_times) * 1e3:.2f} ms over "
         f"{len(skew_times)} ({', '.join(f'{t * 1e3:.2f}' for t in skew_times)}"
@@ -2305,14 +2479,21 @@ def mesh_deployment(dev, tmp):
     scale, mscale = CLI_FULL
     m = 1 << mscale
     (setup, pre, _) = cli_files(tmp, CLI_FULL)[1]
-    kept = []
-    prove_gathered = par.prove_gathered
+    kept, local_launches = [], []
+    prove_gathered, commit_open = par.prove_gathered, par.commit_open
 
     def keep(*args):
         out = prove_gathered(*args)
         kept[:] = [args, out]
         return out
-    par.prove_gathered = keep
+
+    def count_local(*args):
+        before = dict(kernels.LAUNCHES)
+        out = commit_open(*args)
+        local_launches.append({k: v - before[k] for k, v in
+                               kernels.LAUNCHES.items() if v != before[k]})
+        return out
+    par.prove_gathered, par.commit_open = keep, count_local
     torch.cuda.reset_peak_memory_stats()
     before = dict(kernels.LAUNCHES)
     try:
@@ -2329,7 +2510,7 @@ def mesh_deployment(dev, tmp):
                               str(MESH_ROUNDS), "--seed", str(SEED)])
             t_launch = time.perf_counter() - t0
     finally:
-        par.prove_gathered = prove_gathered
+        par.prove_gathered, par.commit_open = prove_gathered, commit_open
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
             if v != before[k]}
@@ -2342,6 +2523,13 @@ def mesh_deployment(dev, tmp):
           and "g1_scalar_mul" not in used,
           f"launch.main: not 2 fr_inv and one g1_msm_fixed a round, the "
           f"table once and no ladder ({used})")
+    # the local step opens all its rows at alpha in one launch of each
+    # opening kernel, with alpha inverted once
+    check(len(local_launches) == MESH_ROUNDS and all(
+        all(u.get(k) == 1 for k in ("fr_inv",) + OPENING)
+        for u in local_launches),
+        f"launch.main: a local commit+open not one launch of fr_inv and of "
+        f"each opening kernel: {local_launches}")
     check(f"loaded SRS from {setup}" in log.lines,
           f"launch.main did not load [cli]'s files: {log.lines}")
     mesh_line = [x for x in log.lines if x.startswith("mesh ")]
@@ -2375,7 +2563,8 @@ def mesh_deployment(dev, tmp):
             f"{m / r['prove']:.1f} rows/s ({m / (r['fft'] + r['prove']):.1f}"
             " rows/s with the NTT)")
     say(f"[mesh] peak device memory {peak:.1f} MiB; launch.main's launches "
-        f"{used}")
+        f"{used}; a prove's local commit+open of {m} rows launches "
+        f"{local_launches[-1]}")
 
     (sharded, coeff, alpha, beta, _), (out, (_, evals, _)) = kept
     srs = Srs.load(setup, pre, lazy=True)

@@ -1,13 +1,17 @@
 """The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
 fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
 integers and the port's plain point formulas: the field operations, the
-binary inverse (fr::inv), a run of powers (fr::pow_run), the point add
-and double, and the double-and-add ladder (g1_scalar_mul).
+binary inverse (fr::inv), a run of powers (fr::pow_run), the power tables
+(fr::power_table, a level by fr::level_scan) and their lookup
+(fr::table_pow), the point add and double, and the double-and-add ladder
+(g1_scalar_mul).
 
 The headers' carry chains are PTX (csrc/ptx.cuh), which only the card runs.
-Here ptx.cuh is replaced by an emulation of its functions with one global
-carry flag, which is what the card's CC.CF is to a thread, so that a change
-to the chains can be checked without the card. The card tests
+Here ptx.cuh is replaced by an emulation of its functions with a carry flag
+a thread, which is what the card's CC.CF is to a thread, so that a change
+to the chains can be checked without the card. A table is built as a block
+of the card builds it: a host thread for each of the block's threads, a
+barrier where the block has one. The card tests
 (tests/test_torch_cuda.py) hold the kernels themselves to the plain
 versions. Skipped where there is no g++. Tolerance: none (integer
 arithmetic).
@@ -31,7 +35,7 @@ PTX_EMULATION = r"""
 #pragma once
 #include <cstdint>
 namespace ptx {
-inline uint32_t cf = 0;
+inline thread_local uint32_t cf = 0;
 inline uint32_t set(uint64_t s) { cf = (uint32_t)(s >> 32); return (uint32_t)s; }
 inline uint32_t mul_lo(uint32_t a, uint32_t b) { return a * b; }
 inline uint32_t mul_hi(uint32_t a, uint32_t b) {
@@ -68,8 +72,12 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
 # ops 0-2 Fr mul/add/sub, 3-5 Fq mul/add/sub, 6 g1_add, 7 g1_double,
 # 8 Fr inverse, 9 the ladder (a point, then its scalar's 8 words), 10 a
 # run of four powers (x, then the words k, bits and 1 to leave Montgomery
-# form or 0)
+# form or 0), 11 a power table (x, then levels and canonical0; all its
+# entries on one line), 12 lookups in one (x, levels, canonical0, a count
+# m, then m exponents as two words each, low first; a line each)
 HOST_MAIN = r"""
+#include <pthread.h>
+
 #include <cstdint>
 #include <cstdio>
 #define __device__
@@ -90,6 +98,43 @@ static void write(const uint32_t* w, int n) {
   for (int j = 0; j < n; j++) printf("%08x%c", w[j], j + 1 < n ? ' ' : '\n');
 }
 
+struct HostSync {
+  pthread_barrier_t* bar;
+  void operator()() const { pthread_barrier_wait(bar); }
+};
+
+struct TableJob {
+  uint32_t *T, *S;
+  const uint32_t* x;
+  int levels, i;
+  bool canonical0;
+  pthread_barrier_t* bar;
+};
+
+static void* table_thread(void* p) {
+  const TableJob* j = (const TableJob*)p;
+  fr::power_table<fr::POW_LEVEL_BITS>(j->T, j->S, j->x, j->levels,
+                                      j->canonical0, j->i, HostSync{j->bar});
+  return nullptr;
+}
+
+// x's table as a block of POW_WIDTH threads builds it on the card
+static void build_table(uint32_t* T, const uint32_t* x, int levels,
+                        bool canonical0) {
+  constexpr int W = fr::POW_WIDTH;
+  static uint32_t S[(2 * W + 1) * fr::L];
+  pthread_barrier_t bar;
+  pthread_barrier_init(&bar, nullptr, W);
+  pthread_t th[W];
+  TableJob jobs[W];
+  for (int i = 0; i < W; i++) {
+    jobs[i] = {T, S, x, levels, i, canonical0, &bar};
+    pthread_create(&th[i], nullptr, table_thread, &jobs[i]);
+  }
+  for (int i = 0; i < W; i++) pthread_join(th[i], nullptr);
+  pthread_barrier_destroy(&bar);
+}
+
 int main() {
   int op;
   while (scanf("%d", &op) == 1) {
@@ -105,6 +150,23 @@ int main() {
       fr::square_table(T, a, (int)b[1]);
       fr::pow_run<4>(run, T, b[0], (int)b[1], b[2] ? one : nullptr);
       write(run[0], 4 * fr::L);
+    } else if (op == 11 || op == 12) {
+      static uint32_t T[4 * fr::POW_WIDTH * fr::L];
+      read(a, fr::L);
+      read(b, 2);
+      build_table(T, a, (int)b[0], b[1] != 0);
+      if (op == 11) {
+        write(T, (int)b[0] * fr::POW_WIDTH * fr::L);
+      } else {
+        uint32_t m, e[2];
+        read(&m, 1);
+        for (uint32_t k = 0; k < m; k++) {
+          read(e, 2);
+          fr::table_pow<fr::POW_LEVEL_BITS>(
+              r, T, e[0] | (unsigned long long)e[1] << 32, (int)b[0]);
+          write(r, fr::L);
+        }
+      }
     } else if (op < 6) {
       const int n = op < 3 ? fr::L : fq::L;
       read(a, n);
@@ -152,8 +214,8 @@ def host_binary(tmp_path_factory):
     (d / "ptx.cuh").write_text(PTX_EMULATION)
     (d / "main.cpp").write_text(HOST_MAIN)
     exe = d / "fields"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-o", str(exe),
-                    str(d / "main.cpp")], check=True)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-w", "-pthread", "-o",
+                    str(exe), str(d / "main.cpp")], check=True)
     return str(exe)
 
 
@@ -252,6 +314,51 @@ def test_power_run_matches_python_integers(host_binary):
         scale = 1 if canon else 1 << 256
         assert [_int(g[8 * e:8 * e + 8]) for e in range(4)] == [
             pow(x, k + e, o.R) * scale % o.R for e in range(4)], (x, k)
+
+
+TABLE_XS = [0, 1, o.R - 1, 0x5EED * (1 << 190) + 12345]
+MONT = 1 << 256
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_power_table_matches_python_integers(host_binary, levels):
+    """fr::power_table (K3 fr_power_tables: each level a Hillis-Steele
+    product scan by fr::level_scan over a block of 256 threads, the next
+    level's base from the last entry) at x 0, 1, r − 1 and random: entry i
+    of level l is x^(i·256^l), in Montgomery form, or canonical in level 0
+    where the table is 1/x's (canonical0)."""
+    width = kernels.POW_WIDTH
+    cases = [(x, c) for x in TABLE_XS for c in (0, 1)]
+    got = _run(host_binary, [(11, (_words(x * MONT % o.R, 8), [levels, c]))
+                             for x, c in cases])
+    for g, (x, c) in zip(got, cases):
+        ints = [_int(g[8 * k:8 * k + 8]) for k in range(levels * width)]
+        want = [pow(x, i * width ** lv, o.R)
+                * (1 if c and lv == 0 else MONT) % o.R
+                for lv in range(levels) for i in range(width)]
+        assert ints == want, (x, c)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 4])
+def test_table_lookup_matches_python_integers(host_binary, levels):
+    """fr::table_pow (a power in K3 fr_powers and fr_open_quotient: the
+    entry of the exponent's lowest digit times one entry a level above) at
+    x 0, 1, r − 1 and random, at exponents 0, 1, a level's edges, the top of
+    the table's reach and random ones below it, Montgomery and with a
+    canonical level 0: x^e mod r."""
+    rng = np.random.default_rng(23)
+    reach = kernels.POW_WIDTH ** levels
+    es = sorted({0, 1, 255, min(256, reach - 1), reach - 1,
+                 *(int(v) for v in rng.integers(0, reach, 6))})
+    cases = [(x, c) for x in TABLE_XS for c in (0, 1)]
+    records = [(12, (_words(x * MONT % o.R, 8), [levels, c, len(es)],
+                     [w for e in es for w in _words(e, 2)]))
+               for x, c in cases]
+    got = iter(_run(host_binary, records))
+    for x, c in cases:
+        for e in es:
+            assert _int(next(got)) == pow(x, e, o.R) * (
+                1 if c else MONT) % o.R, (x, c, e)
 
 
 def test_ladder_matches_plain_and_python_integers(host_binary):

@@ -21,6 +21,7 @@ from zkp_subnet_tpu_torch.ops import msm as tmsm
 from zkp_subnet_tpu_torch.ops import ntt as tntt
 from zkp_subnet_tpu_torch.ops import poly as tpoly
 from zkp_subnet_tpu_torch.ops.field import (FQ, FR, fr_inv_plain,
+                                            fr_power_tables_plain,
                                             fr_powers_plain)
 from zkp_subnet_tpu_torch import runtime as trt
 from zkp_subnet_tpu_torch.runtime.server import rpc
@@ -375,33 +376,51 @@ def test_fr_inv_kernel_matches_plain(dev):
         pow(v, o.R - 2, o.R) for v in FR.decode(a)]
 
 
-@pytest.mark.parametrize("n", [1, 1000, 4097])
+@pytest.mark.parametrize("n", [1, 1000, 4097, 70000])
 def test_fr_powers_kernel_matches_plain(dev, n):
+    """fr_power_tables (x and 1/x; one, two and three levels) and fr_powers
+    (no c, one row of c, four rows) against their plain versions, limb for
+    limb, at x 0, 1, r − 1 and random."""
     c = _edge_fr(22, n)
+    rows = torch.stack([c, c.roll(1, 0), c.flip(0), c.roll(7, 0)])
     for x in _edge_fr(23, 4):                  # 0, 1, r − 1, random
-        xd = x.contiguous().to(dev)
-        assert torch.equal(kernels.fr_powers(xd, n).cpu(),
-                           fr_powers_plain(x, n))
-        assert torch.equal(kernels.fr_powers(xd, n, c.to(dev)).cpu(),
-                           fr_powers_plain(x, n, c))
+        x = x.contiguous()
+        xd = x.to(dev)
+        tables = kernels.fr_power_tables(xd, n, kernels.fr_inv(xd))
+        want = fr_power_tables_plain(x, n, fr_inv_plain(x))
+        assert torch.equal(tables.cpu(), want)
+        assert torch.equal(kernels.fr_power_tables(xd, n).cpu(), want[:1])
+        table = tables[0]
+        assert torch.equal(kernels.fr_powers(table, n).cpu(),
+                           fr_powers_plain(want[0], n))
+        assert torch.equal(kernels.fr_powers(table, n, c.to(dev)).cpu(),
+                           fr_powers_plain(want[0], n, c))
+        assert torch.equal(kernels.fr_powers(table, n, rows.to(dev)).cpu(),
+                           fr_powers_plain(want[0], n, rows))
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 1 << 16])
+@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 1 << 16, 70000])
 def test_opening_kernels_match_plain(dev, n):
     """fr_suffix_scan and fr_open_quotient each against its plain version
     on the same inputs (tiles of the kernel's 1024: one partial tile, one
-    full, three with a partial last, 64 full), at x 0, 1, r − 1 and random;
-    and a row of zeros. The plain versions run on the
-    card."""
+    full, three with a partial last, 64 full, three levels of the table),
+    at x 0, 1, r − 1 and random, one row and four at once (the scan on the
+    rows laid end to end where they are whole tiles); and a row of zeros.
+    The plain versions run on the card."""
     rows = [_edge_fr(24, n).to(dev), FR.zeros((n,), dev)]
+    rows.append(torch.stack([rows[0], rows[1], rows[0].flip(0),
+                             rows[0].roll(5, 0)]))
     for c in rows:
-        local, totals = kernels.fr_suffix_scan(c)
+        local, totals = tpoly._scan_on_card(c if c.dim() == 3 else c[None])
         want = tpoly.fr_suffix_scan_plain(c)
+        if c.dim() == 2:
+            local, totals = local[0], totals[0]
         assert torch.equal(local, want[0]) and torch.equal(totals, want[1])
         for x in _edge_fr(25, 4).to(dev):
-            xi = kernels.fr_inv(x)
-            got = kernels.fr_open_quotient(local, totals, x, xi, c)
-            want = tpoly.fr_open_quotient_plain(local, totals, x, xi, c)
+            tables = kernels.fr_power_tables(x, n, kernels.fr_inv(x))
+            got = kernels.fr_open_quotient(local, totals, x, tables[1], c)
+            want = tpoly.fr_open_quotient_plain(local, totals, x, tables[1],
+                                                c)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
             if n <= 3000:      # against the CPU's composition
@@ -431,15 +450,31 @@ def test_eval_and_quotient_on_card_match_cpu(dev, n):
 
 
 def test_opening_reads_nothing_back_and_launches_four_kernels(dev):
+    """One row: fr_inv, the tables, the powers and the two scan passes, one
+    launch each; four rows of 2^12 at one x, with 1/x handed in: the same
+    but fr_inv, one launch each (the scan over the rows end to end), four
+    of the scan at 3000 (no whole tiles: once a row)."""
     c = _edge_fr(26, 3000).to(dev)
     x = _edge_fr(27, 4)[3].contiguous().to(dev)
-    before = dict(kernels.LAUNCHES)
-    y, q = tpoly.poly_open_scalars(c, x)
-    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
-            if v != before[k]}
-    assert used == {"fr_inv": 1, "fr_powers": 1, "fr_suffix_scan": 1,
-                    "fr_open_quotient": 1}
+    opening = {"fr_power_tables": 1, "fr_powers": 1, "fr_suffix_scan": 1,
+               "fr_open_quotient": 1}
+
+    def launches(*args):
+        before = dict(kernels.LAUNCHES)
+        out = tpoly.poly_open_scalars(*args)
+        return out, {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                     if v != before[k]}
+    (y, q), used = launches(c, x)
+    assert used == {"fr_inv": 1, **opening}
     assert FR.decode(y) == [o.poly_eval(FR.decode(c), FR.decode(x)[0])]
+    xi = kernels.fr_inv(x)
+    for n, scans in ((1 << 12, 1), (3000, 4)):
+        rows = _edge_fr(28, 4 * n).view(4, n, 8).to(dev)
+        (y, q), used = launches(rows, x, xi)
+        assert used == {**opening, "fr_suffix_scan": scans}
+        for b in range(4):
+            wy, wq = tpoly.poly_open_scalars(rows[b], x)
+            assert torch.equal(y[b], wy) and torch.equal(q[b], wq)
 
 
 @pytest.mark.parametrize("n", [16, 1000])
@@ -502,6 +537,8 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
     skewed.copy_(c)
     strided = torch.zeros((64, 16), dtype=torch.int32, device=dev)[:, :8]
     local, totals = kernels.fr_suffix_scan(c)
+    tables = kernels.fr_power_tables(x, 64, x)
+    table, xi_table = tables[0], tables[1]
     for bad in (skewed, strided, c.to(torch.int64)):
         exc = ValueError
         with pytest.raises(exc):
@@ -509,17 +546,40 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
         with pytest.raises(exc):
             kernels.fr_suffix_scan(bad)
         with pytest.raises(exc):
-            kernels.fr_powers(x, 64, bad)
+            kernels.fr_powers(table, 64, bad)
         with pytest.raises(exc):
-            kernels.fr_open_quotient(bad, totals, x, x, c)
+            kernels.fr_open_quotient(bad, totals, x, xi_table, c)
         with pytest.raises(exc):
-            kernels.fr_open_quotient(local, totals, x, x, bad)
+            kernels.fr_open_quotient(local, totals, x, xi_table, bad)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        kernels.fr_powers(skewed[0], 64)
+        kernels.fr_power_tables(skewed[0], 64)
     with pytest.raises(ValueError):
-        kernels.fr_powers(c[:2], 64)                       # two elements
+        kernels.fr_power_tables(c[:2], 64)                 # two elements
     with pytest.raises(ValueError):
-        kernels.fr_open_quotient(local, totals[:0], x, x, c)
+        kernels.fr_open_quotient(local, totals[:0], x, xi_table, c)
+    # B rows: totals or coeffs of another B, a table of too few levels (one
+    # level reaches 256 powers), a table of another width or rank
+    rows = torch.stack([c, c]).contiguous()
+    local2 = torch.stack([local, local]).contiguous()
+    totals2 = torch.stack([totals, totals]).contiguous()
+    with pytest.raises(ValueError):
+        kernels.fr_open_quotient(local2, totals, x, xi_table, rows)
+    with pytest.raises(ValueError):
+        kernels.fr_open_quotient(local2, totals2, x, xi_table, c)
+    with pytest.raises(ValueError):
+        kernels.fr_open_quotient(local2, totals2[:1], x, xi_table, rows[:1])
+    long_row = _edge_fr(29, 300).to(dev)
+    with pytest.raises(ValueError, match="levels"):
+        kernels.fr_powers(table, 300, long_row)
+    l300, t300 = kernels.fr_suffix_scan(long_row)
+    with pytest.raises(ValueError, match="levels"):
+        kernels.fr_open_quotient(l300, t300, x, xi_table, long_row)
+    with pytest.raises(ValueError):
+        kernels.fr_powers(table[:, :128].contiguous(), 64)
+    with pytest.raises(ValueError):
+        kernels.fr_powers(tables, 64)
+    with pytest.raises(ValueError):
+        kernels.fr_powers(table, 64, rows[:, :32].contiguous())
     p = tcv.g1_infinity((8,), dev)
     sc = tcv.fr_to_scalar_limbs(list(range(8)), dev)
     with pytest.raises(ValueError):

@@ -136,11 +136,12 @@ def test_fr_inv_plain_edges_and_itsalmost_inverse():
 
 
 def test_fr_powers_plain_matches_jax_and_oracle():
-    """The plain version of K3 fr_powers (a table of x^(2^j), a product a
-    set bit of a run's first k, a product by x a step along the run)
+    """The plain versions of K3 fr_power_tables and fr_powers (x^k looked
+    up in the table of x: level l holds x^(i·width^l), one entry a level)
     against the JAX package's powers, with and without the termwise factor
-    c, at x random, 0, 1 and r − 1, a width that is no power of two, and
-    runs of 1, 3 and the kernel's 4."""
+    c, one row and three, at x random, 0, 1 and r − 1, a width that is no
+    power of two, and level widths of 2 and 4 (five and three levels) and
+    the kernel's 256 (one)."""
     n = 21
     cs = _values(tf.FR.p, 8, n=n)
     jc = JFR.encode(cs)
@@ -149,17 +150,49 @@ def test_fr_powers_plain_matches_jax_and_oracle():
         jx = JFR.encode([x])[0]
         jpw = JFR.powers(jx, n)
         xt = tf.FR.encode([x])[0]
-        for per in (1, 3):
-            got = tf.fr_powers_plain(xt, n, per_thread=per)
+        for width in (2, 4):
+            table = tf.fr_power_tables_plain(xt, n, width=width)
+            assert table.shape == (1, kernels.power_levels(n, width), width,
+                                   8)
+            got = tf.fr_powers_plain(table[0], n)
             assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(jpw)), x
-        got = tf.fr_powers_plain(xt, n)
+        table = tf.fr_power_tables_plain(xt, n)[0]
+        got = tf.fr_powers_plain(table, n)
         assert np.array_equal(tf.FR.to_limbs16(got), np.asarray(jpw)), x
         assert tf.FR.decode(got) == [pow(x, k, o.R) for k in range(n)]
-        got = tf.fr_powers_plain(xt, n, c)
+        got = tf.fr_powers_plain(table, n, c)
         assert np.array_equal(tf.FR.to_limbs16(got),
                               np.asarray(JFR.mont_mul(jc, jpw))), x
         assert torch.equal(got, tf.FR.mont_mul(c, tf.FR.powers(xt, n)))
-    assert tf.FR.decode(tf.fr_powers_plain(tf.FR.encode([5])[0], 1)) == [1]
+        rows = torch.stack([c, c.flip(0), c.roll(3, 0)])
+        got = tf.fr_powers_plain(table, n, rows)
+        assert torch.equal(got, tf.FR.mont_mul(rows, tf.FR.powers(xt, n)))
+    five = tf.FR.encode([5])[0]
+    assert tf.FR.decode(tf.fr_powers_plain(
+        tf.fr_power_tables_plain(five, 1)[0], 1)) == [1]
+
+
+def test_power_tables_plain_of_the_inverse_are_canonical_at_level_0():
+    """fr_power_tables_plain of x and 1/x at level widths 4 and 256: table
+    0 holds x^(i·width^l) in Montgomery form; table 1 holds (1/x)^(i·width^l),
+    its level 0 out of Montgomery form (the quotient's product by the
+    integer 1 folded in), the levels above in it; levels as n needs."""
+    x = _values(tf.FR.p, 9, n=5)[4]
+    xt = tf.FR.encode([x])[0]
+    xi = pow(x, o.R - 2, o.R)
+    for n, width in ((300, 4), (300, 256), (1 << 16, 256), ((1 << 16) + 1,
+                                                             256)):
+        levels = kernels.power_levels(n, width)
+        assert width ** levels >= n > width ** (levels - 1) or levels == 1
+        t = tf.fr_power_tables_plain(xt, n, tf.FR.inv(xt), width)
+        assert t.shape == (2, levels, width, 8)
+        for lv in range(levels):
+            want = [pow(x, i * width ** lv, o.R) for i in range(width)]
+            assert tf.FR.decode(t[0, lv]) == want
+            want = [pow(xi, i * width ** lv, o.R) for i in range(width)]
+            got = (tf.FR.limbs_to_ints(t[1, lv]) if lv == 0
+                   else tf.FR.decode(t[1, lv]))
+            assert got == want, (n, width, lv)
 
 
 def test_powers_select_is_zero():
@@ -225,6 +258,12 @@ def test_kernel_constants_match_the_fields():
     assert _cuda_array("fr.cuh", "INV_FIX") == pow(2, 514, o.R)
     top = _cuda_scalar_int("fr.cuh", "INV_TOP_BIT")
     assert 1 << top < o.R < 1 << (top + 1)
+    # the power tables' level width and their levels at most, as the
+    # wrappers hand them over
+    assert 1 << _cuda_scalar_int("fr.cuh", "POW_LEVEL_BITS") == \
+        kernels.POW_WIDTH
+    assert _cuda_scalar_int("fr.cu", "MAX_POW_LEVELS") == \
+        kernels.MAX_POW_LEVELS
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -243,9 +282,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             kern(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_butterfly(a, a[:1], 1)
-    for call in (lambda: kernels.fr_inv(a), lambda: kernels.fr_powers(a[0], 4),
+    table = torch.zeros((1, kernels.POW_WIDTH, 8), dtype=torch.int32)
+    for call in (lambda: kernels.fr_inv(a),
+                 lambda: kernels.fr_power_tables(a[0], 4, a[1]),
+                 lambda: kernels.fr_powers(table, 4),
                  lambda: kernels.fr_suffix_scan(a),
-                 lambda: kernels.fr_open_quotient(a, a[:1], a[0], a[0], a),
+                 lambda: kernels.fr_open_quotient(a, a[:1], a[0], table, a),
                  lambda: kernels.fr_eval_rows(a[None], a[:1]),
                  lambda: kernels.g1_scalar_mul(
                      torch.zeros((2, 3, 12), dtype=torch.int32), a),
@@ -259,14 +301,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (tf.FR._mul_kernel, tf.FR._add_kernel, tf.FR._sub_kernel,
             tf.FR._inv_kernel, tf.FR._powers_kernel) == \
         (kernels.fr_mul, kernels.fr_add, kernels.fr_sub, kernels.fr_inv,
-         kernels.fr_powers)
+         tf.fr_powers_on_card)
     assert (tf.FQ._mul_kernel, tf.FQ._add_kernel, tf.FQ._sub_kernel) == \
         (kernels.fq_mul, kernels.fq_add, kernels.fq_sub)
     assert sorted(kernels.LAUNCHES) == sorted(
         ["g1_add", "g1_double", "g1_scalar_mul", "g1_fixed_table",
          "g1_msm_fixed", "msm_buckets",
          "msm_reduce", "msm_combine", "fr_mul", "fr_add", "fr_sub",
-         "fr_inv", "fr_powers", "fr_suffix_scan", "fr_open_quotient",
+         "fr_inv", "fr_power_tables", "fr_powers", "fr_suffix_scan",
+         "fr_open_quotient",
          "fr_eval_rows", "fq_mul", "fq_add", "fq_sub", "fr_butterfly"])
 
 

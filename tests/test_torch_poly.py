@@ -96,6 +96,66 @@ def test_open_pieces_plain_match_jax(jax_open, n):
         assert FR.decode(q[-1:]) == [0]
 
 
+@pytest.mark.parametrize("n", [16, 256])
+def test_batched_open_pieces_plain_match_jax_row_by_row(jax_open, n):
+    """The plain versions of the opening's kernels over B = 3 rows at one x
+    (one table of x and of 1/x for all rows, tiles of 32, level widths 4
+    and 8: two levels at n = 16, three and four at 256), against the JAX
+    package's poly_open_scalars of each row, limb for limb, at x random, 0,
+    1 and r − 1; and against the CPU's batched opening."""
+    rows = [_row(n, n + 20 + b) for b in range(3)]
+    jcs = [JFR.encode(r) for r in rows]
+    c = torch.stack([FR.from_limbs16(np.asarray(jc)) for jc in jcs])
+    for point in (_row(1, n + 30)[0], 0, 1, o.R - 1):
+        x = FR.encode([point])[0]
+        want = [jax_open(jc, JFR.encode([point])[0]) for jc in jcs]
+        for width in (4, 8):
+            y, q = tpoly.open_pieces_plain(c, x, tile=32, width=width)
+            assert y.shape == (3, 8) and q.shape == (3, n, 8)
+            for b, (jy, jq) in enumerate(want):
+                assert np.array_equal(FR.to_limbs16(y[b]), np.asarray(jy))
+                assert np.array_equal(FR.to_limbs16(q[b]), np.asarray(jq))
+        wy, wq = tpoly.poly_open_scalars(c, x)
+        assert torch.equal(y, wy) and torch.equal(q, wq), point
+
+
+@pytest.mark.parametrize("alpha_kind", ["random", "zero"])
+def test_commit_open_opens_every_row_in_one_call(monkeypatch, alpha_kind):
+    """parallel.pianist.commit_open opens its Bl·Ml = 2·3 rows at α in one
+    poly_open_scalars call (one launch of each opening kernel on the card),
+    and its evals and the quotients it hands the MSMs are each row's own
+    opening, limb for limb; the MSMs are stubbed."""
+    from zkp_subnet_tpu_torch.ops import curve as tcv
+    from zkp_subnet_tpu_torch.ops import msm as tmsm
+    from zkp_subnet_tpu_torch.parallel import pianist as par
+    bl, ml, t = 2, 3, 16
+    rows = torch.stack([FR.encode(_row(t, 60 + k))
+                        for k in range(bl * ml)]).view(bl, ml, t, FR.L)
+    alpha = FR.encode([0 if alpha_kind == "zero" else _row(1, 70)[0]])[0]
+    seen, calls = {}, []
+    real = tpoly.poly_open_scalars
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    def msm_stub(bases, scalars):
+        seen["scalars"] = scalars
+        return tcv.g1_infinity(scalars.shape[:2])
+    monkeypatch.setattr(tmsm, "msm_auto_groups", msm_stub)
+    monkeypatch.setattr(tpoly, "poly_open_scalars", spy)
+    _, evals, _ = par.commit_open(tcv.g1_infinity((ml, t)), rows, alpha)
+    monkeypatch.undo()
+    assert calls == [(bl * ml, t, FR.L)]
+    canonical = tpoly.from_mont_wide(rows)
+    for b in range(bl):
+        for i in range(ml):
+            y, q = tpoly.poly_open_scalars(rows[b, i], alpha)
+            assert torch.equal(evals[b, i], y)
+            assert torch.equal(seen["scalars"][i, bl + b], q)
+            assert torch.equal(seen["scalars"][i, b], canonical[b, i])
+
+
 def test_scan_plain_crosses_tiles():
     """fr_suffix_scan_plain's tiles and fr_open_quotient_plain's carry at a
     width that is no multiple of the tile (200 = 6 × 32 + 8), and a row of

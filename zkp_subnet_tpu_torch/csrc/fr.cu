@@ -1,9 +1,11 @@
 // K3: Fr over (N, 8) elements. Elementwise Montgomery multiply, add and
 // subtract, with one operand optionally broadcast (a single element, step
-// 0); the pipeline of one KZG opening as four whole kernels: the inverse,
-// the powers, and a suffix scan in two passes whose second pass also
-// scales the quotient; and the evaluation of many rows at their points,
-// fr_eval_rows, in two passes (further down, with its own note).
+// 0); the pipeline of KZG openings of B rows at one point as whole kernels:
+// the inverse, the tables of powers of the point and of its inverse, the
+// powers times the coefficients, and a suffix scan in two passes whose
+// second pass also scales the quotient; and the evaluation of many rows at
+// their points, fr_eval_rows, in two passes (further down, with its own
+// note).
 //
 // Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lane8.BFR as reached
 // from poly._fmul/_fadd (zkp_subnet_tpu/ops/poly.py:37-47), ntt._f8
@@ -21,14 +23,15 @@
 // writes 32 for 128 wide multiply-adds, so at 2^16 elements bytes bound
 // them (~2 us); one element per thread, moved as two 16-byte words each
 // way. The opening's kernels: fr_inv is one thread's binary extended
-// Euclid (latency; no bytes to speak of, see below); fr_powers (the
-// function needs two products an element; the kernel does about three at
-// 2^16, a walk of the table shared by a thread's four) and the two scan
-// passes (an add an element, a product or two in the second) are bound by
-// bytes at about a microsecond, and by the table's chain of squarings in
-// practice, so what counts is that each is one launch and that no
-// value goes back to the host between them: x and 1/x are read from device
-// memory, and the x = 0 corner of the quotient is chosen on the card.
+// Euclid (latency; no bytes to speak of, see below); fr_power_tables is a
+// block's chain of ~9 products a level (latency), once for all the rows
+// that open at the point; fr_powers (a product an element and the lookup's
+// one a power) and the two scan passes (an add an element, a product in the
+// second) are bound by bytes, every element independent of the others but
+// for the scan's tiles, with grids over all B rows: one launch each for any
+// B, and no value goes back to the host between them: x and 1/x are read
+// from device memory, and the x = 0 corner of the quotient is chosen on the
+// card.
 #include <cuda_runtime.h>
 
 #include "fr.cuh"
@@ -82,46 +85,76 @@ fr_inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   mont::store<fr::L>(out + i * fr::L, x);
 }
 
-// The tables of x^(2^j) (fr::square_table) live in shared memory.
+// The tables of x^(2^j) of fr_eval_rows (fr::square_table) live in shared
+// memory.
 constexpr int MAX_POW_BITS = 32;
 
-// out_k = x^k * c_k (c optional), k < n <= 2^bits: POW_PER_THREAD
-// consecutive k a thread. Each block squares x into its table of x^(2^j)
-// once; a thread walks the table for its first k, then steps by one
-// product by x (fr::pow_run), then multiplies by c_k (the same limbs as the
-// JAX package's log-depth doubling: a fully reduced value has one
-// representation).
-constexpr int POW_THREADS = 128;
-constexpr int POW_PER_THREAD = 4;
-constexpr int POW_TILE = POW_THREADS * POW_PER_THREAD;
+// -- power tables, once a point --------------------------------------------
+//
+// fr_power_tables: the tables of powers that fr_powers (x) and
+// fr_open_quotient (1/x) read, levels of POW_WIDTH entries each
+// (fr::power_table: level l holds x^(i·256^l)), two levels at 2^16 powers,
+// three at the NTT's 2^21, four up to 2^32. One block a point, POW_WIDTH
+// threads, each building its entry of every level; block 1, for 1/x, stores
+// level 0 out of Montgomery form (the quotient's product by the integer 1,
+// folded into its table). Bound: latency, a chain of levels·9 - 1
+// dependent products (a level's 8-step Hillis-Steele scan and the next
+// level's base), once for all the rows that open at the point.
+constexpr int POW_WIDTH = fr::POW_WIDTH;
+constexpr int MAX_POW_LEVELS = 4;
+
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+__global__ void __launch_bounds__(POW_WIDTH)
+fr_power_tables_kernel(const uint32_t* __restrict__ x,
+                       const uint32_t* __restrict__ xi,
+                       uint32_t* __restrict__ tables, int levels) {
+  __shared__ __align__(16) uint32_t S[(2 * POW_WIDTH + 1) * fr::L];
+  const bool inverse = blockIdx.x == 1;
+  uint32_t v[fr::L];
+  mont::load<fr::L>(v, inverse ? xi : x);
+  fr::power_table<fr::POW_LEVEL_BITS>(
+      tables + (long long)blockIdx.x * levels * POW_WIDTH * fr::L, S, v,
+      levels, inverse, threadIdx.x, BlockSync());
+}
+
+// out_{b,k} = x^k * c_{b,k} (x^k alone without c), k < n, over B rows: one
+// thread a power k, looked up in x's table (levels - 1 products), then
+// multiplied by c_{b,k} for POW_ROWS rows b in turn, so that the lookup is
+// paid once for those rows. Every element is independent of every other;
+// the grid (n / POW_THREADS, B / POW_ROWS) fills the card from one row of
+// 2^16 up. Bound: bytes, c read and out written once (B·n·64 B), against
+// B·n + n - 1 products the function needs. The powers row could instead be
+// written once and read back for each row (2 MB at 2^16, from L2): that
+// moves B·n·32 more bytes through L2 to save the lookups' products, which
+// POW_ROWS already shares.
+constexpr int POW_THREADS = 256;
+constexpr int POW_ROWS = 8;
 
 __global__ void __launch_bounds__(POW_THREADS)
-fr_powers_kernel(const uint32_t* __restrict__ x,
+fr_powers_kernel(const uint32_t* __restrict__ table,
                  const uint32_t* __restrict__ c, uint32_t* __restrict__ out,
-                 long long n, int bits) {
-  __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
-  if (threadIdx.x == 0) {
-    uint32_t v[fr::L];
-    mont::load<fr::L>(v, x);
-    fr::square_table(T, v, bits);
+                 long long rows, long long n, int levels) {
+  const long long k = blockIdx.x * (long long)POW_THREADS + threadIdx.x;
+  if (k >= n) return;
+  uint32_t pw[fr::L];
+  fr::table_pow<fr::POW_LEVEL_BITS>(pw, table, (unsigned long long)k,
+                                    levels);
+  if (c == nullptr) {
+    mont::store<fr::L>(out + k * fr::L, pw);
+    return;
   }
-  __syncthreads();
-  const long long first =
-      blockIdx.x * (long long)POW_TILE + threadIdx.x * POW_PER_THREAD;
-  if (first >= n) return;
-  uint32_t r[POW_PER_THREAD][fr::L];
-  fr::pow_run<POW_PER_THREAD>(r, T, (unsigned long long)first, bits,
-                              nullptr);
-#pragma unroll
-  for (int e = 0; e < POW_PER_THREAD; e++) {
-    const long long k = first + e;
-    if (k >= n) break;
-    if (c != nullptr) {
-      uint32_t t[fr::L];
-      mont::load<fr::L>(t, c + k * fr::L);
-      fr::mul(r[e], r[e], t);
-    }
-    mont::store<fr::L>(out + k * fr::L, r[e]);
+  const long long first = blockIdx.y * (long long)POW_ROWS;
+  const long long last = min(rows, first + POW_ROWS);
+#pragma unroll 1
+  for (long long b = first; b < last; b++) {
+    const long long at = (b * n + k) * fr::L;
+    uint32_t t[fr::L];
+    mont::load<fr::L>(t, c + at);
+    fr::mul(t, t, pw);
+    mont::store<fr::L>(out + at, t);
   }
 }
 
@@ -195,34 +228,48 @@ fr_suffix_scan_kernel(const uint32_t* __restrict__ terms,
   if (threadIdx.x == 0) mont::store<fr::L>(totals + blockIdx.x * fr::L, s[0]);
 }
 
-// Pass 2, fused with the rest of the opening. One warp adds the totals of
-// the tiles to the right (at most 63 at 2^16) into the tile's carry, while
-// another squares 1/x into the table of (1/x)^(2^j). Then S_j = local_j +
-// carry, y = S_0 (block 0), and q_j = S_{j+1} * (1/x)^(j+1) for j < n
-// (S_n = 0, so q_{n-1} = 0), canonical: the thread's first power is
-// multiplied by the integer 1 (fr::pow_run), and a canonical value times a
-// Montgomery one stays canonical. S_{j+1} of a tile's last element is the
-// carry alone. At x = 0 the quotient is c[1:] and a 0, from Montgomery
-// form, chosen here on the card.
-__global__ void __launch_bounds__(SCAN_THREADS)
+// Pass 2, fused with the rest of the opening, over B rows at one point: a
+// block of QUOT_THREADS elements of one row (a quarter of a scan tile), one
+// element a thread. Warp 0 adds the totals of the row's tiles to the right
+// into the tile's carry, while every thread looks up (1/x)^(j+1) in the
+// table of 1/x (fr::table_pow; its level 0 is canonical, so the power is
+// too). Then S_{j+1} = local_{j+1} + carry inside the tile, the carry alone
+// at the tile's last element (S_n = 0, so q_{n-1} = 0, written without a
+// lookup), y_b = S_{b,0} (the row's first block), and q_j = S_{j+1} *
+// (1/x)^(j+1), canonical. At x = 0 the quotient is c[1:] and a 0, from
+// Montgomery form, chosen here on the card. The grid (n / QUOT_THREADS, B)
+// fills the card from one row of 2^16 up; nothing is a chain but the
+// carry's ~7 adds. Bound: bytes, local read and q written once (B·n·64 B),
+// against one add and one product an element. On an H100 (PERF.md,
+// zkp_subnet_tpu_torch/kernel_ab.py over copies) two elements a thread
+// took 0.739 ms at 256 rows of 2^16 against this form's 0.763, and 0.0066
+// ms at one row against 0.0058; four, 0.810 and 0.0100; and loading
+// local_{j+1} before the barrier, 0.801 against 0.755.
+constexpr int QUOT_THREADS = 256;
+constexpr int QUOT_BLOCKS_A_TILE = SCAN_TILE / QUOT_THREADS;
+
+__global__ void __launch_bounds__(QUOT_THREADS)
 fr_open_quotient_kernel(const uint32_t* __restrict__ local,
                         const uint32_t* __restrict__ totals,
                         const uint32_t* __restrict__ x,
-                        const uint32_t* __restrict__ xi,
+                        const uint32_t* __restrict__ xi_table,
                         const uint32_t* __restrict__ coeffs,
                         uint32_t* __restrict__ y, uint32_t* __restrict__ q,
-                        long long n, int blocks, int bits) {
+                        long long n, int tiles, int levels) {
   __shared__ __align__(16) uint32_t carry_s[fr::L];
-  __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
+  const long long row = blockIdx.y;
+  const int tile = blockIdx.x / QUOT_BLOCKS_A_TILE;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t v[fr::L], carry[fr::L];
+  const long long j = blockIdx.x * (long long)QUOT_THREADS + threadIdx.x;
+  const long long at = row * n + j;
+  uint32_t v[fr::L], carry[fr::L], pw[fr::L];
   mont::load<fr::L>(v, x);
   const bool at_zero = fr::is_zero(v);
   if (warp == 0) {
     uint32_t o[fr::L];
     set_zero(carry);
-    for (int b = blockIdx.x + 1 + lane; b < blocks; b += 32) {
-      mont::load<fr::L>(o, totals + (long long)b * fr::L);
+    for (int b = tile + 1 + lane; b < tiles; b += 32) {
+      mont::load<fr::L>(o, totals + (row * tiles + b) * fr::L);
       fr::add(carry, carry, o);
     }
 #pragma unroll
@@ -231,53 +278,37 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
       if (lane < d) fr::add(carry, carry, o);
     }
     if (lane == 0) mont::store<fr::L>(carry_s, carry);
-  } else if (threadIdx.x == 32 && !at_zero) {
-    mont::load<fr::L>(v, xi);
-    fr::square_table(T, v, bits);
   }
+  if (!at_zero && j + 1 < n)
+    fr::table_pow<fr::POW_LEVEL_BITS>(pw, xi_table,
+                                      (unsigned long long)(j + 1), levels);
   __syncthreads();
   mont::load<fr::L>(carry, carry_s);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    mont::load<fr::L>(v, local);
+    mont::load<fr::L>(v, local + row * n * fr::L);
     fr::add(v, v, carry);
-    mont::store<fr::L>(y, v);
+    mont::store<fr::L>(y + row * fr::L, v);
   }
-  const long long first =
-      blockIdx.x * (long long)SCAN_TILE + threadIdx.x * SCAN_PER_THREAD;
-  if (first >= n) return;
-  uint32_t one[fr::L] = {1};  // the integer 1: a product by it is from_mont
+  if (j >= n) return;
+  set_zero(v);
   if (at_zero) {
-#pragma unroll
-    for (int e = 0; e < SCAN_PER_THREAD; e++) {
-      const long long j = first + e;
-      if (j >= n) break;
-      set_zero(v);
-      if (j + 1 < n) {
-        mont::load<fr::L>(v, coeffs + (j + 1) * fr::L);
-        fr::mul(v, v, one);
-      }
-      mont::store<fr::L>(q + j * fr::L, v);
+    if (j + 1 < n) {
+      uint32_t one[fr::L] = {1};  // the integer 1: a product by it is
+                                  // from_mont
+      mont::load<fr::L>(v, coeffs + (at + 1) * fr::L);
+      fr::mul(v, v, one);
     }
-    return;
-  }
-  const long long tile_end =
-      min(n, (blockIdx.x + 1) * (long long)SCAN_TILE);
-  uint32_t pw[SCAN_PER_THREAD][fr::L];
-  fr::pow_run<SCAN_PER_THREAD>(pw, T, (unsigned long long)(first + 1), bits,
-                               one);
-#pragma unroll
-  for (int e = 0; e < SCAN_PER_THREAD; e++) {
-    const long long j = first + e;
-    if (j >= n) break;
+  } else if (j + 1 < n) {
+    const long long tile_end = min(n, (tile + 1) * (long long)SCAN_TILE);
     if (j + 1 < tile_end) {
-      mont::load<fr::L>(v, local + (j + 1) * fr::L);
+      mont::load<fr::L>(v, local + (at + 1) * fr::L);
       fr::add(v, v, carry);
     } else {
       fr::copy(v, carry);
     }
-    fr::mul(v, v, pw[e]);
-    mont::store<fr::L>(q + j * fr::L, v);
+    fr::mul(v, v, pw);
   }
+  mont::store<fr::L>(q + at * fr::L, v);
 }
 
 // -- the challenge's row evaluation ----------------------------------------
@@ -434,20 +465,42 @@ extern "C" int zkp_fr_inv(const void* a, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// c may be null (x^k alone). bits: 1 <= bits <= MAX_POW_BITS, n <= 2^bits.
-// per_thread: the caller's idea of POW_PER_THREAD, refused unless it is
-// this one.
-extern "C" int zkp_fr_powers(const void* x, const void* c, void* out,
-                             long long n, int bits, int per_thread,
-                             void* stream) {
-  if (per_thread != POW_PER_THREAD || bits < 1 || bits > MAX_POW_BITS ||
-      n > (1LL << bits))
+// The tables of x and, where xi is not null, of 1/x: tables holds one or two
+// tables of `levels` levels of `width` elements. width: the caller's idea
+// of POW_WIDTH, refused unless it is this one.
+extern "C" int zkp_fr_power_tables(const void* x, const void* xi,
+                                   void* tables, int levels, int width,
+                                   void* stream) {
+  if (width != POW_WIDTH || levels < 1 || levels > MAX_POW_LEVELS)
+    return REFUSED;
+  fr_power_tables_kernel<<<xi == nullptr ? 1 : 2, POW_WIDTH, 0,
+                           (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)xi, (uint32_t*)tables, levels);
+  return (int)cudaGetLastError();
+}
+
+// Largest n whose powers x^k, k < n, a table of `levels` levels holds.
+static long long table_reach(int levels) {
+  return 1LL << (fr::POW_LEVEL_BITS * levels);
+}
+
+// table: x's table of `levels` levels of `width` elements; c may be null
+// (x^k alone, one row), else rows x n elements, as out. Refused: another
+// width, a table that does not reach n, more rows than the grid takes.
+extern "C" int zkp_fr_powers(const void* table, const void* c, void* out,
+                             long long rows, long long n, int levels,
+                             int width, void* stream) {
+  const long long row_blocks = (rows + POW_ROWS - 1) / POW_ROWS;
+  if (width != POW_WIDTH || levels < 1 || levels > MAX_POW_LEVELS ||
+      n > table_reach(levels) || rows < 1 || row_blocks > 65535 ||
+      (c == nullptr && rows != 1))
     return REFUSED;
   if (n > 0) {
-    const long long blocks = (n + POW_TILE - 1) / POW_TILE;
-    fr_powers_kernel<<<(unsigned)blocks, POW_THREADS, 0,
-                       (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const uint32_t*)c, (uint32_t*)out, n, bits);
+    const long long blocks = (n + POW_THREADS - 1) / POW_THREADS;
+    fr_powers_kernel<<<dim3((unsigned)blocks, (unsigned)row_blocks),
+                       POW_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)table, (const uint32_t*)c, (uint32_t*)out, rows, n,
+        levels);
   }
   return (int)cudaGetLastError();
 }
@@ -467,22 +520,28 @@ extern "C" int zkp_fr_suffix_scan(const void* terms, void* local,
   return (int)cudaGetLastError();
 }
 
-// bits: (1/x)^(j+1) for j + 1 <= n needs n < 2^bits.
+// rows x n elements of local, coeffs and q, rows x ceil(n / tile) of
+// totals, rows of y; xi_table: 1/x's table of `levels` levels of `width`
+// elements (level 0 canonical). (1/x)^(j+1) for j + 1 < n needs n - 1
+// within the table's reach. tile and width: the caller's ideas of SCAN_TILE
+// and POW_WIDTH, refused unless they are these.
 extern "C" int zkp_fr_open_quotient(const void* local, const void* totals,
-                                    const void* x, const void* xi,
+                                    const void* x, const void* xi_table,
                                     const void* coeffs, void* y, void* q,
-                                    long long n, int tile, int bits,
-                                    void* stream) {
-  if (tile != SCAN_TILE || bits < 1 || bits > MAX_POW_BITS ||
-      n >= (1LL << bits))
+                                    long long rows, long long n, int levels,
+                                    int tile, int width, void* stream) {
+  if (tile != SCAN_TILE || width != POW_WIDTH || levels < 1 ||
+      levels > MAX_POW_LEVELS || n - 1 >= table_reach(levels) || rows < 1 ||
+      rows > 65535)
     return REFUSED;
   if (n > 0) {
-    const long long blocks = (n + SCAN_TILE - 1) / SCAN_TILE;
-    fr_open_quotient_kernel<<<(unsigned)blocks, SCAN_THREADS, 0,
-                              (cudaStream_t)stream>>>(
+    const long long blocks = (n + QUOT_THREADS - 1) / QUOT_THREADS;
+    const long long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+    fr_open_quotient_kernel<<<dim3((unsigned)blocks, (unsigned)rows),
+                              QUOT_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)local, (const uint32_t*)totals, (const uint32_t*)x,
-        (const uint32_t*)xi, (const uint32_t*)coeffs, (uint32_t*)y,
-        (uint32_t*)q, n, (int)blocks, bits);
+        (const uint32_t*)xi_table, (const uint32_t*)coeffs, (uint32_t*)y,
+        (uint32_t*)q, n, (int)tiles, levels);
   }
   return (int)cudaGetLastError();
 }

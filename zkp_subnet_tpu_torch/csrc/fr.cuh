@@ -250,4 +250,94 @@ __device__ __forceinline__ void pow_run(uint32_t (*r)[L], const uint32_t* T,
   for (int e = 1; e < COUNT; e++) mul(r[e], r[e - 1], x);
 }
 
+// -- power tables: K3 fr_power_tables builds them, fr_powers and
+// fr_open_quotient read them -------------------------------------------------
+//
+// The kernels' level width: 2^8 entries, so 2^16 powers take two levels.
+constexpr int POW_LEVEL_BITS = 8;
+constexpr int POW_WIDTH = 1 << POW_LEVEL_BITS;
+
+// A table of `levels` levels of W = 2^WB entries: T[l·W + i] = x^(i·W^l),
+// so that x^e for e < W^levels is the product of one entry a level, the
+// entry of e's digit l (base W) in level l. A block of W threads builds it,
+// thread i entry i of every level.
+
+// The level of `base` for thread i: v = base^i by a Hillis-Steele product
+// scan over (1, base, base, ...), WB dependent products, one barrier
+// (`sync`) each, through two buffers of W elements in S used in turn: a
+// step writes its buffer and reads it after the barrier, and the buffer it
+// writes was last read two steps before, behind that step's barrier.
+template <int WB, class Sync>
+__device__ __forceinline__ void level_scan(uint32_t* v, uint32_t* S,
+                                           const uint32_t* base, int i,
+                                           Sync sync) {
+  constexpr int W = 1 << WB;
+  copy(v, i == 0 ? ONE : base);
+#pragma unroll 1
+  for (int s = 0; s < WB; s++) {
+    uint32_t* buf = S + (s & 1) * W * L;
+    mont::store<L>(buf + i * L, v);
+    sync();
+    const int d = 1 << s;
+    if (i >= d) {
+      uint32_t t[L];
+      mont::load<L>(t, buf + (i - d) * L);
+      mul(v, v, t);
+    }
+  }
+}
+
+// The whole table of x for thread i of W: level after level, each by
+// level_scan; the next level's base x^(W^(l+1)) is the last entry times the
+// base, from thread W - 1 through the slot S[2W] and one barrier. S holds
+// 2W + 1 elements. canonical0: level 0 is stored times the integer 1, out of
+// Montgomery form (x^i itself), so that a lookup's product by it gives a
+// canonical power (the quotient's powers of 1/x, which it writes
+// canonical); the levels above stay Montgomery. The chain: levels·(WB + 1)
+// dependent products.
+template <int WB, class Sync>
+__device__ __forceinline__ void power_table(uint32_t* T, uint32_t* S,
+                                            const uint32_t* x, int levels,
+                                            bool canonical0, int i,
+                                            Sync sync) {
+  constexpr int W = 1 << WB;
+  uint32_t b[L], v[L];
+  copy(b, x);
+#pragma unroll 1
+  for (int l = 0; l < levels; l++) {
+    level_scan<WB>(v, S, b, i, sync);
+    if (l + 1 < levels) {
+      if (i == W - 1) {
+        uint32_t t[L];
+        mul(t, v, b);
+        mont::store<L>(S + 2 * W * L, t);
+      }
+      sync();
+      mont::load<L>(b, S + 2 * W * L);
+    }
+    if (l == 0 && canonical0) {
+      uint32_t one[L] = {1};
+      mul(v, v, one);
+    }
+    mont::store<L>(T + ((long long)l * W + i) * L, v);
+  }
+}
+
+// r = x^e from x's table of `levels` levels (e < W^levels): the entry of
+// e's lowest digit times the entry of each digit above it, levels - 1
+// products. Canonical where level 0 is (a canonical value times Montgomery
+// ones stays canonical), else Montgomery.
+template <int WB>
+__device__ __forceinline__ void table_pow(uint32_t* r, const uint32_t* T,
+                                          unsigned long long e, int levels) {
+  constexpr int W = 1 << WB;
+  mont::load<L>(r, T + (e & (W - 1)) * L);
+#pragma unroll 1
+  for (int l = 1; l < levels; l++) {
+    uint32_t t[L];
+    mont::load<L>(t, T + ((long long)l * W + ((e >> (l * WB)) & (W - 1))) * L);
+    mul(r, r, t);
+  }
+}
+
 }  // namespace fr

@@ -1,7 +1,7 @@
 """K1 ``g1_add``/``g1_double``/``g1_scalar_mul``, K2 ``msm_buckets``, the
-Pianist aggregation's two Lagrange-Y MSMs and K3 ``fr_inv`` of several
-checkouts of this repository, timed in turns on one card on the same
-inputs.
+Pianist aggregation's two Lagrange-Y MSMs, K3 ``fr_inv`` and the opening's
+K3 kernels of several checkouts of this repository, timed in turns on one
+card on the same inputs.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -18,11 +18,14 @@ the checkout has it, the ladder ``g1_scalar_mul`` (at 2^16 points and at
 16, the first MSM's scalars) are timed; and the aggregation's two MSMs
 over 256 and over 16 keys, as the checkout's aggregation runs them:
 ``g1_msm_fixed`` over the keys' window table (built untimed) where it has
-one, else a ladder and a ``g1_sum`` tree an MSM (``msm.msm_naive``). The
-inputs are made once, from a seed, by this checkout's package: 2^16 points
-with Z ≠ 1, and the scalars of two MSMs of 2^16 points (8 point groups:
-512 rows of 8192 entries, the main path's shape), uniform, and all equal
-to 1. Device ms: CUDA events around the replay of a CUDA graph of several
+one, else a ladder and a ``g1_sum`` tree an MSM (``msm.msm_naive``); and
+the opening's ``fr_powers`` and ``fr_open_quotient`` at one row of 2^16 and
+at 256 such rows at one point, and ``fr_power_tables``, as the checkout
+runs them (``_opening_fns``). The inputs are made once, from a seed, by
+this checkout's package: 2^16 points with Z ≠ 1, the scalars of two MSMs
+of 2^16 points (8 point groups: 512 rows of 8192 entries, the main path's
+shape), uniform, and all equal to 1, and the opening's row and its
+batch's factors. Device ms: CUDA events around the replay of a CUDA graph of several
 launches. Every checkout is timed twice, in the order given and then in
 the reverse order. Its outputs must equal those of the first checkout
 that has the kernel: the K1 kernels and the inverses limb for limb,
@@ -47,11 +50,15 @@ import sys
 
 LOG_N = 16
 SEED = 20261016
-#: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder
-REPS_POINT, REPS_BUCKETS, REPS_LADDER = 100, 5, 2
+#: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder,
+#: the opening's kernels over the batch
+REPS_POINT, REPS_BUCKETS, REPS_LADDER, REPS_BATCH = 100, 5, 2, 2
+#: rows of the opening's batch (a prove's 256 workers at 24/8)
+BATCH = 256
 KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel",
            "g1_scalar_mul_kernel", "fr_inv_kernel", "g1_msm_fixed_kernel",
-           "g1_fixed_table_kernel")
+           "g1_fixed_table_kernel", "fr_power_tables_kernel",
+           "fr_powers_kernel", "fr_open_quotient_kernel")
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -138,7 +145,8 @@ def child_time(inputs: str, reference: str) -> dict:
             fn = (lambda k=keys, s=sc: torch.stack(
                 [tmsm.msm_naive(k, c) for c in s]))
         fns[f"aggregation 2 MSMs {m} keys"] = (fn, REPS_LADDER)
-    outs = {name: fn() for name, (fn, _) in fns.items()}
+    fns.update(_opening_fns(kernels, data, dev))
+    outs = {name: _flat(fn()) for name, (fn, _) in fns.items()}
     torch.cuda.synchronize()
     ms = {name: _graph_ms(fn, reps) for name, (fn, reps) in fns.items()}
     # the first checkout that has a kernel writes its reference output
@@ -152,6 +160,60 @@ def child_time(inputs: str, reference: str) -> dict:
                  else _same_points(kernels, v, ref[k]))
              for k, v in outs.items()}
     return {"ms": ms, "equal": equal, "package": kernels.CSRC}
+
+
+def _flat(out):
+    """A kernel's output, or a tuple of them, as one tensor to compare."""
+    import torch
+
+    if isinstance(out, tuple):
+        return torch.cat([t.reshape(-1) for t in out])
+    return out
+
+
+def _opening_fns(kernels, data, dev) -> dict:
+    """The opening's kernels at one row of 2^16 and at the [mesh] batch of
+    BATCH rows at one point, as the checkout runs them: with
+    ``fr_power_tables`` (the tables built untimed but where they are the
+    kernel timed), one launch each for all rows; before it, one launch of
+    ``fr_powers`` and of ``fr_open_quotient`` a row, each building its own
+    table of x^(2^j), the rows' outputs stacked as the caller stacked them.
+    The first pass of the scan (untimed) is the same kernel in both."""
+    import torch
+
+    row, x = data["row"].to(dev), data["fr"][3].contiguous().to(dev)
+    n = row.shape[0]
+    batch = kernels.fr_mul(row.repeat(BATCH, 1), data["factors"].to(
+        dev).repeat_interleave(n, 0)).view(BATCH, n, 8)
+    xi = kernels.fr_inv(x)
+    local1, totals1 = kernels.fr_suffix_scan(row)
+    local, totals = kernels.fr_suffix_scan(batch.view(-1, 8))
+    local = local.view(BATCH, n, 8)
+    totals = totals.view(BATCH, -1, 8)
+    if not hasattr(kernels, "fr_power_tables"):
+        return {
+            "fr_powers 1 row": (lambda: kernels.fr_powers(x, n, row),
+                                REPS_POINT),
+            f"fr_powers {BATCH} rows": (lambda: torch.stack(
+                [kernels.fr_powers(x, n, r) for r in batch]), REPS_BATCH),
+            "fr_open_quotient 1 row": (lambda: kernels.fr_open_quotient(
+                local1, totals1, x, xi, row), REPS_POINT),
+            f"fr_open_quotient {BATCH} rows": (lambda: tuple(
+                torch.stack(o) for o in zip(*[kernels.fr_open_quotient(
+                    local[b], totals[b], x, xi, batch[b])
+                    for b in range(BATCH)])), REPS_BATCH)}
+    tables = kernels.fr_power_tables(x, n, xi)
+    return {
+        "fr_power_tables": (lambda: kernels.fr_power_tables(x, n, xi),
+                            REPS_POINT),
+        "fr_powers 1 row": (lambda: kernels.fr_powers(tables[0], n, row),
+                            REPS_POINT),
+        f"fr_powers {BATCH} rows": (
+            lambda: kernels.fr_powers(tables[0], n, batch), REPS_BATCH),
+        "fr_open_quotient 1 row": (lambda: kernels.fr_open_quotient(
+            local1, totals1, x, tables[1], row), REPS_POINT),
+        f"fr_open_quotient {BATCH} rows": (lambda: kernels.fr_open_quotient(
+            local, totals, x, tables[1], batch), REPS_BATCH)}
 
 
 def _inputs(path: str) -> None:
@@ -177,8 +239,13 @@ def _inputs(path: str) -> None:
     fr[:, 15] = rng.integers(0, 0x73ED, 16, dtype=np.uint32)
     fr[0], fr[1] = 0, FR.to_limbs16(FR.encode([1]))[0]
     fr[2] = FR.to_limbs16(FR.encode([FR.p - 1]))[0]
+    # the opening's row of 2^16 and a factor for each row of its batch
+    row = rng.integers(0, 1 << 16, (n + BATCH, 16), dtype=np.uint32)
+    row[:, 15] = rng.integers(0, 0x73ED, n + BATCH, dtype=np.uint32)
+    row = FR.from_limbs16(row)
     torch.save({"p": p.cpu(), "q": p.roll(1, 0).cpu(),
-                "fr": FR.from_limbs16(fr), "scalars": {
+                "fr": FR.from_limbs16(fr), "row": row[:n].clone(),
+                "factors": row[n:].clone(), "scalars": {
         "uniform": FR.from_limbs16(limbs, dev).cpu(),
         "all-ones": FR.from_limbs16(ones, dev).cpu()}}, path)
 

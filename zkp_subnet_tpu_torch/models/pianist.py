@@ -81,13 +81,11 @@ def open_all(srs: Srs, rows: torch.Tensor,
              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """All workers' openings at the shared point x: ((M, 8), (M, 3, 12)),
     the limbs of ``worker_open`` for each. x is inverted once for all the
-    rows (one K3 ``fr_inv`` on the card, not one a row)."""
-    xi = FR.inv(x)
-    outs = [tpoly.poly_open_scalars(rows[i], x, xi)
-            for i in range(rows.shape[0])]
-    ys = torch.stack([y for y, _ in outs])
+    rows (one K3 ``fr_inv`` on the card, not one a row), and the rows open
+    in one call (one launch of each opening kernel)."""
+    ys, quotients = tpoly.poly_open_scalars(rows, x, FR.inv(x))
     return ys, tmsm.msm_auto_many(_worker_bases(srs, rows.shape[0]),
-                                  torch.stack([q for _, q in outs]))
+                                  quotients)
 
 
 # ---------------------------------------------------------------------------

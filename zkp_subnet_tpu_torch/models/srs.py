@@ -5,7 +5,8 @@ in G1 and τ_X, τ_Y in G2; *precompute* = the per-worker Pianist slices
 U_i[j] = [R_i(τ_Y)·τ_X^j]G1 and the keys V_i = [R_i(τ_Y)]G1 (M = 2^machines_
 scale workers, rows of T = 2^(scale − machines_scale) coefficients).
 
-Generation: powers of τ_X by ``FR.powers`` (one K3 ``fr_powers``), the
+Generation: powers of τ_X by ``FR.powers`` (K3 ``fr_power_tables`` and
+``fr_powers``), the
 Lagrange values R_i(τ_Y) with host bigints, then the fixed-base comb
 (``ops/curve.g1_fixed_base_mul``: a table gather and one K1 ``g1_add`` per
 8-bit window) over all scalars. The comb runs in chunks of ``GEN_CHUNK``

@@ -18,8 +18,10 @@ arithmetic on the CPU).
 Dispatch: ``mont_mul``, ``add`` and ``sub`` launch kernel K3 (``csrc/fr.cu``,
 Fr) or K4 (``csrc/fq.cu``, Fq) on a CUDA tensor and run the plain versions
 (``fr_mul_plain``, ``fq_mul_plain``, ...) on a CPU tensor. Over Fr on a CUDA
-tensor ``inv`` and ``powers`` are one launch each (K3 ``fr_inv``,
-``fr_powers``; plain versions ``fr_inv_plain``, ``fr_powers_plain``); on
+tensor ``inv`` is one launch (K3 ``fr_inv``; plain version
+``fr_inv_plain``) and ``powers`` two (K3 ``fr_power_tables`` and
+``fr_powers``: ``fr_powers_on_card``; plain versions
+``fr_power_tables_plain``, ``fr_powers_plain``); on
 the CPU, and over Fq, they are glue over the three, as ``neg``, ``sqr``,
 ``pow_static``, ``to_mont`` and ``from_mont`` are. Inside a point add the
 Fq arithmetic stays in registers (``csrc/g1.cu``).
@@ -40,7 +42,9 @@ MASK16 = 0xFFFF
 __all__ = ["PrimeField", "FR", "FQ", "fr_mul", "fr_add",
            "fr_mul_plain", "fr_add_plain", "fr_sub_plain", "fr_inv_plain",
            "almost_inverse",
-           "fr_powers_plain", "fq_mul_plain", "fq_add_plain", "fq_sub_plain"]
+           "fr_power_tables_plain", "table_pow_plain", "fr_powers_plain",
+           "fr_powers_on_card", "fq_mul_plain", "fq_add_plain",
+           "fq_sub_plain"]
 
 
 # -- 16-bit int64 internals of the plain versions ----------------------------
@@ -301,8 +305,9 @@ class PrimeField:
         return self.mont_mul(a, self._const("one", a.device))
 
     def powers(self, x, n: int):
-        """[1, x, ..., x^(n-1)] (Montgomery), shape (n, L): one launch of the
-        field's powers kernel on a CUDA tensor where it has one (Fr), else
+        """[1, x, ..., x^(n-1)] (Montgomery), shape (n, L): the field's
+        powers kernels on a CUDA tensor where it has them (Fr: a table of
+        x, then the powers from it), else
         log-depth doubling of the prefix
         (``zkp_subnet_tpu/ops/field.py:347-359``)."""
         if x.is_cuda and self._powers_kernel is not None:
@@ -391,25 +396,61 @@ def fr_inv_plain(a):
     return FR.ints_to_limbs(out, a.device).reshape(a.shape)
 
 
-def fr_powers_plain(x, n: int, c=None,
-                    per_thread: int = kernels.POW_PER_THREAD):
-    """Plain version of K3 ``fr_powers``: out_k = x^k·c_k (x^k without
-    ``c``), (n, 8), as the kernel builds it: the table x^(2^j); for the
-    first k of each run of ``per_thread`` the product of the entries of the
-    bits set in k; then a product by x a step along the run; then c."""
-    bits = max(1, (n - 1).bit_length())
-    table = [x.reshape(FR.L)]
-    for _ in range(bits - 1):
-        table.append(FR.mont_mul_plain(table[-1], table[-1]))
-    first = torch.arange(0, n, per_thread, device=x.device)
-    run = [FR.ones(first.shape, x.device)]
-    for j, t in enumerate(table):
-        run[0] = FR.select(((first >> j) & 1).bool(),
-                           FR.mont_mul_plain(run[0], t), run[0])
-    for _ in range(per_thread - 1):
-        run.append(FR.mont_mul_plain(run[-1], table[0]))
-    out = torch.stack(run, dim=1).reshape(-1, FR.L)[:n]
-    return out if c is None else FR.mont_mul_plain(out, c)
+def fr_power_tables_plain(x, n: int, xi=None,
+                          width: int = kernels.POW_WIDTH):
+    """Plain version of K3 ``fr_power_tables``: (1, or 2 with ``xi``,
+    levels, width, 8), levels = ``kernels.power_levels(n, width)``, as the
+    kernel builds them: level l of a point is a Hillis-Steele product scan
+    over (1, b, b, ...) for b = x^(width^l), and the next level's b is the
+    last entry times b; level 0 of xi's table is multiplied by the integer 1
+    (canonical). ``width``: a power of two (the kernel's 256; CPU tests
+    take small ones to cross levels at toy widths)."""
+    one = FR.ints_to_limbs([1], x.device)
+    tables = []
+    for t, point in enumerate([x] if xi is None else [x, xi]):
+        b = point.reshape(FR.L)
+        levels = []
+        for _ in range(kernels.power_levels(n, width)):
+            v = torch.cat([FR.ones((1,), x.device),
+                           b.expand(width - 1, FR.L)])
+            d = 1
+            while d < width:
+                v = torch.cat([v[:d], FR.mont_mul_plain(v[d:], v[:-d])])
+                d <<= 1
+            levels.append(v)
+            b = FR.mont_mul_plain(v[-1], b)
+        if t == 1:
+            levels[0] = FR.mont_mul_plain(levels[0], one)
+        tables.append(torch.stack(levels))
+    return torch.stack(tables)
+
+
+def table_pow_plain(table, e):
+    """x^e for the int64 tensor ``e`` (each below the table's reach) from
+    x's table (levels, width, 8), as ``fr::table_pow`` looks it up: the
+    entry of e's lowest digit, times one entry a level above it."""
+    levels, width = table.shape[:2]
+    bits = width.bit_length() - 1
+    out = table[0][e & (width - 1)]
+    for lv in range(1, levels):
+        out = FR.mont_mul_plain(out, table[lv][(e >> (lv * bits))
+                                               & (width - 1)])
+    return out
+
+
+def fr_powers_plain(table, n: int, c=None):
+    """Plain version of K3 ``fr_powers``: out_{b,k} = x^k·c_{b,k} (x^k
+    without ``c``), (n, 8), or c's shape ((n, 8) or (B, n, 8)), as the
+    kernel: x^k looked up in x's ``table`` (from ``fr_power_tables_plain``)
+    once for all rows, then a product by c."""
+    pw = table_pow_plain(table, torch.arange(n, device=table.device))
+    return pw if c is None else FR.mont_mul_plain(c, pw)
+
+
+def fr_powers_on_card(x, n: int):
+    """[1, x, ..., x^(n−1)] (n, 8) on the card: K3 ``fr_power_tables`` (x's
+    table alone) and ``fr_powers`` without c, two launches."""
+    return kernels.fr_powers(kernels.fr_power_tables(x, n)[0], n)
 
 
 def fq_mul_plain(a, b):
@@ -431,7 +472,7 @@ FR = PrimeField(
     0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
     n_limbs=8, name="fr", mul_kernel=kernels.fr_mul,
     add_kernel=kernels.fr_add, sub_kernel=kernels.fr_sub,
-    inv_kernel=kernels.fr_inv, powers_kernel=kernels.fr_powers)
+    inv_kernel=kernels.fr_inv, powers_kernel=fr_powers_on_card)
 FQ = PrimeField(
     0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB,
     n_limbs=12, name="fq", mul_kernel=kernels.fq_mul,

@@ -52,7 +52,8 @@ LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
                                  "g1_fixed_table", "g1_msm_fixed",
                                  "msm_buckets", "msm_reduce", "msm_combine",
                                  "fr_mul", "fr_add", "fr_sub", "fr_inv",
-                                 "fr_powers", "fr_suffix_scan",
+                                 "fr_power_tables", "fr_powers",
+                                 "fr_suffix_scan",
                                  "fr_open_quotient", "fr_eval_rows",
                                  "fq_mul", "fq_add", "fq_sub",
                                  "fr_butterfly")}
@@ -61,9 +62,13 @@ LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
 #: csrc/fr.cu, whose C entries refuse another)
 SCAN_TILE = 1024
 
-#: consecutive powers a thread of ``fr_powers`` computes (POW_PER_THREAD of
-#: csrc/fr.cu, whose C entry refuses another)
-POW_PER_THREAD = 4
+#: entries of a level of the power tables (POW_WIDTH of csrc/fr.cuh, whose
+#: C entries refuse another), and their levels at most (MAX_POW_LEVELS)
+POW_WIDTH = 256
+MAX_POW_LEVELS = 4
+
+#: rows of one opening's launches at most (the grids' second dimension)
+MAX_OPEN_ROWS = 65535
 
 #: elements of one block's tile in ``fr_eval_rows`` (EVAL_TILE of
 #: csrc/fr.cu, whose C entry refuses another), and the consecutive powers a
@@ -237,10 +242,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "zkp_fr_add": [p, p, p, i64, i32, i32, p],
         "zkp_fr_sub": [p, p, p, i64, i32, i32, p],
         "zkp_fr_inv": [p, p, i64, p],
-        "zkp_fr_powers": [p, p, p, i64, i32, i32, p],
+        "zkp_fr_power_tables": [p, p, p, i32, i32, p],
+        "zkp_fr_powers": [p, p, p, i64, i64, i32, i32, p],
         "zkp_fr_suffix_scan": [p, p, p, i64, i32, p],
-        "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i32, i32,
-                                 p],
+        "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i64, i32, i32,
+                                 i32, p],
         "zkp_fr_eval_rows": [p, p, p, p, i64, i64, i64, i32, i32, i32,
                              p],
         "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
@@ -576,33 +582,96 @@ def fr_inv(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fr_powers(x: torch.Tensor, n: int,
-              c: torch.Tensor | None = None) -> torch.Tensor:
-    """out_k = x^k·c_k (x^k without ``c``), k < n: (n, 8) Montgomery.
+def power_levels(n: int, width: int = POW_WIDTH) -> int:
+    """Levels of a power table of ``width`` (a power of two) entries a level
+    that hold x^e for every e < n (at least one)."""
+    bits = width.bit_length() - 1
+    return max(1, -(-max(n - 1, 0).bit_length() // bits))
 
-    ``x`` one element on the card (read there: no host round trip), ``c``
-    (n, 8). Replaces pallas_g1.py:pfield("mont_mul", BFR) as reached from
-    field.powers and poly._powers_lane/_fmul (log2 n doubling launches and
-    the termwise product). Bound: bytes (the function needs two products an
-    element); ``POW_PER_THREAD`` consecutive k a thread, one walk of a
-    per-block table of x^(2^j) for the first, then a product by x a
-    step."""
+
+def fr_power_tables(x: torch.Tensor, n: int,
+                    xi: torch.Tensor | None = None) -> torch.Tensor:
+    """The tables of powers that ``fr_powers`` (of x) and
+    ``fr_open_quotient`` (of ``xi`` = 1/x) read for rows of n elements:
+    (1, or 2 with xi, levels, POW_WIDTH, 8), levels = ``power_levels(n)``.
+    Table t, level l, entry i: (x or xi)^(i·256^l), Montgomery, but level 0
+    of xi's table canonical (the quotient's product by the integer 1,
+    folded in).
+
+    ``x``, ``xi`` one element each on the card (read there). Replaces
+    pallas_g1.py:pfield("mont_mul", BFR) as reached from field.powers
+    (the doubling launches of the powers). Bound: latency, ~9 dependent
+    products a level (a block's Hillis-Steele product scan of a level, then
+    the next level's base); one block a point, once for all its rows."""
     _one_element(x, "x")
+    tensors = [x]
+    if xi is not None:
+        _one_element(xi, "xi")
+        if xi.device != x.device:
+            raise ValueError("fr_power_tables: x and xi on different devices")
+        tensors.append(xi)
+    _aligned("fr_power_tables", *tensors)
+    n = int(n)
+    if not 0 <= n < 1 << 31:
+        raise ValueError("fr_power_tables: n must be in [0, 2^31)")
+    levels = power_levels(n)
+    out = torch.empty((len(tensors), levels, POW_WIDTH, 8), dtype=torch.int32,
+                      device=x.device)
+    _launch("fr_power_tables", _load().zkp_fr_power_tables, x.data_ptr(),
+            None if xi is None else xi.data_ptr(), out.data_ptr(), levels,
+            POW_WIDTH)
+    return out
+
+
+def _table(table: torch.Tensor, n: int, name: str) -> int:
+    """The levels of a (levels, POW_WIDTH, 8) table that reaches the powers
+    below n; raises on anything else."""
+    _check(table, "table", tail=(POW_WIDTH, 8))
+    levels = table.shape[0]
+    if table.dim() != 3 or not 1 <= levels <= MAX_POW_LEVELS:
+        raise ValueError(f"{name}: a table (levels, {POW_WIDTH}, 8) of 1.."
+                         f"{MAX_POW_LEVELS} levels expected")
+    if levels < power_levels(n):
+        raise ValueError(f"{name}: a table of {levels} levels does not reach "
+                         f"{n} powers ({power_levels(n)} needed)")
+    return levels
+
+
+def fr_powers(table: torch.Tensor, n: int,
+              c: torch.Tensor | None = None) -> torch.Tensor:
+    """out_{b,k} = x^k·c_{b,k} (x^k without ``c``), k < n: (n, 8), or c's
+    shape, (n, 8) or (B, n, 8) rows; Montgomery.
+
+    ``table``: x's table from ``fr_power_tables`` (its first), on the card.
+    Replaces pallas_g1.py:pfield("mont_mul", BFR) as reached from
+    field.powers and poly._powers_lane/_fmul (log2 n doubling launches and
+    the termwise product). Bound: bytes (c read, out written once). One
+    thread a power k: its lookup in the table (a product a level above the
+    first), then the product by c_{b,k} for a few rows b in turn; one launch
+    for every row."""
     n = int(n)
     if not 0 <= n < 1 << 31:
         raise ValueError("fr_powers: n must be in [0, 2^31)")
-    tensors = [x]
+    levels = _table(table, n, "fr_powers")
+    rows = 1
+    tensors = [table]
     if c is not None:
         _check(c, "c", tail=(8,))
-        if tuple(c.shape) != (n, 8) or c.device != x.device:
-            raise ValueError("fr_powers: c must be (n, 8) on x's device")
+        if (c.dim() not in (2, 3) or c.shape[-2] != n
+                or c.device != table.device):
+            raise ValueError("fr_powers: c must be (n, 8) or (B, n, 8) on the "
+                             "table's device")
+        rows = c.shape[0] if c.dim() == 3 else 1
+        if not 1 <= rows <= MAX_OPEN_ROWS:
+            raise ValueError(f"fr_powers: 1..{MAX_OPEN_ROWS} rows expected")
         tensors.append(c)
     _aligned("fr_powers", *tensors)
-    out = torch.empty((n, 8), dtype=torch.int32, device=x.device)
+    out = torch.empty((n, 8) if c is None else tuple(c.shape),
+                      dtype=torch.int32, device=table.device)
     if n:
-        _launch("fr_powers", _load().zkp_fr_powers, x.data_ptr(),
-                0 if c is None else c.data_ptr(), out.data_ptr(), n,
-                max(1, (n - 1).bit_length()), POW_PER_THREAD)
+        _launch("fr_powers", _load().zkp_fr_powers, table.data_ptr(),
+                None if c is None else c.data_ptr(), out.data_ptr(), rows, n,
+                levels, POW_WIDTH)
     return out
 
 
@@ -631,36 +700,49 @@ def fr_suffix_scan(terms: torch.Tensor):
 
 
 def fr_open_quotient(local: torch.Tensor, totals: torch.Tensor,
-                     x: torch.Tensor, xi: torch.Tensor, coeffs: torch.Tensor):
-    """Second pass of the suffix scan, fused with the opening: (y (8,)
-    Montgomery, q (n, 8) canonical) with y = S_0 and q_j = S_{j+1}·xi^(j+1)
-    (q_{n−1} = 0); at x = 0, q = c[1:] ‖ 0, chosen on the card.
+                     x: torch.Tensor, xi_table: torch.Tensor,
+                     coeffs: torch.Tensor):
+    """Second pass of the suffix scan, fused with the openings of B rows at
+    one x: (y (8,) or (B, 8) Montgomery, q like ``local`` canonical) with
+    y_b = S_{b,0} and q_{b,j} = S_{b,j+1}·xi^(j+1) (q_{b,n−1} = 0); at x = 0,
+    q_b = c_b[1:] ‖ 0, chosen on the card.
 
-    ``local``/``totals`` from ``fr_suffix_scan``, ``x`` and ``xi`` = 1/x one
-    element each, ``coeffs`` (n, 8). Replaces pallas_g1.py:pfield over BFR
-    as reached from poly.poly_open_scalars (the quotient scaling, the
-    de-Montgomery product, the x = 0 select). Bound: operations (an add and
-    two products an element); the carry over the tiles to the right by one
-    warp, (1/x)^(j+1) from a per-block table."""
+    ``local`` (n, 8) or (B, n, 8) and ``totals`` (ceil(n / SCAN_TILE), 8) or
+    (B, ·, 8) from ``fr_suffix_scan``, ``x`` one element, ``xi_table`` 1/x's
+    table (the second of ``fr_power_tables``), ``coeffs`` like ``local``.
+    Replaces pallas_g1.py:pfield over BFR as reached from
+    poly.poly_open_scalars (the quotient scaling, the de-Montgomery product,
+    the x = 0 select). Bound: bytes (local read, q written once); one thread
+    an element: the carry over the tiles to the right by one warp a block,
+    xi^(j+1) by a lookup in the table, an add and a product."""
     for t, name in ((local, "local"), (totals, "totals"), (coeffs, "coeffs")):
         _check(t, name, tail=(8,))
     _one_element(x, "x")
-    _one_element(xi, "xi")
-    n = local.shape[0]
-    if (local.dim() != 2 or tuple(coeffs.shape) != (n, 8)
-            or tuple(totals.shape) != (-(-n // SCAN_TILE), 8)):
-        raise ValueError("fr_open_quotient: local and coeffs (n, 8), totals "
-                         "(ceil(n / SCAN_TILE), 8) expected")
-    if len({t.device for t in (local, totals, x, xi, coeffs)}) != 1:
+    batched = local.dim() == 3
+    if local.dim() not in (2, 3):
+        raise ValueError("fr_open_quotient: local (n, 8) or (B, n, 8) "
+                         "expected")
+    rows = local.shape[0] if batched else 1
+    n = local.shape[-2]
+    lead = (rows,) if batched else ()
+    if (tuple(coeffs.shape) != tuple(local.shape)
+            or tuple(totals.shape) != lead + (-(-n // SCAN_TILE), 8)):
+        raise ValueError("fr_open_quotient: coeffs like local, totals "
+                         "([B,] ceil(n / SCAN_TILE), 8) expected")
+    if not 1 <= rows <= MAX_OPEN_ROWS:
+        raise ValueError(f"fr_open_quotient: 1..{MAX_OPEN_ROWS} rows "
+                         "expected")
+    levels = _table(xi_table, n, "fr_open_quotient")
+    if len({t.device for t in (local, totals, x, xi_table, coeffs)}) != 1:
         raise ValueError("fr_open_quotient: tensors on different devices")
-    _aligned("fr_open_quotient", local, totals, x, xi, coeffs)
-    y = torch.empty(8, dtype=torch.int32, device=local.device)
+    _aligned("fr_open_quotient", local, totals, x, xi_table, coeffs)
+    y = torch.empty(lead + (8,), dtype=torch.int32, device=local.device)
     q = torch.empty_like(local)
     if n:
         _launch("fr_open_quotient", _load().zkp_fr_open_quotient,
                 local.data_ptr(), totals.data_ptr(), x.data_ptr(),
-                xi.data_ptr(), coeffs.data_ptr(), y.data_ptr(), q.data_ptr(),
-                n, SCAN_TILE, n.bit_length())
+                xi_table.data_ptr(), coeffs.data_ptr(), y.data_ptr(),
+                q.data_ptr(), rows, n, levels, SCAN_TILE, POW_WIDTH)
     return y, q
 
 

@@ -6,17 +6,21 @@ at x, with t_k = c_k·x^k:
     f(x) = S_0,  S_j = Σ_{k≥j} t_k   (suffix sums)
     q_j  = x^{-(j+1)}·S_{j+1}        (q = (f(X) − f(x))/(X − x))
 
-On a CUDA tensor an opening is four launches of kernel K3 (``csrc/fr.cu``)
-and reads nothing back to the host: ``fr_inv`` (1/x; skipped where the
-caller opens many rows at one x and hands 1/x in), ``fr_powers`` (the
-terms t_k), ``fr_suffix_scan`` (each tile's suffix sums and total) and
-``fr_open_quotient`` (the carry over the tiles, y = S_0, the scaled
-quotient, the x = 0 corner). Their plain versions (``fr_inv_plain``,
+``poly_open_scalars`` opens one row or B rows at one x (a prove's rows all
+open at α). On a CUDA tensor that is five launches of kernel K3
+(``csrc/fr.cu``) whatever B, and nothing read back to the host:
+``fr_inv`` (1/x; skipped where the caller hands 1/x in),
+``fr_power_tables`` (the tables of powers of x and of 1/x, once for all
+rows), ``fr_powers`` (the terms t_k of every row), ``fr_suffix_scan`` (each
+tile's suffix sums and total, over the rows laid end to end where n is a
+multiple of the tile, else once a row) and ``fr_open_quotient`` (the carry
+over a row's tiles, y = S_0, the scaled quotient, the x = 0 corner). Their
+plain versions (``fr_inv_plain``, ``fr_power_tables_plain``,
 ``fr_powers_plain``, ``fr_suffix_scan_plain``, ``fr_open_quotient_plain``,
-composed by ``open_pieces_plain``) follow the kernels' structure and take
-the tile as an argument. On a CPU tensor the opening is the JAX package's
-composition over the plain Fr ops: powers by doubling, Hillis-Steele suffix
-sums, the inverse by ``FR.inv``.
+composed by ``open_pieces_plain``) follow the kernels' method and take the
+tile and the tables' level width as arguments. On a CPU tensor the opening
+is the JAX package's composition over the plain Fr ops: powers by
+doubling, Hillis-Steele suffix sums, the inverse by ``FR.inv``.
 
 An evaluation alone (``poly_eval``, ``poly_eval_many``: one row or a batch
 of rows, as the coordinator's challenge evaluates all its rows at α) is
@@ -34,7 +38,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .field import FR, fr_add, fr_inv_plain, fr_mul, fr_powers_plain
+from .field import (FR, fr_add, fr_inv_plain, fr_mul, fr_power_tables_plain,
+                    fr_powers_plain, table_pow_plain)
 
 #: elements of one tile of the suffix scan (the kernel's; CPU tests pass
 #: smaller tiles to the plain versions)
@@ -42,6 +47,10 @@ SCAN_TILE = kernels.SCAN_TILE
 
 #: elements of one tile of the row evaluation (the kernel's)
 EVAL_TILE = kernels.EVAL_TILE
+
+#: entries of a level of the power tables (the kernel's; CPU tests pass
+#: smaller widths to the plain versions)
+POW_WIDTH = kernels.POW_WIDTH
 
 
 def _one_canonical(device) -> torch.Tensor:
@@ -63,27 +72,44 @@ def _scan_from_right(terms: torch.Tensor, add) -> torch.Tensor:
 
 
 def _open_pieces(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
-    """(y, q') with q'_j = x^{-(j+1)}·S_{j+1} at full width n (q'_{n−1} = 0),
-    composed over the elementwise Fr ops (the CPU's path); ``xi`` = 1/x
-    where the caller has it."""
-    n = coeffs.shape[0]
+    """(y, q') with q'_j = x^{-(j+1)}·S_{j+1} at full width n (q'_{n−1} = 0)
+    for coeffs (..., n, 8), every row at x, composed over the elementwise Fr
+    ops (the CPU's path); ``xi`` = 1/x where the caller has it."""
+    n = coeffs.shape[-2]
     terms = fr_mul(coeffs, FR.powers(x, n))         # t_k = c_k·x^k
     suffix = _scan_from_right(terms, fr_add)
     xi = (FR.inv(x) if xi is None else xi).reshape(1, FR.L)   # 0 ↦ 0
     inv_pw = fr_mul(FR.powers(xi, n), xi)           # x^{-1} .. x^{-n}
-    s_next = torch.cat([suffix[1:], FR.zeros((1,), coeffs.device)])
-    return suffix[0], fr_mul(s_next, inv_pw)
+    zero = FR.zeros(coeffs.shape[:-2] + (1,), coeffs.device)
+    s_next = torch.cat([suffix[..., 1:, :], zero], dim=-2)
+    return suffix[..., 0, :], fr_mul(s_next, inv_pw)
+
+
+def _scan_on_card(terms: torch.Tensor):
+    """``fr_suffix_scan`` of B rows (B, n, 8): (local (B, n, 8), totals (B,
+    tiles, 8)). Its tiles are tile-local, so one launch over the rows laid
+    end to end where they are whole tiles (or one row), else one a row."""
+    b, n = terms.shape[:2]
+    if b == 1 or n % SCAN_TILE == 0:
+        local, totals = kernels.fr_suffix_scan(terms.view(b * n, FR.L))
+        return local.view(b, n, FR.L), totals.view(b, -1, FR.L)
+    pairs = [kernels.fr_suffix_scan(t) for t in terms]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
 
 
 def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
-    """(y Montgomery, q (n, 8) canonical) of ``fr_open_quotient`` in four K3
-    launches, three where the caller hands over ``xi`` = 1/x; x stays on the
-    card."""
-    coeffs, x = coeffs.contiguous(), x.contiguous()
+    """(y Montgomery, q canonical) of ``fr_open_quotient`` for one row (n,
+    8) or B rows (B, n, 8) at x, in five K3 launches whatever B, four where
+    the caller hands over ``xi`` = 1/x; x stays on the card."""
+    rows = coeffs if coeffs.dim() == 3 else coeffs[None]
+    rows, x = rows.contiguous(), x.contiguous()
+    n = rows.shape[1]
     xi = kernels.fr_inv(x) if xi is None else xi.contiguous()
-    terms = kernels.fr_powers(x, coeffs.shape[0], coeffs)
-    local, totals = kernels.fr_suffix_scan(terms)
-    return kernels.fr_open_quotient(local, totals, x, xi, coeffs)
+    tables = kernels.fr_power_tables(x, n, xi)
+    local, totals = _scan_on_card(kernels.fr_powers(tables[0], n, rows))
+    y, q = kernels.fr_open_quotient(local, totals, x, tables[1], rows)
+    return (y, q) if coeffs.dim() == 3 else (y[0], q[0])
 
 
 # -- plain versions of the scan kernels ---------------------------------------
@@ -91,50 +117,84 @@ def _open_on_card(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
 def fr_suffix_scan_plain(terms: torch.Tensor, tile: int = SCAN_TILE):
     """Plain version of K3 ``fr_suffix_scan``: (local, totals), each tile's
     inclusive suffix sums from its right end and its total (the first local
-    sum), over tiles of ``tile`` elements. Inside a tile the adds go in
-    Hillis-Steele's order, not the kernel's (a thread's elements, its warp,
-    the warps): the sums are the same limbs."""
-    n = terms.shape[0]
+    sum), over tiles of ``tile`` elements, of (n, 8) terms or of each row of
+    (B, n, 8). Inside a tile the adds go in Hillis-Steele's order, not the
+    kernel's (a thread's elements, its warp, the warps): the sums are the
+    same limbs."""
+    lead, n = terms.shape[:-2], terms.shape[-2]
     blocks = -(-n // tile)
-    padded = torch.cat([terms, FR.zeros((blocks * tile - n,), terms.device)])
-    sums = _scan_from_right(padded.view(blocks, tile, FR.L), FR.add_plain)
-    return sums.reshape(-1, FR.L)[:n], sums[:, 0].contiguous()
+    pad = FR.zeros(lead + (blocks * tile - n,), terms.device)
+    padded = torch.cat([terms, pad], dim=-2)
+    sums = _scan_from_right(padded.view(lead + (blocks, tile, FR.L)),
+                            FR.add_plain)
+    return (sums.reshape(lead + (-1, FR.L))[..., :n, :],
+            sums[..., 0, :].contiguous())
 
 
 def fr_open_quotient_plain(local: torch.Tensor, totals: torch.Tensor,
-                           x: torch.Tensor, xi: torch.Tensor,
+                           x: torch.Tensor, xi_table: torch.Tensor,
                            coeffs: torch.Tensor, tile: int = SCAN_TILE):
-    """Plain version of K3 ``fr_open_quotient``: (y Montgomery, q
-    canonical) from the first pass's tiles. carry_b = Σ_{b' > b}
-    totals[b']; S_{j+1} = local_{j+1} + carry inside a tile, the carry alone
-    at a tile's last element; y = S_0, q_j = S_{j+1}·xi^(j+1) times the
-    integer 1; at x = 0, q = c[1:] ‖ 0."""
-    n, dev = local.shape[0], local.device
-    zero = FR.zeros((1,), dev)
-    carry = _scan_from_right(torch.cat([totals[1:], zero]), FR.add_plain)
+    """Plain version of K3 ``fr_open_quotient`` over one row (n, 8) or B
+    rows (B, n, 8) at x: (y Montgomery, q canonical) from the first pass's
+    tiles. carry_b = Σ_{b' > b} totals[b'] of the row; S_{j+1} = local_{j+1}
+    + carry inside a tile, the carry alone at a tile's last element; y =
+    S_0, q_j = S_{j+1}·xi^(j+1) for j < n − 1 with xi^(j+1) looked up in
+    1/x's table (``xi_table``, level 0 canonical, so q is), q_{n−1} = 0;
+    at x = 0, q = c[1:] ‖ 0 times the integer 1."""
+    n, dev = local.shape[-2], local.device
+    lead = local.shape[:-2]
+    zero = FR.zeros(lead + (1,), dev)
+    carry = _scan_from_right(torch.cat([totals[..., 1:, :], zero], dim=-2),
+                             FR.add_plain)
     j = torch.arange(n, device=dev)
     block = j // tile
     inside = j + 1 < torch.clamp((block + 1) * tile, max=n)
-    nxt = FR.select(inside, torch.cat([local[1:], zero]), FR.zeros((n,), dev))
-    s_next = FR.add_plain(nxt, carry[block])
-    y = FR.add_plain(local[0], carry[0])
+    nxt = torch.where(inside[:, None],
+                      torch.cat([local[..., 1:, :], zero], dim=-2), 0)
+    s_next = FR.add_plain(nxt, carry[..., block, :])
+    y = FR.add_plain(local[..., 0, :], carry[..., 0, :])
+    pw = table_pow_plain(xi_table, torch.clamp(j + 1, max=max(n - 1, 0)))
+    q = torch.where((j + 1 < n)[:, None], FR.mont_mul_plain(s_next, pw), 0)
     one = _one_canonical(dev)
-    pw = fr_powers_plain(xi, n + 1)[1:]                     # xi^(j+1)
-    q = FR.mont_mul_plain(FR.mont_mul_plain(s_next, pw), one)
-    q_zero = FR.mont_mul_plain(torch.cat([coeffs[1:], zero]), one)
-    at_zero = FR.is_zero(x.reshape(FR.L)).expand(n)
-    return y, FR.select(at_zero, q_zero, q)
+    q_zero = FR.mont_mul_plain(torch.cat([coeffs[..., 1:, :], zero], dim=-2),
+                               one)
+    at_zero = bool(FR.is_zero(x.reshape(FR.L)))
+    return y, q_zero if at_zero else q
 
 
 def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
-                      tile: int = SCAN_TILE, xi=None):
-    """The four plain versions composed as ``_open_on_card`` launches the
-    kernels: (y, q (n, 8)); ``fr_inv_plain`` is skipped where ``xi`` = 1/x
-    is given."""
+                      tile: int = SCAN_TILE, xi=None, width: int = POW_WIDTH):
+    """The plain versions composed as ``_open_on_card`` launches the
+    kernels, for one row (n, 8) or B rows (B, n, 8) at x: (y, q);
+    ``fr_inv_plain`` is skipped where ``xi`` = 1/x is given. ``tile`` and
+    ``width``: the scan's tile and the tables' level width."""
+    n = coeffs.shape[-2]
     xi = fr_inv_plain(x.reshape(FR.L)) if xi is None else xi.reshape(FR.L)
-    terms = fr_powers_plain(x, coeffs.shape[0], coeffs)
+    tables = fr_power_tables_plain(x, n, xi, width)
+    terms = fr_powers_plain(tables[0], n, coeffs)
     local, totals = fr_suffix_scan_plain(terms, tile)
-    return fr_open_quotient_plain(local, totals, x, xi, coeffs, tile)
+    return fr_open_quotient_plain(local, totals, x, tables[1], coeffs, tile)
+
+
+def _powers_by_runs(x: torch.Tensor, n: int, c: torch.Tensor,
+                    per_thread: int) -> torch.Tensor:
+    """x^k·c_k, (n, 8), as a thread of ``fr_eval_rows`` takes them
+    (``fr::pow_run``): the table x^(2^j); for the first k of each run of
+    ``per_thread`` the product of the entries of the bits set in k; then a
+    product by x a step along the run; then c."""
+    bits = max(1, (n - 1).bit_length())
+    table = [x.reshape(FR.L)]
+    for _ in range(bits - 1):
+        table.append(FR.mont_mul_plain(table[-1], table[-1]))
+    first = torch.arange(0, n, per_thread, device=x.device)
+    run = [FR.ones(first.shape, x.device)]
+    for j, t in enumerate(table):
+        run[0] = FR.select(((first >> j) & 1).bool(),
+                           FR.mont_mul_plain(run[0], t), run[0])
+    for _ in range(per_thread - 1):
+        run.append(FR.mont_mul_plain(run[-1], table[0]))
+    out = torch.stack(run, dim=1).reshape(-1, FR.L)[:n]
+    return FR.mont_mul_plain(out, c)
 
 
 def fr_eval_rows_plain(coeffs: torch.Tensor, xs: torch.Tensor,
@@ -142,11 +202,11 @@ def fr_eval_rows_plain(coeffs: torch.Tensor, xs: torch.Tensor,
     """Plain version of K3 ``fr_eval_rows``: y_r = Σ_k c_{r,k}·x_r^k, (R, 8)
     Montgomery, from ``coeffs`` (R, n, 8) and ``xs`` (R, 8), either of
     which may hold one row or one point for all R. As the kernel: the terms
-    x^k·c_k by ``fr_powers_plain`` (a thread's run of powers from the table
-    of x^(2^j)), a partial sum a tile of ``tile`` elements, then the sum of
-    a row's partials; the adds inside a tile go by halving, not in the
-    kernel's order (a thread's elements, its warp, the warps): the sums are
-    the same limbs."""
+    x^k·c_k by a thread's run of powers from the table of x^(2^j)
+    (``_powers_by_runs``), a partial sum a tile of ``tile`` elements, then
+    the sum of a row's partials; the adds inside a tile go by halving, not
+    in the kernel's order (a thread's elements, its warp, the warps): the
+    sums are the same limbs."""
     rows = max(coeffs.shape[0], xs.shape[0])
     n = coeffs.shape[1]
     tiles = -(-n // tile)
@@ -154,7 +214,7 @@ def fr_eval_rows_plain(coeffs: torch.Tensor, xs: torch.Tensor,
     for r in range(rows):
         c = coeffs[r if coeffs.shape[0] > 1 else 0]
         x = xs[r if xs.shape[0] > 1 else 0]
-        terms = fr_powers_plain(x, n, c, kernels.EVAL_PER_THREAD)
+        terms = _powers_by_runs(x, n, c, kernels.EVAL_PER_THREAD)
         parts = torch.cat([terms, FR.zeros((tiles * tile - n,), c.device)])
         out.append(_tree_sum(_tree_sum(parts.view(tiles, tile, FR.L))))
     return torch.stack(out)
@@ -217,19 +277,21 @@ def poly_quotient(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def poly_open_scalars(coeffs: torch.Tensor, x: torch.Tensor, xi=None):
     """(f(x) Montgomery (8,), quotient scalars (N, 8) CANONICAL, q[N−1] = 0)
-    for a KZG opening (``zkp_subnet_tpu/ops/poly.py:140-172``).
+    for a KZG opening (``zkp_subnet_tpu/ops/poly.py:140-172``); for B rows
+    (B, N, 8) at the one x, (B, 8) and (B, N, 8): on the card the same five
+    launches as one row (the tables of x and 1/x built once for all).
 
-    ``xi``: 1/x (Montgomery, ``FR.inv(x)``) where the caller opens many
-    rows at one x and inverts it once for all of them; else the opening
-    inverts x itself (one K3 ``fr_inv`` on the card). The x = 0 corner
-    stays exact: the quotient is then c[1:] (a commit-only request runs the
-    opening with x = 0). On the card that choice is made by the kernel, so
-    x is never read back to the host."""
+    ``xi``: 1/x (Montgomery, ``FR.inv(x)``) where the caller has it; else
+    the opening inverts x itself (one K3 ``fr_inv`` on the card). The x = 0
+    corner stays exact: the quotient is then c[1:] (a commit-only request
+    runs the opening with x = 0). On the card that choice is made by the
+    kernel, so x is never read back to the host."""
     if coeffs.is_cuda:
         return _open_on_card(coeffs, x, xi)
     y, q = _open_pieces(coeffs, x, xi)
     if bool(FR.is_zero(x)):
-        q = torch.cat([coeffs[1:], FR.zeros((1,), coeffs.device)])
+        zero = FR.zeros(coeffs.shape[:-2] + (1,), coeffs.device)
+        q = torch.cat([coeffs[..., 1:, :], zero], dim=-2)
     return y, from_mont_wide(q)
 
 

@@ -191,19 +191,20 @@ def commit_open(bases: torch.Tensor, rows: torch.Tensor,
     (Bl, Ml, 3, 12). Worker i's Bl commitments and Bl openings are 2·Bl MSMs
     over its bases, batched (``msm_auto_groups``), as the worker batches
     its commit and opening (``kzg.commit_open``). Every row opens at alpha,
-    so alpha is inverted once for all Bl·Ml rows (one K3 ``fr_inv``)."""
-    bl, ml = rows.shape[:2]
+    so alpha is inverted once and all Bl·Ml rows open in one call (one
+    launch of each opening kernel on the card, the tables of alpha and
+    1/alpha built once)."""
+    bl, ml, t = rows.shape[:3]
     alpha_inv = FR.inv(alpha)
-    opened = [[tpoly.poly_open_scalars(rows[b, i], alpha, alpha_inv)
-               for b in range(bl)] for i in range(ml)]
-    evals = torch.stack([torch.stack([y for y, _ in w]) for w in opened], 1)
-    canonical = tpoly.from_mont_wide(rows)               # one launch
-    scalars = torch.stack([
-        torch.cat([canonical[:, i], torch.stack([q for _, q in w])])
-        for i, w in enumerate(opened)])                   # (Ml, 2Bl, T, 8)
+    evals, quotients = tpoly.poly_open_scalars(
+        rows.reshape(bl * ml, t, FR.L), alpha, alpha_inv)
+    scalars = torch.empty((ml, 2 * bl, t, FR.L), dtype=rows.dtype,
+                          device=rows.device)
+    scalars[:, :bl] = tpoly.from_mont_wide(rows).transpose(0, 1)  # 1 launch
+    scalars[:, bl:] = quotients.view(bl, ml, t, FR.L).transpose(0, 1)
     out = tmsm.msm_auto_groups(bases, scalars)           # (Ml, 2Bl, 3, 12)
-    return (out[:, :bl].transpose(0, 1).contiguous(), evals,
-            out[:, bl:].transpose(0, 1).contiguous())
+    return (out[:, :bl].transpose(0, 1).contiguous(),
+            evals.view(bl, ml, FR.L), out[:, bl:].transpose(0, 1).contiguous())
 
 
 def gather(mesh: DeviceMesh, parts: Sequence[torch.Tensor],
