@@ -27,8 +27,8 @@ Phases (each prints a line; any failure exits non-zero):
    ``g1_scalar_mul`` with scalars 0, 1, r − 1 and the point at infinity, at
    16 and 2^16 points, also against the loop of K1 launches it replaces;
    the aggregation's fixed-base MSM ``g1_msm_fixed`` and its table
-   ``g1_fixed_table`` at 16 and 256 bases (one at infinity), scalars 0, 1,
-   r − 1 and random, three MSMs a call, also against the oracle;
+   ``g1_fixed_table`` at 16, 256 and 1024 bases (one at infinity), scalars
+   0, 1, r − 1 and random, three MSMs a call, also against the oracle;
    the challenge's row evaluation ``fr_eval_rows`` at x = 0, 1, r − 1 and
    random, on a row of zeros, one row, lengths 1, 1024, 1025 and 3000, one
    row at 16 points, and 16 x 2^16 at one point with the host forbidden to
@@ -39,8 +39,10 @@ Phases (each prints a line; any failure exits non-zero):
    least time the card could take for the same work (``bound_ms``); for
    K2, the depth of the dependency chain and ms ÷ depth, and
    ``msm_buckets`` on scalars that are all 1 beside uniform ones; the
-   aggregation's two MSMs at 16 and 256 bases by ``g1_msm_fixed`` beside
-   K2's ``msm_many`` and beside the ladder and tree they replace; the
+   aggregation's two MSMs at 16, 256 and 1024 bases by ``g1_msm_fixed``
+   beside K2's ``msm_many`` and beside the ladder and tree they replace,
+   and its table at 256 and 1024 bases, with the chains of both kernels
+   in µs a dependent point operation; the
    opening's kernels also at the [mesh] batch, 256 rows of 2^16 at one
    point (held to the plain versions on four of the rows), and the whole
    opening at one row and at the batch;
@@ -73,7 +75,11 @@ Phases (each prints a line; any failure exits non-zero):
    ``fr_inv``, ``run_round`` through ``LocalTransport``, through
    ``HttpTransport`` to a ``WorkerServer`` on 127.0.0.1 and through
    ``MockTransport`` with one corrupt uid, ``aggregate_responses``, the
-   weights and ``state.npz``);
+   weights and ``state.npz``); after the path's counts are read, one
+   aggregation at machines_scale 10 (``Srs.generate(16, 10)``: 1024
+   workers of 2^6 coefficients, proved by ``commit_all``/``open_all``)
+   through ``pianist.aggregate``, ``verify_aggregated`` True and False for
+   a tampered proof;
 6. ``[ntt]``: forward + inverse round trips at 2^16, 2^20 and 2^22;
 7. ``[cli]``, the user's commands (``python -m zkp_subnet_tpu_torch``) in a
    temporary directory: at the reference mainnet deployment (scale 24,
@@ -180,6 +186,12 @@ TAU_Y = 0x0F1E2D3C4B5A69788796A5B4C3D2E1F00112233445566778
 NTT_CELL_LOGS = (16, 20, 22)
 NTT_CELL_RUNS = 5
 AGGREGATE_WARM_RUNS = 5
+# the aggregation past 512 workers: scale 16, machines_scale 10 -> 1024
+# workers x 2^6 (the keys' count a machines_scale 10 deployment has; the
+# rows cut to 64 coefficients)
+WIDE_SCALE, WIDE_MACHINES_SCALE = 16, 10
+# the aggregation's keys at the widest shape timed here
+WIDE_KEYS = 1 << WIDE_MACHINES_SCALE
 # the coordinator's rounds on the [round] SRS: the scoring timeout (s)
 COORDINATOR_TIMEOUT = 30.0
 # [cli]: the reference mainnet deployment (scale 24, machines_scale 8:
@@ -553,13 +565,17 @@ def path_inputs(rng, dev):
     ls = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
     ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1], dev)
     # the aggregation's Lagrange-Y MSMs (C_y and W_y) at the mainnet shape
-    # of [cli] and [mesh], 256 keys (Z != 1, one at infinity), and at
-    # [round]'s 16: the keys' window table and two MSMs' scalars
-    lag = random_points(rng, 256, dev)[0]
-    lag[3] = cv.g1_infinity((), dev)
-    tab = kernels.g1_fixed_table(lag)
-    fsc = FR.from_limbs16(random_scalar_limbs(rng, 512).reshape(2, 256, 16),
-                          dev)
+    # of [cli] and [mesh], 256 keys (Z != 1, one at infinity), at [round]'s
+    # 16 and at machines_scale 10's 1024: the keys' window table (a key's
+    # rows depend on that key alone, so the first keys' rows are the table
+    # of those keys) and two MSMs' scalars
+    lag1k = random_points(rng, WIDE_KEYS, dev)[0]
+    lag1k[3] = cv.g1_infinity((), dev)
+    tab1k = kernels.g1_fixed_table(lag1k)
+    lag, tab = lag1k[:256].contiguous(), tab1k[:256].contiguous()
+    fsc1k = FR.from_limbs16(random_scalar_limbs(rng, 2 * WIDE_KEYS).reshape(
+        2, WIDE_KEYS, 16), dev)
+    fsc = fsc1k[:, :256].contiguous()
     # the coordinator's challenge: m rows of 2^16 coefficients at one alpha
     rows = fr_from_canonical_limbs(
         random_scalar_limbs(rng, m * n).reshape(m, n, 16), dev)
@@ -576,7 +592,8 @@ def path_inputs(rng, dev):
                                  lp256=lp[:256].contiguous(),
                                  ls256=ls[:256].contiguous(),
                                  diffs=FR.sub(x1, aggregation_dom(m, dev)),
-                                 lag=lag, tab=tab, fsc=fsc,
+                                 lag=lag, tab=tab, fsc=fsc, lag1k=lag1k,
+                                 tab1k=tab1k, fsc1k=fsc1k,
                                  lag16=lag[:m].contiguous(),
                                  tab16=tab[:m].contiguous(),
                                  fsc16=fsc[:, :m].contiguous())
@@ -668,26 +685,50 @@ def fixed_msm_ops(scalars: torch.Tensor) -> int:
 
 def fixed_kernel_ops(scalars: torch.Tensor) -> int:
     """Integer operations of g1_msm_fixed's own method on these (K, M, 8)
-    canonical scalars (for comparison with the bound): for each nonzero
-    byte d, bitlen(d) − 1 doubles and popcount(d) − 1 adds from its top
-    bit; then one add fewer than its nonzero bytes an MSM, to sum the
-    terms."""
-    d = scalars.cpu().numpy().view(np.uint8).reshape(scalars.shape[0], -1)
-    bits = np.unpackbits(d[..., None], axis=-1)          # top bit first
-    pop = bits.sum(-1).astype(np.int64)
-    bitlen = np.where(pop > 0, 8 - np.argmax(bits, axis=-1), 0)
-    doubles = int(np.maximum(bitlen - 1, 0).sum())
-    adds = int(np.maximum(pop - 1, 0).sum()
-               + np.maximum((pop > 0).sum(1) - 1, 0).sum())
-    return OPS_G1_DOUBLE * doubles + OPS_G1_ADD * adds
+    scalars (for comparison with the bound): each MSM sums its 64·M
+    signed-digit terms, zero digits' infinities included, by a tree: 64·M −
+    1 adds an MSM, no doubles (the negations, one Fq subtract a negative
+    digit, counted too)."""
+    k, m = scalars.shape[:2]
+    negative = int((tmsm.fixed_digits_plain(scalars.cpu()) < 0).sum())
+    return (OPS_G1_ADD * k * (tmsm.FIXED_WINDOWS * m - 1)
+            + OPS_FQ_LIN * negative)
 
 
 def fixed_depth(m: int) -> int:
-    """Longest chain of dependent point operations in g1_msm_fixed at m
-    bases: a term's 7 doubles and 8 adds, then the trees over the 32·m
-    terms."""
-    return (tmsm.WINDOW_BITS - 1) + tmsm.WINDOW_BITS + (
-        tmsm.NUM_WINDOWS * m - 1).bit_length()
+    """Longest chain of dependent point adds in g1_msm_fixed at m bases:
+    each launch of its tree adds as many levels as its fullest block's
+    inputs need (log2 of 32, or fewer in a lone short block)."""
+    return sum((min(n, tmsm.FIXED_FAN_IN) - 1).bit_length()
+               for n in kernels.fixed_passes(m)[:-1])
+
+
+#: the table's doubles a key, in a row (split over the lanes), and its
+#: longest chain of dependent point operations: those, then one add
+TABLE_DOUBLES = tmsm.FIXED_DIGIT_BITS * tmsm.FIXED_WINDOWS - 1
+TABLE_DEPTH = TABLE_DOUBLES + 1
+
+
+def fixed_table_need(keys: torch.Tensor):
+    """(bytes, operations) of the fixed-base table of these (M, 3, 12)
+    keys: the keys read and the table written once; each entry one point
+    operation from another, for the keys not at infinity: 255 doubles
+    give every window's B, 2B, 4B and 8B, and one add each its 3B, 5B, 6B
+    and 7B."""
+    m = keys.shape[0]
+    finite = int((keys[:, 2] != 0).any(-1).sum())
+    windows = tmsm.FIXED_WINDOWS
+    return (G1_BYTES * m * (1 + windows * tmsm.FIXED_MULTIPLES),
+            finite * (OPS_G1_DOUBLE * TABLE_DOUBLES
+                      + OPS_G1_ADD * 4 * windows))
+
+
+def fixed_msm_need(m, scalars):
+    """(bytes, operations) of the bound of K MSMs over m fixed keys:
+    buckets over the keys' 8-bit window table (``fixed_msm_ops``), that
+    table read once, the scalars read and the sums written once."""
+    return (G1_BYTES * m * tmsm.NUM_WINDOWS + 4 * scalars.numel()
+            + G1_BYTES * scalars.shape[0], fixed_msm_ops(scalars))
 
 
 def aggregation_msms_before(points, scalars):
@@ -745,19 +786,15 @@ def path_calls(x):
         "fr_inv": (lambda: kernels.fr_inv(x1), lambda: fr_inv_plain(x1), 20,
                    fr, 2 * FR_BYTES, inverse_ops(x1)),
         # the aggregation's table (once per SRS) and its two MSMs at 256
-        # keys; the table's bound counts the doubles of the finite keys
+        # keys; the table's bound counts its entries of the finite keys
         "g1_fixed_table": (
             lambda: kernels.g1_fixed_table(x.lag),
             lambda: tmsm.fixed_table_plain(x.lag), 2, limbs,
-            G1_BYTES * x.lag.shape[0] * (1 + tmsm.NUM_WINDOWS),
-            OPS_G1_DOUBLE * tmsm.WINDOW_BITS * (tmsm.NUM_WINDOWS - 1)
-            * int((x.lag[:, 2] != 0).any(-1).sum())),
+            *fixed_table_need(x.lag)),
         "g1_msm_fixed": (
             lambda: kernels.g1_msm_fixed(x.tab, x.fsc),
             lambda: tmsm.msm_fixed_plain(x.tab, x.fsc), 10, limbs,
-            G1_BYTES * x.tab.shape[0] * tmsm.NUM_WINDOWS
-            + 4 * x.fsc.numel() + G1_BYTES * x.fsc.shape[0],
-            fixed_msm_ops(x.fsc)),
+            *fixed_msm_need(x.tab.shape[0], x.fsc)),
         # what the tables hold, each entry one product from another; the
         # kernel's time is its chain of ~9 products a level (latency)
         "fr_power_tables": (
@@ -1014,7 +1051,9 @@ def phase_kernels(rng, dev, int_ops_per_s):
              # a level's 8-step scan and the next level's base
              "fr_power_tables": (9 * x.tab1.shape[1] - 1, "products"),
              "g1_msm_fixed": (fixed_depth(x.tab.shape[0]),
-                              "point operations")}
+                              "point adds (each split over 6 lanes)"),
+             "g1_fixed_table": (TABLE_DEPTH, "point operations (255 "
+                                "doubles split over 4 lanes, then an add)")}
     for name, (kern, plain, reps, same, nbytes, ops) in timings.items():
         r = res[name]
         r["ms"], got = time_cuda(kern, reps)
@@ -1066,12 +1105,25 @@ def phase_kernels(rng, dev, int_ops_per_s):
               ("fr_inv", "16 elements", same_fr,
                lambda: kernels.fr_inv(x.diffs),
                lambda: fr_inv_plain(x.diffs)),
-              # the aggregation's two MSMs at [round]'s 16 keys; and at 256
-              # and 16 the yardsticks: K2's batched Pippenger, and the
-              # ladder and tree of the aggregation before g1_msm_fixed
+              # the aggregation's two MSMs at [round]'s 16 keys and at
+              # machines_scale 10's 1024 (and the table of those); and at
+              # 1024, 256 and 16 the yardsticks: K2's batched Pippenger, and
+              # the ladder and tree of the aggregation before g1_msm_fixed
               ("g1_msm_fixed", "16 keys, 2 MSMs", limbs,
                lambda: kernels.g1_msm_fixed(x.tab16, x.fsc16),
                lambda: tmsm.msm_fixed_plain(x.tab16, x.fsc16)),
+              ("g1_msm_fixed", "1024 keys, 2 MSMs", limbs,
+               lambda: kernels.g1_msm_fixed(x.tab1k, x.fsc1k),
+               lambda: tmsm.msm_fixed_plain(x.tab1k, x.fsc1k)),
+              ("g1_fixed_table", "1024 keys", limbs,
+               lambda: kernels.g1_fixed_table(x.lag1k),
+               lambda: tmsm.fixed_table_plain(x.lag1k)),
+              ("g1_msm_fixed", "K2 msm_many, 1024 keys, 2 MSMs", same_points,
+               lambda: tmsm.msm_many(x.lag1k, x.fsc1k),
+               lambda: kernels.g1_msm_fixed(x.tab1k, x.fsc1k)),
+              ("g1_msm_fixed", "ladder + g1_sum (before), 1024 keys, 2 MSMs",
+               same_points, lambda: aggregation_msms_before(x.lag1k, x.fsc1k),
+               lambda: kernels.g1_msm_fixed(x.tab1k, x.fsc1k)),
               ("g1_msm_fixed", "K2 msm_many, 256 keys, 2 MSMs", same_points,
                lambda: tmsm.msm_many(x.lag, x.fsc),
                lambda: kernels.g1_msm_fixed(x.tab, x.fsc)),
@@ -1128,26 +1180,40 @@ def phase_kernels(rng, dev, int_ops_per_s):
     say("[kernels] g1_scalar_mul at 256 points: plain "
         f"{ladder['other_plain_ms']['256 points']:.2f} ms")
     fixed = res["g1_msm_fixed"]
-    b16, by16 = bound(G1_BYTES * x.m * tmsm.NUM_WINDOWS + 4 * x.fsc16.numel()
-                      + G1_BYTES * 2, fixed_msm_ops(x.fsc16), int_ops_per_s)
-    fixed["other_bound_ms"] = {"16 keys, 2 MSMs": b16}
+    fixed["other_bound_ms"] = {
+        label: bound(*fixed_msm_need(m, sc), int_ops_per_s)[0]
+        for m, label, sc in ((x.m, "16 keys, 2 MSMs", x.fsc16),
+                             (WIDE_KEYS, "1024 keys, 2 MSMs", x.fsc1k))}
     for m, label, sc in ((x.tab.shape[0], "256 keys, 2 MSMs", x.fsc),
-                         (x.m, "16 keys, 2 MSMs", x.fsc16)):
+                         (x.m, "16 keys, 2 MSMs", x.fsc16),
+                         (WIDE_KEYS, "1024 keys, 2 MSMs", x.fsc1k)):
         big = m == x.tab.shape[0]
         ms = fixed["ms"] if big else fixed["other_ms"][label]
-        b_ms = fixed["bound_ms"] if big else b16
+        b_ms = fixed["bound_ms"] if big else fixed["other_bound_ms"][label]
         k2 = fixed["other_ms"][f"K2 msm_many, {label}"]
         old = fixed["other_ms"][f"ladder + g1_sum (before), {label}"]
         own_ms = fixed_kernel_ops(sc) / int_ops_per_s * 1e3
         say(f"[kernels] the aggregation's MSMs at {label}: g1_msm_fixed "
-            f"{ms:.4f} ms ({fixed_depth(m)} dependent point operations, "
+            f"{ms:.4f} ms ({fixed_depth(m)} dependent point adds in "
+            f"{len(kernels.fixed_passes(m)) - 1} launches, "
             f"{ms / fixed_depth(m) * 1e3:.2f} us each), K2 msm_many "
             f"{k2:.4f} ms, the ladder + g1_sum before {old:.4f} ms; bound "
             f"{b_ms:.6f} ms (buckets over the table, no doubles), "
-            f"{ms / b_ms:.0f} x it; the kernel's own double-and-add terms "
+            f"{ms / b_ms:.0f} x it; the kernel's own tree of terms "
             f"{own_ms:.6f} ms at the integer rate"
             + ("; faster than K2" if ms < k2 else
                "; SLOWER than K2: the aggregation should take K2 here"))
+    table = res["g1_fixed_table"]
+    b1k = bound(*fixed_table_need(x.lag1k), int_ops_per_s)[0]
+    table["other_bound_ms"] = {"1024 keys": b1k}
+    key_bytes = G1_BYTES * tmsm.FIXED_WINDOWS * tmsm.FIXED_MULTIPLES
+    for label, ms, b_ms in (("256 keys", table["ms"], table["bound_ms"]),
+                            ("1024 keys", table["other_ms"]["1024 keys"],
+                             b1k)):
+        say(f"[kernels] g1_fixed_table at {label}: {ms:.4f} ms "
+            f"({TABLE_DEPTH} dependent point operations, "
+            f"{ms / TABLE_DEPTH * 1e3:.2f} us each); bound {b_ms:.6f} ms, "
+            f"{ms / b_ms:.0f} x it; {key_bytes} bytes a key")
     time_opening_batch(x, res, int_ops_per_s, record)
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))
@@ -1221,12 +1287,13 @@ def time_opening_batch(x, res, int_ops_per_s, record):
 def phase_fixed_msm_kernels(rng, dev, record):
     """K1 ``g1_fixed_table`` and ``g1_msm_fixed`` (the aggregation's MSMs)
     against their plain versions, limb for limb (on CPU copies at 16 keys,
-    on the card at 256), and the MSMs against the oracle: keys of known
-    discrete log with Z != 1, one at infinity; three MSMs a call, the first
+    on the card at 256 and 1024), and the MSMs against the oracle: keys of
+    known discrete log with Z != 1, one at infinity; three MSMs a call, the
+    first
     with scalars 0, 1, r - 1 and r - 2 then random, the second random, the
     third all r - 1."""
     g = o.G1.from_affine(o.G1_GEN)
-    for m in (16, 256):
+    for m in (16, 256, WIDE_KEYS):
         pts, logs = random_points(rng, m, dev)
         pts[3] = cv.g1_infinity((), dev)
         logs[3] = 0
@@ -1246,9 +1313,10 @@ def phase_fixed_msm_kernels(rng, dev, record):
             check(cv.g1_affine(got[c])[0]
                   == o.G1.to_affine(o.G1.mul(g, total)),
                   f"g1_msm_fixed at {m} keys: MSM {c} != oracle")
-    say("[kernels] K1 g1_fixed_table and g1_msm_fixed at 16 and 256 keys "
-        "(one at infinity), 3 MSMs a call (scalars 0, 1, r-1, r-2, random; "
-        "all r-1): equal limb for limb to plain; the MSMs equal the oracle")
+    say("[kernels] K1 g1_fixed_table and g1_msm_fixed at 16, 256 and "
+        f"{WIDE_KEYS} keys (one at infinity), 3 MSMs a call (scalars 0, 1, "
+        "r-1, r-2, random; all r-1): equal limb for limb to plain; the MSMs "
+        "equal the oracle")
 
 
 def phase_opening_kernels(rng, dev, record):
@@ -1496,6 +1564,12 @@ def phase_device_times(res, dev):
                   lambda: openings_y(x.rows, x.alpha), 5),
               ("g1_msm_fixed", "16 keys, 2 MSMs, device"): (
                   lambda: kernels.g1_msm_fixed(x.tab16, x.fsc16), 20),
+              ("g1_msm_fixed", "1024 keys, 2 MSMs, device"): (
+                  lambda: kernels.g1_msm_fixed(x.tab1k, x.fsc1k), 10),
+              ("g1_fixed_table", "1024 keys, device"): (
+                  lambda: kernels.g1_fixed_table(x.lag1k), 2),
+              ("g1_msm_fixed", "K2 msm_many, 1024 keys, 2 MSMs, device"): (
+                  lambda: tmsm.msm_many(x.lag1k, x.fsc1k), 5),
               ("g1_msm_fixed", "ladder + g1_sum (before), 256 keys, 2 "
                "MSMs, device"): (
                   lambda: aggregation_msms_before(x.lag, x.fsc), 2),
@@ -1972,6 +2046,58 @@ def phase_round(rng, dev):
         f"({', '.join(f'{t:.2f}' for t in times)} ms); launches a call "
         f"{warm} (the keys' table kept by the SRS)")
     return launches
+
+
+def phase_aggregate_wide(rng, dev):
+    """The aggregation past 512 workers: an SRS at machines_scale 10
+    (``Srs.generate``; 1024 workers x 2^6 coefficients), every row committed
+    and opened at one alpha (``commit_all``, ``open_all``), then
+    ``pianist.aggregate`` (one ``g1_fixed_table`` and one ``g1_msm_fixed``
+    over the 1024 keys) and ``verify_aggregated``: True, and False for a
+    proof aggregated from one changed eval and for a changed value."""
+    m = 1 << WIDE_MACHINES_SCALE
+    t = 1 << (WIDE_SCALE - WIDE_MACHINES_SCALE)
+    t0 = time.perf_counter()
+    srs = Srs.generate(WIDE_SCALE, WIDE_MACHINES_SCALE, tau_x=TAU,
+                       tau_y=TAU_Y)
+    rows = fr_from_canonical_limbs(
+        random_scalar_limbs(rng, m * t).reshape(m, t, 16), dev)
+    alpha = int.from_bytes(rng.bytes(32), "little") % o.R
+    beta = int.from_bytes(rng.bytes(32), "little") % o.R
+    coms = pianist.commit_all(srs, rows)
+    ys, prfs = pianist.open_all(srs, rows, FR.encode([alpha], dev)[0])
+    beta_t = FR.encode([beta], dev)[0]
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    agg = pianist.aggregate(srs, coms, prfs, ys, beta_t)
+    torch.cuda.synchronize()
+    t_agg = time.perf_counter() - t0
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v - before[k]}
+    check(used.get("g1_msm_fixed") == 1 and used.get("g1_fixed_table") == 1
+          and "g1_scalar_mul" not in used,
+          f"aggregate over {m} keys: not one table and one g1_msm_fixed "
+          f"without the ladder ({used})")
+    check(srs.lagrange_table().shape[0] == m,
+          f"the keys' table holds {srs.lagrange_table().shape[0]} keys")
+    check(pianist.verify_aggregated(srs, agg, alpha, beta),
+          f"verify_aggregated rejected the aggregation of {m} workers")
+    bad_ys = ys.clone()
+    bad_ys[m // 2] = FR.add(ys[m // 2], FR.ones((), dev))
+    forged = pianist.aggregate(srs, coms, prfs, bad_ys, beta_t)
+    check(not pianist.verify_aggregated(srs, forged, alpha, beta),
+          f"verify_aggregated accepted {m} workers with one eval changed")
+    forged = dataclasses.replace(agg, value=FR.encode([1], dev)[0])
+    check(not pianist.verify_aggregated(srs, forged, alpha, beta),
+          f"verify_aggregated accepted {m} workers with the value changed")
+    say(f"[round] machines_scale {WIDE_MACHINES_SCALE}: Srs.generate("
+        f"{WIDE_SCALE}, {WIDE_MACHINES_SCALE}) and {m} rows of 2^"
+        f"{WIDE_SCALE - WIDE_MACHINES_SCALE} committed and opened in "
+        f"{t_prove:.2f} s; pianist.aggregate over {m} keys {t_agg * 1e3:.2f} "
+        f"ms the first call ({used}); verify_aggregated True, False with one "
+        "eval changed, False with the value changed")
 
 
 def coordinator_round(coord, transport, label):
@@ -2733,6 +2859,7 @@ def main() -> int:
         main_launches, setup_launches, request_launches = phase_main_path(
             rng, dev)
         round_launches = phase_round(rng, dev)
+        phase_aggregate_wide(rng, dev)
         phase_ntt_cells(dev)
         cli_launches = phase_cli(dev, tmp)
         mesh_launches = phase_mesh(dev, tmp)

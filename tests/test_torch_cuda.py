@@ -499,19 +499,23 @@ def test_g1_scalar_mul_kernel_matches_plain(dev, n):
     assert tcv.g1_affine(got[:8]) == want
 
 
-@pytest.mark.parametrize("m", [16, 256])
+@pytest.mark.parametrize("m", [1, 3, 16, 17, 256, 1024])
 def test_g1_msm_fixed_kernel_matches_plain(dev, m):
     """The aggregation's MSMs: K1 g1_fixed_table and g1_msm_fixed (3 MSMs
     in one call) limb for limb against their plain versions on the card,
-    and against the oracle: a base at infinity, Z ≠ 1, scalars 0, 1,
-    r − 1, r − 2 and random; one launch of each (the MSM's two kernels
-    counted as one call)."""
+    and against the oracle and msm_naive: a base at infinity (from 4
+    keys), Z ≠ 1, scalars 0, 1, r − 1, r − 2 and random; M = 1 and 3 (a
+    lone short block in the last launch), 17 (a short block, then a launch
+    of two), 16, 256 and 1024 (machines_scale 10: once refused past 512);
+    one call of each wrapper (the MSM's tree of launches counted as one
+    call)."""
     pts, dlogs, ks = _instance(m, 31)
     pts = tcv.g1_double_plain(pts).to(dev)              # Z ≠ 1
-    pts[3] = tcv.g1_infinity((), dev)
     dlogs = [2 * d % o.R for d in dlogs]
-    dlogs[3] = 0
-    rows = [[0, 1, o.R - 1, o.R - 2] + ks[4:], ks[::-1], [o.R - 1] * m]
+    if m > 3:
+        pts[3] = tcv.g1_infinity((), dev)
+        dlogs[3] = 0
+    rows = [([0, 1, o.R - 1, o.R - 2] + ks[4:])[:m], ks[::-1], [o.R - 1] * m]
     sc = torch.stack([tcv.fr_to_scalar_limbs(k, dev) for k in rows])
     before = dict(kernels.LAUNCHES)
     table = tmsm.fixed_table(pts)
@@ -524,6 +528,8 @@ def test_g1_msm_fixed_kernel_matches_plain(dev, m):
     for c, k in enumerate(rows):
         assert tcv.g1_affine(got[c]) == [o.G1.to_affine(o.G1.mul(
             G, sum(a * b for a, b in zip(k, dlogs)) % o.R))], c
+    assert tcv.g1_affine(tmsm.msm_naive(pts, sc[0])) == \
+        tcv.g1_affine(got[0])
 
 
 def test_new_kernels_refuse_what_they_do_not_take(dev):
@@ -601,11 +607,13 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
         kernels.g1_msm_fixed(table[:, :8], sc[None])       # 8 windows
     with pytest.raises(ValueError):
         kernels.g1_msm_fixed(table, sc[None].to(torch.int64))
-    many = kernels.FIXED_MAX_KEYS + 1                      # 513 keys
-    with pytest.raises(ValueError, match="1..512 bases"):
-        kernels.g1_msm_fixed(tcv.g1_infinity((many, 32), dev),
-                             torch.zeros((1, many, 8), dtype=torch.int32,
-                                         device=dev))
+    # 1024 keys (refused past 512 before): the table of the 8 keys, each
+    # repeated 128 times, is the table of the 1024
+    many = 1024
+    wide = table.repeat(many // 8, 1, 1, 1, 1)
+    wsc = tcv.fr_to_scalar_limbs(list(range(many)), dev)[None]
+    assert torch.equal(kernels.g1_msm_fixed(wide, wsc),
+                       tmsm.msm_fixed_plain(wide, wsc))
     with pytest.raises(ValueError):
         kernels.g1_fixed_table(pts[None])
 

@@ -264,6 +264,15 @@ def test_kernel_constants_match_the_fields():
         kernels.POW_WIDTH
     assert _cuda_scalar_int("fr.cu", "MAX_POW_LEVELS") == \
         kernels.MAX_POW_LEVELS
+    # the fixed-base MSM's digits and fan-in, as its wrapper and plain
+    # versions take them, and groups of lanes as wide as a step's products
+    # (an add's 6, a double's 4)
+    assert _cuda_scalar_int("g1.cu", "FIXED_DIGIT_BITS") == \
+        kernels.FIXED_DIGIT_BITS
+    assert 2 * _cuda_scalar_int("g1.cu", "FIXED_GROUPS") == \
+        kernels.FIXED_FAN_IN
+    assert _cuda_scalar_int("g1.cu", "FIXED_LANES") >= 6
+    assert _cuda_scalar_int("g1.cu", "TABLE_LANES") >= 4
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -294,7 +303,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                  lambda: kernels.g1_fixed_table(
                      torch.zeros((2, 3, 12), dtype=torch.int32)),
                  lambda: kernels.g1_msm_fixed(
-                     torch.zeros((2, 32, 3, 12), dtype=torch.int32),
+                     torch.zeros((2, 64, 8, 3, 12), dtype=torch.int32),
                      a[None])):
         with pytest.raises(ValueError, match="CUDA"):
             call()

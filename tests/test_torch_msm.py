@@ -439,20 +439,47 @@ def fixed_16():
 
 
 def test_fixed_table_plain_holds_the_windows(fixed_16):
-    """fixed_table: table[i, w] = [2^(8w)]P_i, against the oracle."""
+    """fixed_table: table[i, w, j] = [(j + 1)·16^w]P_i, against the oracle:
+    every multiple of a window, the first and last windows, the base at
+    infinity."""
     pts, dlogs, table = fixed_16
-    assert table.shape == (16, 32, 3, 12)
-    for i, w in ((0, 0), (1, 1), (2, 31), (5, 7), (15, 16)):
-        assert tcv.g1_affine(table[i, w]) == [o.G1.to_affine(o.G1.mul(
-            G, dlogs[i] * pow(2, 8 * w, o.R) % o.R))], (i, w)
+    assert table.shape == (16, tmsm.FIXED_WINDOWS, tmsm.FIXED_MULTIPLES,
+                           3, 12) == (16, 64, 8, 3, 12)
+    cells = [(1, 1, j) for j in range(8)] + [
+        (0, 0, 0), (2, 63, 7), (5, 7, 3), (15, 16, 4), (9, 40, 6)]
+    for i, w, j in cells:
+        assert tcv.g1_affine(table[i, w, j]) == [o.G1.to_affine(o.G1.mul(
+            G, dlogs[i] * (j + 1) * pow(16, w, o.R) % o.R))], (i, w, j)
+
+
+@pytest.mark.parametrize("k", [0, 1, 8, 9, 0x88, 0x89, 2 ** 255 - 1,
+                               o.R - 1, o.R - 2, None])
+def test_fixed_digits_recode_every_scalar(k):
+    """The signed digits: 64 of them in [-7, 8] with Σ d_w·16^w = k (one
+    such recoding exists for each k < 2^255), and csrc/g1.cu's rule for
+    the carry into window w (k mod 16^w > 0x88…8, w nibbles) gives the
+    same digits as the plain version's running carry."""
+    if k is None:
+        k = _ints(1, np.random.default_rng(41))[0]
+    limbs = np.frombuffer(k.to_bytes(32, "little"), "<i4").copy()
+    d = tmsm.fixed_digits_plain(torch.from_numpy(limbs)).tolist()
+    assert len(d) == 64 and min(d) >= -7 and max(d) <= 8
+    assert sum(x * 16 ** w for w, x in enumerate(d)) == k
+
+    def kernel_digit(w):
+        carry = k % 16 ** w > int("8" * w or "0", 16)
+        v = (k >> 4 * w & 15) + carry
+        return v - 16 if v > 8 else v
+    assert [kernel_digit(w) for w in range(64)] == d
 
 
 @pytest.mark.parametrize("m", [4, 16])
 def test_msm_fixed_plain_matches_naive_and_oracle(fixed_16, m):
-    """msm_fixed's plain version (the kernel's windowed terms and sums) for
-    K = 3 MSMs at once against the oracle, and the first against msm_naive
-    (the ladder and a tree): scalars 0, 1, r − 1, r − 2 and random, a base
-    at infinity, at M = 4 (one block) and 16 (four block sums)."""
+    """msm_fixed's plain version (the kernel's signed-digit terms and tree
+    of launches) for K = 3 MSMs at once against the oracle, and the first
+    against msm_naive (the ladder and a tree): scalars 0, 1, r − 1, r − 2
+    and random, a base at infinity, at M = 4 (256 terms: 8 blocks, then
+    one) and 16 (1024 terms: 32 blocks, then one)."""
     pts, dlogs, table = fixed_16
     rng = np.random.default_rng(37 + m)
     ks = [[0, 1, o.R - 1, o.R - 2][:m] + _ints(m - 4, rng)
@@ -467,12 +494,47 @@ def test_msm_fixed_plain_matches_naive_and_oracle(fixed_16, m):
     assert torch.equal(tmsm.msm_fixed(table[:m], sc), got)
 
 
-def test_msm_fixed_refuses_more_keys_than_one_block_sums():
-    """msm_fixed sums its first pass's block sums in one block: at most
-    FIXED_MAX_KEYS = 512 keys (the aggregation has 16 or 256), refused
-    past that before any work."""
-    assert tmsm.kernels.FIXED_MAX_KEYS == 512
-    m = tmsm.kernels.FIXED_MAX_KEYS + 1
-    table = tcv.g1_infinity((m, 32))
-    with pytest.raises(ValueError, match="at most 512"):
-        tmsm.msm_fixed(table, torch.zeros((1, m, 8), dtype=torch.int32))
+@pytest.mark.parametrize("m, fan_in, passes", [
+    (1, 64, [64, 1]),                 # one block, one launch
+    (1, 32, [64, 2, 1]),              # two blocks, then one of two
+    (3, 8, [192, 24, 3, 1]),          # a ragged last launch (3 of 8)
+    (2, 16, [128, 8, 1]),             # a ragged block of the second launch
+    (5, 4, [320, 80, 20, 5, 2, 1])])  # ragged blocks at two launches
+def test_msm_fixed_plain_crosses_every_block_boundary(fixed_16, m, fan_in,
+                                                      passes):
+    """The tree of launches at toy fan-ins: one block, two blocks, ragged
+    last blocks (padded with infinity) at every launch, against the oracle;
+    the kernel's own fan-in is 32, and ``kernels.fixed_passes`` counts its
+    launches' inputs the same way."""
+    _, dlogs, table = fixed_16
+    rng = np.random.default_rng(43 + m)
+    ks = [[o.R - 1] + _ints(m - 1, rng), _ints(m, rng)]
+    sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in ks])
+    n, seen = tmsm.FIXED_WINDOWS * m, []
+    while n > 1:
+        seen.append(n)
+        n = -(-n // fan_in)
+    assert seen + [1] == passes
+    got = tmsm.msm_fixed_plain(table[:m], sc, fan_in)
+    for c in range(2):
+        assert tcv.g1_affine(got[c]) == [_want(dlogs[:m], ks[c])], c
+    assert tmsm.kernels.fixed_passes(1024) == [65536, 2048, 64, 2, 1]
+    assert tmsm.kernels.fixed_passes(16) == [1024, 32, 1]
+
+
+def test_msm_fixed_takes_1024_keys(fixed_16):
+    """The aggregation at machines_scale 10: msm_fixed over M = 1024 keys
+    (once refused past 512) equals the oracle's Σ k_i·P_i, with scalars 0,
+    1, r − 1 and random and a key at infinity. The table of 16 keys, each
+    repeated 64 times, is the table of the 1024 keys (an entry depends on
+    its key alone); the terms cross the kernel's four launches (65,536 →
+    2,048 → 64 → 2 → 1)."""
+    _, dlogs, table = fixed_16
+    m = 1024
+    big = table.repeat(m // 16, 1, 1, 1, 1)
+    rng = np.random.default_rng(47)
+    ks = [0, 1, o.R - 1] + _ints(m - 3, rng)
+    sc = tcv.fr_to_scalar_limbs(ks)[None]
+    got = tmsm.msm_fixed(big, sc)
+    assert dlogs[5] == 0                   # key 5 (and 21, 37, …) infinity
+    assert tcv.g1_affine(got[0]) == [_want(dlogs * (m // 16), ks)]

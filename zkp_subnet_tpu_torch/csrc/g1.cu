@@ -36,32 +36,45 @@
 // the double and add of g1.cuh with the carry chains of mont.cuh, the
 // scalar read a word at a time from memory.
 //
-// g1_msm_fixed: K MSMs over the same M fixed bases in two launches, for the
-// Pianist aggregation's C_y = sum y_i·L_i and W_y = sum q_i·L_i over the
-// Lagrange-Y keys L_i (M = 16 or 256). Replaces pallas_g1.py:pfield over
-// lazy8.ZFQ as reached through dispatch_ldouble/dispatch_ladd from the
-// naive MSM of zkp_subnet_tpu/ops/msm.py:msm_auto (:589-598: a ladder a
-// point, then a tree sum). Bound: the operations are those of one ladder
-// a point (~M·256 doubles), which keep the card busy for microseconds at
-// these M; what costs is the chain of dependent point operations, 256
-// steps of a ladder in one thread (6.95 ms on an H100 at 256 points). The
-// design cuts the chain: the bases are fixed, so a table D[i][w] =
-// [2^(8w)]L_i, w < 32, is built once per SRS and device (g1_fixed_table:
-// one thread a base, 248 doubles), and sum_i k_i·L_i = sum_{i,w}
-// d_{i,w}·D[i][w] over the scalars' bytes d_{i,w}. Launch 1, grid
-// (blocks, K): a thread a term (i, w) computes d·D[i][w] by an 8-bit
-// double-and-add (7 doubles, an add a set bit), and each block of
-// FIXED_THREADS consecutive terms sums them by a tree in shared memory;
-// launch 2, one block an MSM, adds the blocks' partial sums by a tree (at
-// most FIXED_THREADS of them: M <= FIXED_MAX_KEYS = 512, twice the
-// aggregation's 256). The longest chain is 7 doubles
-// + 8 adds + log2(32·M) adds (28 at M = 256) in place of ~384. The field
-// operations are expanded in place (FqInline): as calls (FqCall, msm.cu's
-// choice for its chains) the MSM ran 1.25x slower on an H100 (0.476
-// against 0.382 ms at 256 keys; zkp_subnet_tpu_torch/kernel_ab.py over a
-// copy with that one choice changed; PERF.md has the times).
-// Deterministic: a fixed order of adds, which
-// ops/msm.py:msm_fixed_plain repeats, so the two agree limb for limb.
+// g1_fixed_table and g1_msm_fixed: K MSMs over the same M fixed bases, any
+// M >= 1, for the Pianist aggregation's C_y = sum y_i·L_i and W_y = sum
+// q_i·L_i over the Lagrange-Y keys L_i of every challenge. Replaces
+// pallas_g1.py:pfield over lazy8.ZFQ as reached through dispatch_ldouble/
+// dispatch_ladd from the naive MSM of zkp_subnet_tpu/ops/msm.py:msm_auto
+// (:589-598: a ladder a point, then a tree sum). Bound on this card: few
+// operations (buckets over a window table, an add a nonzero term: ~4 us
+// of the integer rate at 256 keys and 2 MSMs), but long chains of dependent
+// point operations, and one thread takes ~13 us for each (12 products in a
+// row). So the design shortens both the chains and each of their steps:
+//  (1) a step's independent Fq products run side by side on the lanes of
+//      a group (group_double, group_add_sh below), the values between the
+//      steps passed through shared memory: two products in a row a step,
+//      where one thread has eight (double) or twelve (add);
+//  (2) the table, once per SRS and device: D[i][w][m] = [(m+1)·16^w]L_i for
+//      64 windows of 4 bits and the 8 multiples a signed digit in [-7, 8]
+//      needs (73,728 bytes a key). The first launch of g1_fixed_table
+//      doubles each key 255 times in a row, a group of TABLE_LANES lanes a
+//      key, storing each window's B, 2B, 4B and 8B on the way; the second,
+//      a thread an entry, makes 3B, 5B, 6B and 7B by one add each;
+//  (3) an MSM is then a plain sum of 64·M terms, each one table entry
+//      (negated for a negative digit, infinity for 0): no doubles. The sum
+//      is a tree of launches. A block of FIXED_GROUPS groups of FIXED_LANES
+//      lanes sums FIXED_FAN_IN = 32 consecutive inputs by a halving tree
+//      (at s = 16, 8, ..., 1 group g < s adds entry g + s to its own where
+//      there is one, the points in shared memory); the first launch's
+//      inputs are the terms (its lanes find their terms' signed digits in
+//      the scalars), each later launch's the block sums of the one before,
+//      until one is left: log2(64·M) dependent adds (14 at M = 256, 16 at
+//      1024) in ceil(log32(64·M)) launches, no block of any launch holding
+//      more than 32 inputs, so no limit on M.
+// Measured against other forms of the same trees (each step as
+// msm_combine's table of rounds over Fq values in shared memory; the points
+// in every lane's registers; 16 or 64 inputs a block): each slower at 16,
+// 256 or 1024 keys (zkp_subnet_tpu_torch/kernel_ab.py; PERF.md has the
+// times).
+// Deterministic: a fixed order of adds, which ops/msm.py:fixed_table_plain
+// and msm_fixed_plain repeat, so kernels and plain versions agree limb for
+// limb.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -110,101 +123,352 @@ g1_scalar_mul_kernel(const uint32_t* __restrict__ p,
   g1_store(out + G1_WORDS * i, P);
 }
 
-constexpr int FIXED_WINDOWS = 32;  // 8-bit windows of a 256-bit scalar
-constexpr int FIXED_BITS = 8;
-// terms a block of launch 1 sums, and the most threads of launch 2;
-// ops/msm.py:FIXED_THREADS is its mirror
-constexpr int FIXED_THREADS = 128;
-// keys at most: launch 1's blocks fit one block of launch 2
-constexpr int FIXED_MAX_KEYS = FIXED_THREADS * FIXED_THREADS / FIXED_WINDOWS;
+constexpr int FIXED_DIGIT_BITS = 4;  // signed digits in [-7, 8]
+constexpr int FIXED_WINDOWS = 256 / FIXED_DIGIT_BITS;
+constexpr int FIXED_MULTIPLES = 1 << (FIXED_DIGIT_BITS - 1);
+// the table's chain: TABLE_LANES lanes a key (the double's products a
+// step), TABLE_KEYS keys a block of one warp
+constexpr int TABLE_LANES = 4;
+constexpr int TABLE_KEYS = 32 / TABLE_LANES;
+// the MSM's tree: FIXED_LANES lanes an add (6 take its products a step),
+// FIXED_GROUPS adds side by side, FIXED_FAN_IN inputs a block;
+// ops/kernels.py:FIXED_FAN_IN is its mirror
+constexpr int FIXED_LANES = 8;
+constexpr int FIXED_GROUPS = 16;
+constexpr int FIXED_FAN_IN = 2 * FIXED_GROUPS;
+constexpr int FIXED_THREADS = FIXED_LANES * FIXED_GROUPS;
 
-// table[i][w] = [2^(8w)]P_i for w < FIXED_WINDOWS: one thread a point, a
-// store every 8 doubles.
-__global__ void __launch_bounds__(LADDER_THREADS)
+// -- point operations split over the lanes of a group -----------------------
+//
+// A group of consecutive lanes takes one point operation. A step's
+// independent Fq products run side by side, lane l taking the l-th, and
+// pass through the group's exchange words x in shared memory; the
+// additions between the steps every lane does alike (SIMT: one stream of
+// instructions for all). So a double is two products in a row, not eight,
+// and an add two, not twelve. The field values are those of
+// g1_double_with / g1_add_with (RCB15, b3 = 12 as an add chain), hence the
+// limbs. Every lane of the warp takes the steps (they end in __syncwarp).
+
+__device__ __forceinline__ void fq_load_sh(uint32_t* r, const uint32_t* x) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++) r[j] = x[j];
+}
+
+// r = one of up to six values by the lane's index, limb by limb (no
+// run-time index into a register array).
+__device__ __forceinline__ void fq_pick(uint32_t* r, int l, const uint32_t* v0,
+                                        const uint32_t* v1,
+                                        const uint32_t* v2,
+                                        const uint32_t* v3,
+                                        const uint32_t* v4,
+                                        const uint32_t* v5) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++)
+    r[j] = l == 0 ? v0[j] : l == 1 ? v1[j] : l == 2 ? v2[j]
+         : l == 3 ? v3[j] : l == 4 ? v4[j] : v5[j];
+}
+
+// Limbs j = l (mod 8) of r into dst: a group's lanes share a store.
+__device__ __forceinline__ void fq_store_part(uint32_t* dst,
+                                              const uint32_t* r, int l) {
+#pragma unroll
+  for (int j = 0; j < fq::L; j++)
+    if (j % 8 == l % 8) dst[j] = r[j];
+}
+
+// P = 2P in every lane of a group of (at least) 4; x: 4 Fq values.
+// Step 1: Y·Y, Y·Z, Z·Z, X·Y; step 2: 12Z²·8Y², YZ·8Y², (Y² − 36Z²)·
+// (Y² + 12Z²), (Y² − 36Z²)·XY; then X = 2·w3, Y = w0 + w2, Z = w1.
+__device__ __forceinline__ void group_double(G1& P, uint32_t* x, int l) {
+  uint32_t a[fq::L], b[fq::L], r[fq::L];
+  fq_pick(a, l, P.Y, P.Y, P.Z, P.X, P.X, P.X);
+  fq_pick(b, l, P.Y, P.Z, P.Z, P.Y, P.Y, P.Y);
+  fq::mul(r, a, b);
+  if (l < 4) mont::store<fq::L>(x + fq::L * l, r);
+  __syncwarp();
+  uint32_t t0[fq::L], z8[fq::L], t2b[fq::L], y3a[fq::L], t0b[fq::L];
+  fq_load_sh(t0, x);
+  fq_load_sh(t2b, x + 2 * fq::L);
+  times_b3<FqInline>(t2b, t2b);                 // 12·Z²
+  fq::add(z8, t0, t0);
+  fq::add(z8, z8, z8);
+  fq::add(z8, z8, z8);                          // 8·Y²
+  fq::add(y3a, t0, t2b);
+  fq::add(t0b, t2b, t2b);
+  fq::add(t0b, t0b, t2b);
+  fq::sub(t0b, t0, t0b);                        // Y² − 36·Z²
+  uint32_t tyz[fq::L], txy[fq::L];
+  fq_load_sh(tyz, x + fq::L);
+  fq_load_sh(txy, x + 3 * fq::L);
+  fq_pick(a, l, t2b, tyz, t0b, t0b, t0b, t0b);
+  fq_pick(b, l, z8, z8, y3a, txy, txy, txy);
+  fq::mul(r, a, b);
+  __syncwarp();
+  if (l < 4) mont::store<fq::L>(x + fq::L * l, r);
+  __syncwarp();
+  fq_load_sh(a, x);
+  fq_load_sh(b, x + 2 * fq::L);
+  fq::add(P.Y, a, b);
+  fq_load_sh(P.Z, x + fq::L);
+  fq_load_sh(a, x + 3 * fq::L);
+  fq::add(P.X, a, a);
+  __syncwarp();
+}
+
+// P = P + Q for points in shared memory (acc = P, in = Q: X[12] Y[12]
+// Z[12]), unless `keep`, by a group of (at least) 6 lanes; x: 12 Fq values
+// of exchange. Step 1: X1·X2, Y1·Y2, Z1·Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)
+// (Y2 + Z2), (X1 + Z1)(X2 + Z2); then every lane makes t3, t4, y3b, t0t,
+// z3t, t1t (the names of g1_add_with) and the lanes share their stores;
+// step 2: t3·t1t, t4·y3b, y3b·t0t, t1t·z3t, z3t·t4, t0t·t3; then lanes 0..2
+// write X = w0 − w1, Y = w2 + w3, Z = w4 + w5 back to acc. A lane holds
+// its operands and temporaries only, not the points, so that many groups
+// fit an SM (measured against the points in every lane's registers: 192
+// registers a thread, faster at 16 keys and slower from 256).
+__device__ __forceinline__ void group_add_sh(uint32_t* acc,
+                                             const uint32_t* in,
+                                             uint32_t* x, int l, bool keep) {
+  uint32_t a[fq::L], b[fq::L], c[fq::L], r[fq::L];
+  // step 1: X1·X2, Y1·Y2, Z1·Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2),
+  // (X1 + Z1)(X2 + Z2): first summand X, Y, Z, X, Y, X; second Y, Z, Z
+  const int u = l == 1 || l == 4 ? 1 : l == 2 ? 2 : 0;
+  const int v = l == 3 ? 1 : 2;
+  fq_load_sh(a, acc + fq::L * u);
+  fq_load_sh(c, acc + fq::L * v);
+  fq::add(c, a, c);
+  fq_pick(a, l, a, a, a, c, c, c);
+  fq_load_sh(b, in + fq::L * u);
+  fq_load_sh(c, in + fq::L * v);
+  fq::add(c, b, c);
+  fq_pick(b, l, b, b, b, c, c, c);
+  fq::mul(r, a, b);
+  if (l < 6) mont::store<fq::L>(x + fq::L * l, r);
+  __syncwarp();
+  // t3, t4, y3b, t0t, z3t, t1t (the names of g1_add_with) into x[6..11],
+  // each lane writing its share of the words
+  const uint32_t *t0 = x, *t1 = x + fq::L, *t2 = x + 2 * fq::L;
+  uint32_t* y = x + 6 * fq::L;
+  fq::add(c, t0, t1);
+  fq::sub(r, x + 3 * fq::L, c);
+  fq_store_part(y, r, l);                       // t3
+  fq::add(c, t1, t2);
+  fq::sub(r, x + 4 * fq::L, c);
+  fq_store_part(y + fq::L, r, l);               // t4
+  fq::add(c, t0, t2);
+  fq::sub(r, x + 5 * fq::L, c);
+  times_b3<FqInline>(r, r);
+  fq_store_part(y + 2 * fq::L, r, l);           // y3b
+  fq::add(r, t0, t0);
+  fq::add(r, r, t0);
+  fq_store_part(y + 3 * fq::L, r, l);           // t0t
+  times_b3<FqInline>(c, t2);
+  fq::add(r, t1, c);
+  fq_store_part(y + 4 * fq::L, r, l);           // z3t
+  fq::sub(r, t1, c);
+  fq_store_part(y + 5 * fq::L, r, l);           // t1t
+  __syncwarp();
+  // step 2: t3·t1t, t4·y3b, y3b·t0t, t1t·z3t, z3t·t4, t0t·t3
+  const int ia = l == 0 ? 0 : l == 1 ? 1 : l == 2 ? 2 : l == 3 ? 5
+               : l == 4 ? 4 : 3;
+  const int ib = l == 0 ? 5 : l == 1 ? 2 : l == 2 ? 3 : l == 3 ? 4
+               : l == 4 ? 1 : 0;
+  fq_load_sh(a, y + fq::L * ia);
+  fq_load_sh(b, y + fq::L * ib);
+  fq::mul(r, a, b);
+  if (l < 6) mont::store<fq::L>(x + fq::L * l, r);
+  __syncwarp();
+  if (!keep && l < 3) {
+    fq_load_sh(a, x + 2 * fq::L * l);
+    fq_load_sh(b, x + 2 * fq::L * l + fq::L);
+    if (l == 0) fq::sub(r, a, b);                 // X = w0 − w1
+    else fq::add(r, a, b);                        // Y = w2 + w3, Z = w4 + w5
+    mont::store<fq::L>(acc + fq::L * l, r);
+  }
+  __syncwarp();
+}
+
+// Words q = part (mod PARTS) of P into dst, as X[12] Y[12] Z[12].
+template <int PARTS>
+__device__ __forceinline__ void g1_store_part(uint32_t* dst, const G1& P,
+                                              int part) {
+#pragma unroll
+  for (int q = 0; q < fq::L; q++)
+    if (q % PARTS == part) {
+      dst[q] = P.X[q];
+      dst[fq::L + q] = P.Y[q];
+      dst[2 * fq::L + q] = P.Z[q];
+    }
+}
+
+// Launch 1 of the table: key i = TABLE_KEYS·blockIdx.x + group. Its group
+// of TABLE_LANES lanes doubles the key FIXED_DIGIT_BITS times a window and
+// stores the window's B, 2B, 4B and 8B on the way (entries 0, 1, 3, 7;
+// 8B is the next window's B). A group past the end doubles the last key
+// and stores nothing, since every lane of the warp takes the steps.
+__global__ void __launch_bounds__(32)
 g1_fixed_table_kernel(const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ table, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ __align__(16) uint32_t xs[TABLE_KEYS * TABLE_LANES * fq::L];
+  const int l = threadIdx.x % TABLE_LANES, g = threadIdx.x / TABLE_LANES;
+  uint32_t* x = xs + g * TABLE_LANES * fq::L;
+  const long long i = blockIdx.x * (long long)TABLE_KEYS + g;
+  const bool live = i < n;
   G1 P;
-  g1_load(P, p + G1_WORDS * i);
-  uint32_t* row = table + G1_WORDS * FIXED_WINDOWS * i;
-  g1_store(row, P);
+  g1_load(P, p + G1_WORDS * (live ? i : n - 1));
+  uint32_t* row = table + G1_WORDS * FIXED_WINDOWS * FIXED_MULTIPLES * i;
 #pragma unroll 1
-  for (int w = 1; w < FIXED_WINDOWS; w++) {
+  for (int w = 0; w < FIXED_WINDOWS; w++) {
+    uint32_t* e = row + G1_WORDS * FIXED_MULTIPLES * w;
+    if (live) g1_store_part<TABLE_LANES>(e, P, l);
+    // one copy of the double in the loop (four inlined copies, one for
+    // each store, measured slower)
 #pragma unroll 1
-    for (int b = 0; b < FIXED_BITS; b++) g1_double(P, P);
-    g1_store(row + G1_WORDS * w, P);
+    for (int b = 0; b < FIXED_DIGIT_BITS; b++) {
+      if (w == FIXED_WINDOWS - 1 && b == FIXED_DIGIT_BITS - 1) break;
+      group_double(P, x, l);
+      if (live && b < FIXED_DIGIT_BITS - 1)  // 2B, 4B, 8B: entries 1, 3, 7
+        g1_store_part<TABLE_LANES>(e + G1_WORDS * ((2 << b) - 1), P, l);
+    }
   }
 }
 
-// Launch 1. Term j < terms = 32·M of MSM k = blockIdx.y is D = table[j]
-// (point i = j / 32, window w = j % 32) times the byte j of the MSM's
-// scalars (byte w of k_i, little-endian). A thread's term from infinity:
-// for the digit's bits b = 7..0, a double (none at b = 7) and an add of D
-// where b is set. Terms past the end are infinity. The block's tree: at
-// step s = FIXED_THREADS/2 .. 1, thread t < s adds the point of t + s to
-// its own. partial[k][blockIdx.x] = the block's sum.
+// Launch 2 of the table: the other multiples of each window's base B, a
+// thread an entry, each one add of entries launch 1 stored: 3B = 2B + B,
+// 5B = 4B + B, 6B = 4B + 2B, 7B = 8B + (−B).
+__global__ void __launch_bounds__(ADD_THREADS, ADD_MIN_BLOCKS)
+g1_fixed_multiples_kernel(uint32_t* __restrict__ table, long long bases) {
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (t >= 4 * bases) return;
+  const int j = (int)(t % 4);
+  uint32_t* e = table + G1_WORDS * FIXED_MULTIPLES * (t / 4);
+  // entry m (the multiple m + 1) = entry a + entry b: 3B = 2B + B,
+  // 5B = 4B + B, 6B = 4B + 2B, 7B = 8B + (−B) for j = 0..3
+  const int a = j == 3 ? 7 : j == 0 ? 1 : 3, b = j == 2 ? 1 : 0;
+  const int m = j == 0 ? 2 : j == 1 ? 4 : j + 3;
+  G1 P, Q;
+  g1_load(P, e + G1_WORDS * a);
+  g1_load(Q, e + G1_WORDS * b);
+  if (j == 3) {
+    uint32_t zero[fq::L] = {};
+    fq::sub(Q.Y, zero, Q.Y);
+  }
+  g1_add(P, P, Q);
+  g1_store(e + G1_WORDS * m, P);
+}
+
+// Digit w of k (8 canonical little-endian words) in the signed recoding
+// with digits in [-7, 8]: its nibble plus the carry out of the windows
+// below, which is 1 exactly when k mod 16^w > 0x88...8 (w nibbles of 8),
+// compared from the top word down.
+__device__ __forceinline__ int fixed_digit(const uint32_t* k, int w) {
+  const int nib = (k[w >> 3] >> (4 * (w & 7))) & 15;
+  int carry = 0, done = 0;
+#pragma unroll
+  for (int j = 7; j >= 0; j--) {
+    const int bits = FIXED_DIGIT_BITS * w - 32 * j;
+    if (bits > 0) {
+      const uint32_t mask = bits >= 32 ? 0xffffffffu : (1u << bits) - 1u;
+      const uint32_t a = k[j] & mask, b = 0x88888888u & mask;
+      if (!done && a != b) {
+        carry = a > b;
+        done = 1;
+      }
+    }
+  }
+  const int d = nib + carry;
+  return d > FIXED_MULTIPLES ? d - 16 : d;
+}
+
+// Term j of an MSM with scalars k (m of them): d·[16^w]P_i, i = j / 64,
+// w = j % 64, d the signed digit w of k_i: entry [i][w][|d| − 1], negated
+// where d < 0; infinity where d = 0 or j ≥ 64·m.
+__device__ __forceinline__ void fixed_term(G1& P,
+                                           const uint32_t* __restrict__ table,
+                                           const uint32_t* __restrict__ k,
+                                           long long j, int m) {
+  int d = 0;
+  const long long i = j / FIXED_WINDOWS;
+  const int w = (int)(j % FIXED_WINDOWS);
+  if (i < m) d = fixed_digit(k + 8 * i, w);
+  if (d == 0) {
+    g1_set_infinity(P);
+    return;
+  }
+  g1_load(P, table + G1_WORDS * ((i * FIXED_WINDOWS + w) * FIXED_MULTIPLES
+                                 + (d < 0 ? -d : d) - 1));
+  if (d < 0) {
+    uint32_t zero[fq::L] = {};
+    fq::sub(P.Y, zero, P.Y);
+  }
+}
+
+// The inputs of this block, of the launch's n.
+__device__ __forceinline__ int fixed_count(long long n) {
+  const long long rest = n - blockIdx.x * (long long)FIXED_FAN_IN;
+  return rest < FIXED_FAN_IN ? (int)rest : FIXED_FAN_IN;
+}
+
+// The block's halving tree over its `count` inputs (FIXED_FAN_IN but in a
+// launch's last block), the points in shared memory: group g holds inputs
+// g and g + FIXED_GROUPS. At s = FIXED_GROUPS, 8, ..., 1, while more than
+// s entries are left, group g < count − s adds entry g + s to its own and
+// s entries are left; a level with nothing to add is skipped. A warp with
+// a group that adds takes the steps whole; its other groups keep their
+// sums. Group 0 stores the block's sum to out.
+__device__ __forceinline__ void fixed_block_sum(uint32_t* pts, int count,
+                                                uint32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t xs[FIXED_GROUPS * 12 * fq::L];
+  const int g = threadIdx.x / FIXED_LANES, l = threadIdx.x % FIXED_LANES;
+  const int first = threadIdx.x / 32 * (32 / FIXED_LANES);
+  uint32_t* x = xs + g * 12 * fq::L;
+  __syncthreads();
+#pragma unroll 1
+  for (int s = FIXED_GROUPS; s >= 1; s /= 2) {
+    if (count <= s) continue;
+    const int adds = count - s;
+    if (first < adds)
+      group_add_sh(pts + G1_WORDS * g, pts + G1_WORDS * (g + s), x, l,
+                   g >= adds);
+    __syncthreads();
+    count = s;
+  }
+  if (g == 0)
+    for (int q = l; q < G1_WORDS; q += FIXED_LANES) out[q] = pts[q];
+}
+
+// Launch 1 of the MSM: the terms j = FIXED_FAN_IN·blockIdx.x + input of
+// MSM blockIdx.y; partial[blockIdx.y][blockIdx.x] = the block's sum.
 __global__ void __launch_bounds__(FIXED_THREADS)
 g1_msm_fixed_kernel(const uint32_t* __restrict__ table,
-                    const uint8_t* __restrict__ digits,
-                    uint32_t* __restrict__ partial, int terms) {
-  __shared__ uint32_t sh[G1_WORDS * FIXED_THREADS];
-  const int t = threadIdx.x;
-  const long long j = blockIdx.x * (long long)FIXED_THREADS + t;
-  G1 acc, Q;
-  g1_set_infinity(acc);
-  if (j < terms) {
-    g1_load(Q, table + G1_WORDS * j);
-    const uint32_t d = digits[(long long)blockIdx.y * terms + j];
-#pragma unroll 1
-    for (int b = FIXED_BITS - 1; b >= 0; b--) {
-      if (b != FIXED_BITS - 1) g1_double(acc, acc);
-      if ((d >> b) & 1) g1_add(acc, acc, Q);
-    }
-  }
-  g1_store_shared<FIXED_THREADS>(sh, t, acc);
-  __syncthreads();
-#pragma unroll 1
-  for (int s = FIXED_THREADS / 2; s >= 1; s /= 2) {
-    if (t < s) {
-      g1_load_shared<FIXED_THREADS>(Q, sh, t + s);
-      g1_add(acc, acc, Q);
-      g1_store_shared<FIXED_THREADS>(sh, t, acc);
-    }
-    __syncthreads();
-  }
-  if (t == 0)
-    g1_store(partial + G1_WORDS * ((long long)blockIdx.y * gridDim.x +
-                                   blockIdx.x),
-             acc);
+                    const uint32_t* __restrict__ scalars,
+                    uint32_t* __restrict__ partial, int m) {
+  __shared__ __align__(16) uint32_t pts[FIXED_FAN_IN * G1_WORDS];
+  const int g = threadIdx.x / FIXED_LANES, h = threadIdx.x % FIXED_LANES / 4;
+  const int input = g + h * FIXED_GROUPS;
+  const long long j = blockIdx.x * (long long)FIXED_FAN_IN + input;
+  G1 P;
+  fixed_term(P, table, scalars + 8 * (long long)blockIdx.y * m, j, m);
+  g1_store_part<4>(pts + G1_WORDS * input, P, threadIdx.x % 4);
+  fixed_block_sum(pts, fixed_count(FIXED_WINDOWS * (long long)m),
+                  partial + G1_WORDS * ((long long)blockIdx.y * gridDim.x +
+                                        blockIdx.x));
 }
 
-// Launch 2: one block of n threads (the power of two >= parts, parts <=
-// FIXED_THREADS) an MSM. Thread t takes partial t (infinity past the end);
-// then the tree of launch 1 over the n.
+// Every later launch: input j < n of MSM blockIdx.y is src[blockIdx.y][j]
+// (infinity past the end); dst[blockIdx.y][blockIdx.x] = the block's sum.
 __global__ void __launch_bounds__(FIXED_THREADS)
-g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ partial,
-                        uint32_t* __restrict__ out, int parts) {
-  __shared__ uint32_t sh[G1_WORDS * FIXED_THREADS];
-  const int t = threadIdx.x, n = blockDim.x;
-  const uint32_t* mine = partial + G1_WORDS * (long long)blockIdx.x * parts;
-  G1 acc, Q;
-  if (t < parts)
-    g1_load(acc, mine + G1_WORDS * t);
-  else
-    g1_set_infinity(acc);
-  g1_store_shared<FIXED_THREADS>(sh, t, acc);
-  __syncthreads();
-#pragma unroll 1
-  for (int s = n / 2; s >= 1; s /= 2) {
-    if (t < s) {
-      g1_load_shared<FIXED_THREADS>(Q, sh, t + s);
-      g1_add(acc, acc, Q);
-      g1_store_shared<FIXED_THREADS>(sh, t, acc);
-    }
-    __syncthreads();
-  }
-  if (t == 0) g1_store(out + G1_WORDS * (long long)blockIdx.x, acc);
+g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ src,
+                        uint32_t* __restrict__ dst, long long n) {
+  __shared__ __align__(16) uint32_t pts[FIXED_FAN_IN * G1_WORDS];
+  const long long base = blockIdx.x * (long long)FIXED_FAN_IN;
+  const uint32_t* row = src + G1_WORDS * ((long long)blockIdx.y * n + base);
+  const long long words = G1_WORDS * (n - base < FIXED_FAN_IN
+                                          ? n - base : FIXED_FAN_IN);
+  for (int q = threadIdx.x; q < FIXED_FAN_IN * G1_WORDS; q += FIXED_THREADS)
+    pts[q] = q < words ? row[q] : 0u;
+  fixed_block_sum(pts, fixed_count(n),
+                  dst + G1_WORDS * ((long long)blockIdx.y * gridDim.x +
+                                    blockIdx.x));
 }
 
 }  // namespace
@@ -243,38 +507,52 @@ extern "C" int zkp_g1_scalar_mul(const void* p, const void* scalars,
   return (int)cudaGetLastError();
 }
 
-// table: (n, FIXED_WINDOWS, 3, 12).
+// table: (n, FIXED_WINDOWS, FIXED_MULTIPLES, 3, 12).
 extern "C" int zkp_g1_fixed_table(const void* p, void* table, long long n,
                                   void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const long long blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
-    g1_fixed_table_kernel<<<(unsigned)blocks, LADDER_THREADS, 0,
+    const long long blocks = (n + TABLE_KEYS - 1) / TABLE_KEYS;
+    g1_fixed_table_kernel<<<(unsigned)blocks, 32, 0,
                             (cudaStream_t)stream>>>(
         (const uint32_t*)p, (uint32_t*)table, n);
+    const long long bases = n * FIXED_WINDOWS;
+    g1_fixed_multiples_kernel<<<(unsigned)((4 * bases + ADD_THREADS - 1) /
+                                           ADD_THREADS),
+                                ADD_THREADS, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)table, bases);
   }
   return (int)cudaGetLastError();
 }
 
-// table (m, FIXED_WINDOWS, 3, 12) from g1_fixed_table; scalars (k, m, 8)
-// canonical 32-bit words (read as k rows of 32·m digit bytes); partial
-// (k, ceil(32·m / FIXED_THREADS), 3, 12) scratch; out (k, 3, 12). windows,
-// threads: the caller's FIXED_WINDOWS and FIXED_THREADS, refused unless
-// they are these; m at most FIXED_MAX_KEYS.
+// table (m, FIXED_WINDOWS, FIXED_MULTIPLES, 3, 12) from g1_fixed_table;
+// scalars (k, m, 8) canonical 32-bit words (< 2^255); scratch (k, n1 + n2,
+// 3, 12), n1 = ceil(64·m / 32) and n2 = ceil(n1 / 32); out (k, 3, 12).
+// windows, multiples, fan_in: the caller's FIXED_WINDOWS, FIXED_MULTIPLES
+// and FIXED_FAN_IN, refused unless they are these.
 extern "C" int zkp_g1_msm_fixed(const void* table, const void* scalars,
-                                void* partial, void* out, int k, int m,
-                                int windows, int threads, void* stream) {
-  if (windows != FIXED_WINDOWS || threads != FIXED_THREADS || k < 1 ||
-      k > 65535 || m < 1 || m > FIXED_MAX_KEYS)
+                                void* scratch, void* out, int k, int m,
+                                int windows, int multiples, int fan_in,
+                                void* stream) {
+  if (windows != FIXED_WINDOWS || multiples != FIXED_MULTIPLES ||
+      fan_in != FIXED_FAN_IN || k < 1 || k > 65535 || m < 1)
     return (int)cudaErrorInvalidValue;
-  const int terms = FIXED_WINDOWS * m;
-  const int parts = (terms + FIXED_THREADS - 1) / FIXED_THREADS;
-  int n = 1;
-  while (n < parts) n *= 2;
-  g1_msm_fixed_kernel<<<dim3((unsigned)parts, (unsigned)k), FIXED_THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)table, (const uint8_t*)scalars, (uint32_t*)partial,
-      terms);
-  g1_msm_fixed_sum_kernel<<<(unsigned)k, n, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)partial, (uint32_t*)out, parts);
+  const cudaStream_t st = (cudaStream_t)stream;
+  long long n = (long long)FIXED_WINDOWS * m;
+  long long blocks = (n + FIXED_FAN_IN - 1) / FIXED_FAN_IN;
+  uint32_t* a = (uint32_t*)scratch;
+  uint32_t* b = a + (long long)G1_WORDS * k * blocks;
+  uint32_t* dst = a;
+  g1_msm_fixed_kernel<<<dim3((unsigned)blocks, (unsigned)k), FIXED_THREADS,
+                        0, st>>>(
+      (const uint32_t*)table, (const uint32_t*)scalars, dst, m);
+  while (blocks > 1) {
+    n = blocks;
+    blocks = (n + FIXED_FAN_IN - 1) / FIXED_FAN_IN;
+    const uint32_t* src = dst;
+    dst = blocks == 1 ? (uint32_t*)out : (src == a ? b : a);
+    g1_msm_fixed_sum_kernel<<<dim3((unsigned)blocks, (unsigned)k),
+                              FIXED_THREADS, 0, st>>>(src, dst, n);
+  }
   return (int)cudaGetLastError();
 }

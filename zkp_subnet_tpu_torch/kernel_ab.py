@@ -16,9 +16,13 @@ checkouts at once), and its wrappers ``g1_add``, ``g1_double``,
 one random element, and of 16 with 0, 1 and r − 1 among them) and, where
 the checkout has it, the ladder ``g1_scalar_mul`` (at 2^16 points and at
 16, the first MSM's scalars) are timed; and the aggregation's two MSMs
-over 256 and over 16 keys, as the checkout's aggregation runs them:
+over 16, 256 and 1024 keys, as the checkout's aggregation runs them:
 ``g1_msm_fixed`` over the keys' window table (built untimed) where it has
-one, else a ladder and a ``g1_sum`` tree an MSM (``msm.msm_naive``); and
+one, else a ladder and a ``g1_sum`` tree an MSM (``msm.msm_naive``), and
+not at all where its ``g1_msm_fixed`` refuses that many keys (before the
+tree of launches, past 512); the keys' table ``g1_fixed_table`` at 256 and
+1024 keys, compared by its bases at every 8 bits, [2^(8v)]P_i, which every
+layout holds; and
 the opening's ``fr_powers`` and ``fr_open_quotient`` at one row of 2^16 and
 at 256 such rows at one point, and ``fr_power_tables``, as the checkout
 runs them (``_opening_fns``). The inputs are made once, from a seed, by
@@ -29,7 +33,9 @@ batch's factors. Device ms: CUDA events around the replay of a CUDA graph of sev
 launches. Every checkout is timed twice, in the order given and then in
 the reverse order. Its outputs must equal those of the first checkout
 that has the kernel: the K1 kernels and the inverses limb for limb,
-the bucket sums and the aggregation's MSMs as points. Then, for each
+the bucket sums and the aggregation's MSMs as points; and before any
+number, each checkout's aggregation MSMs must equal the oracle's Σ
+k_i·P_i (the keys' discrete logs are known). Then, for each
 checkout, the registers and spills of the kernels (``KERNELS``, from
 ``-Xptxas -v``) and the SASS
 instruction mix of ``g1_add_kernel`` (``cuobjdump -sass``; a static count,
@@ -53,11 +59,17 @@ SEED = 20261016
 #: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder,
 #: the opening's kernels over the batch
 REPS_POINT, REPS_BUCKETS, REPS_LADDER, REPS_BATCH = 100, 5, 2, 2
+#: the aggregation's MSMs over the keys' table, and the table
+REPS_FIXED, REPS_TABLE = 10, 2
+#: the aggregation's keys: [round]'s 16, the mainnet's 256, machines_scale
+#: 10's 1024
+FIXED_KEYS = (16, 256, 1024)
 #: rows of the opening's batch (a prove's 256 workers at 24/8)
 BATCH = 256
 KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel",
            "g1_scalar_mul_kernel", "fr_inv_kernel", "g1_msm_fixed_kernel",
-           "g1_fixed_table_kernel", "fr_power_tables_kernel",
+           "g1_msm_fixed_sum_kernel", "g1_fixed_table_kernel",
+           "g1_fixed_multiples_kernel", "fr_power_tables_kernel",
            "fr_powers_kernel", "fr_open_quotient_kernel")
 
 
@@ -135,19 +147,12 @@ def child_time(inputs: str, reference: str) -> dict:
     for n, x in ((1, data["fr"][3:4]), (16, data["fr"])):
         x = x.to(dev)
         fns[f"fr_inv {n}"] = (lambda x=x: kernels.fr_inv(x), REPS_POINT)
-    for m in (256, 16):
-        keys = p[:m].contiguous()
-        sc = data["scalars"]["uniform"][:, :m].contiguous().to(dev)
-        if hasattr(kernels, "g1_msm_fixed"):
-            table = kernels.g1_fixed_table(keys)
-            fn = (lambda t=table, s=sc: kernels.g1_msm_fixed(t, s))
-        else:
-            fn = (lambda k=keys, s=sc: torch.stack(
-                [tmsm.msm_naive(k, c) for c in s]))
-        fns[f"aggregation 2 MSMs {m} keys"] = (fn, REPS_LADDER)
+    fixed = _fixed_fns(kernels, tmsm, p, data["scalars"]["uniform"].to(dev))
+    fns.update(fixed)
     fns.update(_opening_fns(kernels, data, dev))
     outs = {name: _flat(fn()) for name, (fn, _) in fns.items()}
     torch.cuda.synchronize()
+    _oracle_check(outs, data["scalars"]["uniform"], p)
     ms = {name: _graph_ms(fn, reps) for name, (fn, reps) in fns.items()}
     # the first checkout that has a kernel writes its reference output
     ref = torch.load(reference) if os.path.exists(reference) else {}
@@ -160,6 +165,68 @@ def child_time(inputs: str, reference: str) -> dict:
                  else _same_points(kernels, v, ref[k]))
              for k, v in outs.items()}
     return {"ms": ms, "equal": equal, "package": kernels.CSRC}
+
+
+def _fixed_fns(kernels, tmsm, p, scalars) -> dict:
+    """The aggregation's two MSMs over the first m points (16, 256, 1024
+    keys) as the checkout runs them, and the keys' table at 256 and 1024
+    (its bases at every 8 bits: the new layout's [16^w]P_i at even w, the
+    old one's every window)."""
+    import torch
+
+    fns = {}
+    most = getattr(kernels, "FIXED_MAX_KEYS", None)
+    for m in FIXED_KEYS:
+        keys = p[:m].contiguous()
+        sc = scalars[:, :m].contiguous()
+        if not hasattr(kernels, "g1_msm_fixed"):
+            fn = (lambda k=keys, s=sc: torch.stack(
+                [tmsm.msm_naive(k, c) for c in s]))
+        elif most is None or m <= most:
+            table = kernels.g1_fixed_table(keys)
+            fn = (lambda t=table, s=sc: kernels.g1_msm_fixed(t, s))
+        else:
+            continue
+        fns[f"aggregation 2 MSMs {m} keys"] = (fn, REPS_FIXED)
+        if m > 16 and hasattr(kernels, "g1_fixed_table"):
+            fns[f"g1_fixed_table {m} keys"] = (
+                lambda k=keys: _bases(kernels.g1_fixed_table(k)),
+                REPS_TABLE)
+    return fns
+
+
+def _bases(table):
+    """[2^(8v)]P_i, v < 32, from a fixed-base table of either layout."""
+    return table[:, ::2, 0] if table.dim() == 5 else table
+
+
+def _key_dlog(i: int) -> int:
+    """The discrete log of point i of the inputs: twice the comb table's
+    entry (window i // 256, digit i % 256), [d·2^(8w)]G."""
+    from zkp_subnet_tpu_torch.utils import oracle as o
+
+    return 2 * (i % 256) * pow(2, 8 * (i // 256), o.R) % o.R
+
+
+def _oracle_check(outs: dict, scalars, p) -> None:
+    """The aggregation's MSMs against the oracle's Σ k_i·P_i: no number is
+    printed for a checkout that fails it."""
+    from zkp_subnet_tpu_torch.ops import curve as cv
+    from zkp_subnet_tpu_torch.ops.field import FR
+    from zkp_subnet_tpu_torch.utils import oracle as o
+
+    g = o.G1.from_affine(o.G1_GEN)
+    for m in FIXED_KEYS:
+        got = outs.get(f"aggregation 2 MSMs {m} keys")
+        if got is None:
+            continue
+        got = got.view(-1, 3, 12)
+        for c in range(got.shape[0]):
+            ks = FR.limbs_to_ints(scalars[c, :m])
+            want = sum(k * _key_dlog(i) for i, k in enumerate(ks)) % o.R
+            if cv.g1_affine(got[c]) != [o.G1.to_affine(o.G1.mul(g, want))]:
+                raise RuntimeError(f"aggregation MSM {c} at {m} keys != "
+                                   "the oracle")
 
 
 def _flat(out):

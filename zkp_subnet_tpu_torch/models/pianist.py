@@ -142,17 +142,17 @@ def aggregate_core(lagrange_table: torch.Tensor, commitments: torch.Tensor,
                    beta: torch.Tensor, dom: torch.Tensor,
                    m_inv: torch.Tensor):
     """The aggregation math for B challenges at once. lagrange_table: the
-    Lagrange-Y keys' window table (``Srs.lagrange_table``, (M, 32, 3, 12));
-    commitments, proofs (B, M, 3, 12); evals (B, M, 8), beta (B, 8), all
-    Montgomery; dom (M, 8) = domain points ω^i, m_inv (8,) = 1/M. Returns
-    (C, W, C_y, W_y, value), each with the leading B.
+    Lagrange-Y keys' window table (``Srs.lagrange_table``, (M, 64, 8, 3,
+    12)); commitments, proofs (B, M, 3, 12); evals (B, M, 8), beta (B, 8),
+    all Montgomery; dom (M, 8) = domain points ω^i, m_inv (8,) = 1/M.
+    Returns (C, W, C_y, W_y, value), each with the leading B.
 
     On the card: one K3 ``fr_inv`` for the B·M differences (the quotient's
     1/(ω^i − β) is the negation of 1/(β − ω^i), so the difference's sign
     moves to the numerator), and one ``msm_fixed`` call (K1
-    ``g1_msm_fixed``, two launches) for the 2·B MSMs C_y = Σ y_i·V_i and
-    W_y = Σ q_i·V_i, once value and q are known; C and W by one tree of K1
-    adds over both."""
+    ``g1_msm_fixed``, one tree of launches, any M) for the 2·B MSMs C_y =
+    Σ y_i·V_i and W_y = Σ q_i·V_i, once value and q are known; C and W by
+    one tree of K1 adds over both."""
     b, m = evals.shape[:2]
     dom_b = _rows(dom, b, m)
     C, W = cv.tree_sum(torch.stack([commitments, proofs], 1).reshape(

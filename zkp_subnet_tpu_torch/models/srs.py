@@ -169,12 +169,12 @@ class Srs:
         return cache[i]
 
     def lagrange_table(self) -> torch.Tensor:
-        """The window table of ``lagrange_y`` (``msm.fixed_table``: (M, 32,
-        3, 12), [2^(8w)]·V_i; 1.18 MB at M = 256) that the aggregation's
-        MSMs read: built on first use, on the SRS's device, and kept. It is
-        derived state: never written to the SRS files. A shard of the
-        multi-device prove holds the table of all M keys
-        (``keep_lagrange_table``)."""
+        """The window table of ``lagrange_y`` (``msm.fixed_table``: (M, 64,
+        8, 3, 12), [(j + 1)·16^w]·V_i; 73,728 bytes a key, 18.9 MB at M =
+        256, 75.5 MB at 1024) that the aggregation's MSMs read: built on
+        first use, on the SRS's device, and kept. It is derived state: never
+        written to the SRS files. A shard of the multi-device prove holds
+        the table of all M keys (``keep_lagrange_table``)."""
         if _LAGRANGE_TABLE not in self.__dict__:
             self.keep_lagrange_table(self.lagrange_y)
         return self.__dict__[_LAGRANGE_TABLE]

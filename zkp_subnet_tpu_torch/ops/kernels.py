@@ -79,14 +79,15 @@ EVAL_PER_THREAD = 4
 #: rows of one ``fr_eval_rows`` launch at most (the grid's second dimension)
 MAX_EVAL_ROWS = 65535
 
-#: windows of the fixed-base table, 8 bits each (FIXED_WINDOWS of
-#: csrc/g1.cu), and the terms a block of ``g1_msm_fixed``'s first launch
-#: sums (FIXED_THREADS): its C entry refuses others
-FIXED_WINDOWS = 32
-FIXED_THREADS = 128
-#: keys of one ``g1_msm_fixed`` call at most: its first launch's block sums
-#: fit one block of its second (FIXED_MAX_KEYS of csrc/g1.cu)
-FIXED_MAX_KEYS = FIXED_THREADS * FIXED_THREADS // FIXED_WINDOWS
+#: the fixed-base table of ``g1_fixed_table``: windows of 4 bits (signed
+#: digits in [-7, 8]) and the multiples 1..8 of each window's base
+#: (FIXED_WINDOWS and FIXED_MULTIPLES of csrc/g1.cu), and the inputs a block
+#: of ``g1_msm_fixed``'s tree of launches sums (FIXED_FAN_IN): its C entry
+#: refuses others
+FIXED_DIGIT_BITS = 4
+FIXED_WINDOWS = 256 // FIXED_DIGIT_BITS
+FIXED_MULTIPLES = 1 << (FIXED_DIGIT_BITS - 1)
+FIXED_FAN_IN = 32
 
 #: MSMs of one ``g1_msm_fixed`` call at most (the grid's second dimension)
 MAX_FIXED_MSMS = 65535
@@ -234,7 +235,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "zkp_g1_double": [p, p, i64, p],
         "zkp_g1_scalar_mul": [p, p, p, i64, p],
         "zkp_g1_fixed_table": [p, p, i64, p],
-        "zkp_g1_msm_fixed": [p, p, p, p, i32, i32, i32, i32, p],
+        "zkp_g1_msm_fixed": [p, p, p, p, i32, i32, i32, i32, i32, p],
         "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
         "zkp_msm_reduce": [p, p, i32, i32, p],
         "zkp_msm_combine": [p, p, p, i32, i32, i32, i32, i32, i32, i32, p],
@@ -346,19 +347,32 @@ def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fixed_passes(m: int) -> list:
+    """The inputs of each launch of ``g1_msm_fixed``'s tree at m keys: the
+    64·m terms, then each launch's block sums, down to one."""
+    n = [FIXED_WINDOWS * m]
+    while n[-1] > 1:
+        n.append(-(-n[-1] // FIXED_FAN_IN))
+    return n
+
+
 def g1_fixed_table(p: torch.Tensor) -> torch.Tensor:
-    """table[i, w] = [2^(8w)]P_i, w < FIXED_WINDOWS: (M, 3, 12) points →
-    (M, 32, 3, 12), the fixed-base table of ``g1_msm_fixed``.
+    """table[i, w, j] = [(j + 1)·16^w]P_i, w < 64, j < 8: (M, 3, 12) points
+    → (M, 64, 8, 3, 12), the fixed-base table of ``g1_msm_fixed``
+    (73,728 bytes a key).
 
     Replaces, with ``g1_msm_fixed``, pallas_g1.py:pfield over lazy8.ZFQ as
-    the naive MSM reaches it (dispatch_ldouble). Bound: latency, one
-    thread's 248 dependent doubles a point; built once per SRS and device.
-    One thread a point, a store every 8 doubles."""
+    the naive MSM reaches it (dispatch_ldouble). Bound: latency, the chain
+    of 255 dependent doubles a key; built once per SRS and device. Two
+    launches: a group of 4 lanes a key takes each double's products side
+    by side (two in a row where one thread has eight), storing a window's
+    B, 2B, 4B and 8B on the way; then a thread an entry makes 3B, 5B, 6B
+    and 7B by one add each."""
     _check(p, "p", tail=(3, 12))
     if p.dim() != 3:
         raise ValueError("g1_fixed_table: expected (M, 3, 12)")
-    out = torch.empty((p.shape[0], FIXED_WINDOWS, 3, 12), dtype=torch.int32,
-                      device=p.device)
+    out = torch.empty((p.shape[0], FIXED_WINDOWS, FIXED_MULTIPLES, 3, 12),
+                      dtype=torch.int32, device=p.device)
     if p.shape[0]:
         _launch("g1_fixed_table", _load().zkp_g1_fixed_table,
                 p.data_ptr(), out.data_ptr(), p.shape[0])
@@ -367,35 +381,35 @@ def g1_fixed_table(p: torch.Tensor) -> torch.Tensor:
 
 def g1_msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """K MSMs Σ_i k_{c,i}·P_i over the bases of a fixed-base table:
-    ``table`` (M, 32, 3, 12) from ``g1_fixed_table``, ``scalars`` (K, M, 8)
-    canonical int32 → (K, 3, 12).
+    ``table`` (M, 64, 8, 3, 12) from ``g1_fixed_table``, ``scalars`` (K, M,
+    8) canonical int32 (below 2^255) → (K, 3, 12), any M ≥ 1.
 
     Replaces pallas_g1.py:pfield over lazy8.ZFQ as reached from
     zkp_subnet_tpu/ops/msm.py:msm_auto's naive path (a ladder a point and a
     tree sum: the Pianist aggregation's C_y and W_y). Bound: latency, the
-    chain of dependent point operations. Two launches: a thread a (base,
-    window) term d·[2^(8w)]P_i by an 8-bit double-and-add and a tree a block
-    in shared memory, then a block an MSM adding the blocks' sums; the
-    chain is 7 doubles and 8 + log2(32·M) adds, where the ladder's is 256
-    steps."""
-    _check(table, "table", tail=(FIXED_WINDOWS, 3, 12))
+    chain of dependent point adds. An MSM is the sum of its 64·M terms,
+    each a table entry by its signed 4-bit digit (no doubles), by a tree of
+    launches (``fixed_passes``): a block sums 32 inputs by a halving tree of
+    adds, each add's products side by side on 6 lanes of a warp; log2(64·M)
+    adds deep."""
+    _check(table, "table", tail=(FIXED_WINDOWS, FIXED_MULTIPLES, 3, 12))
     _check(scalars, "scalars", tail=(8,))
-    if (table.dim() != 4 or scalars.dim() != 3
+    if (table.dim() != 5 or scalars.dim() != 3
             or scalars.shape[1] != table.shape[0]
             or table.device != scalars.device):
-        raise ValueError("g1_msm_fixed: table (M, 32, 3, 12) and scalars "
+        raise ValueError("g1_msm_fixed: table (M, 64, 8, 3, 12) and scalars "
                          "(K, M, 8) on one device expected")
     k, m = scalars.shape[:2]
-    if not 1 <= k <= MAX_FIXED_MSMS or not 1 <= m <= FIXED_MAX_KEYS:
-        raise ValueError(f"g1_msm_fixed: 1..{MAX_FIXED_MSMS} MSMs of "
-                         f"1..{FIXED_MAX_KEYS} bases expected")
-    parts = -(-FIXED_WINDOWS * m // FIXED_THREADS)
-    partial = torch.empty((k, parts, 3, 12), dtype=torch.int32,
+    if not 1 <= k <= MAX_FIXED_MSMS or m < 1:
+        raise ValueError(f"g1_msm_fixed: 1..{MAX_FIXED_MSMS} MSMs of at "
+                         "least one base expected")
+    passes = fixed_passes(m)
+    scratch = torch.empty((k, sum(passes[1:3]), 3, 12), dtype=torch.int32,
                           device=table.device)
     out = torch.empty((k, 3, 12), dtype=torch.int32, device=table.device)
     _launch("g1_msm_fixed", _load().zkp_g1_msm_fixed, table.data_ptr(),
-            scalars.data_ptr(), partial.data_ptr(), out.data_ptr(), k, m,
-            FIXED_WINDOWS, FIXED_THREADS)
+            scalars.data_ptr(), scratch.data_ptr(), out.data_ptr(), k, m,
+            FIXED_WINDOWS, FIXED_MULTIPLES, FIXED_FAN_IN)
     return out
 
 

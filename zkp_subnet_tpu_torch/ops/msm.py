@@ -9,7 +9,8 @@ every launch, as the JAX package holds a row's commit and opening MSMs in
 one jitted program (``zkp_subnet_tpu/runtime/worker.py:35-42``); ``msm`` is
 the K = 1 case. ``msm_fixed`` runs K MSMs over fixed bases (the Pianist
 aggregation's Lagrange-Y keys) through their window table
-(``fixed_table``), a K1 kernel of two launches. ``msm_auto_many`` also
+(``fixed_table``), a K1 kernel whose tree of launches takes any number of
+keys. ``msm_auto_many`` also
 takes points of their own a row (K, N, 3, 12), as Pianist's
 ``commit_all``/``open_all`` give it every worker's bases;
 ``msm_auto_groups`` takes K MSMs over each of G point sets.
@@ -61,7 +62,7 @@ import torch
 
 from . import kernels
 from .curve import (g1_add, g1_add_plain, g1_double_plain, g1_infinity,
-                    g1_scalar_mul, g1_sum, scalar_digits, tree_sum)
+                    g1_scalar_mul, g1_sum, scalar_digits)
 from .field import FQ
 
 WINDOW_BITS = 8
@@ -376,22 +377,33 @@ def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 # -- K1 g1_msm_fixed: MSMs over fixed bases through a window table ------------
 
-#: terms a block of ``g1_msm_fixed``'s first launch sums by its tree, and
-#: the most threads of its second; the mirror of ``csrc/g1.cu:FIXED_THREADS``
-FIXED_THREADS = kernels.FIXED_THREADS
+#: the table's windows of FIXED_DIGIT_BITS bits and the multiples of each
+#: window's base it holds, and the inputs a block of ``g1_msm_fixed``'s
+#: tree sums: the mirrors of ``csrc/g1.cu``, for the plain versions
+FIXED_DIGIT_BITS = kernels.FIXED_DIGIT_BITS
+FIXED_WINDOWS = kernels.FIXED_WINDOWS
+FIXED_MULTIPLES = kernels.FIXED_MULTIPLES
+FIXED_FAN_IN = kernels.FIXED_FAN_IN
 
 
 def fixed_table_plain(points: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1 ``g1_fixed_table``: (M, 3, 12) → (M, 32, 3, 12),
-    table[i, w] = [2^(8w)]P_i, by the kernel's doubles in the kernel's
-    order (8 a window, all points at once)."""
-    rows = [points]
-    for _ in range(NUM_WINDOWS - 1):
-        p = rows[-1]
-        for _ in range(WINDOW_BITS):
-            p = g1_double_plain(p)
-        rows.append(p)
-    return torch.stack(rows, dim=1)
+    """Plain version of K1 ``g1_fixed_table``: (M, 3, 12) → (M, 64, 8, 3,
+    12), table[i, w, j] = [(j + 1)·16^w]P_i, by the kernel's operations in
+    the kernel's order: doubles from P_i (all points at once), a window's
+    B, 2B, 4B and 8B taken on the way, then 3B = 2B + B, 5B = 4B + B,
+    6B = 4B + 2B and 7B = 8B + (−B)."""
+    chain = [points]
+    for _ in range(FIXED_DIGIT_BITS * FIXED_WINDOWS - 1):
+        chain.append(g1_double_plain(chain[-1]))
+    steps = torch.stack(chain, 1).view(points.shape[0], FIXED_WINDOWS,
+                                       FIXED_DIGIT_BITS, 3, FQ.L)
+    e1, e2, e4, e8 = (steps[:, :, b] for b in range(FIXED_DIGIT_BITS))
+    neg = e1.clone()
+    neg[..., 1, :] = FQ.sub_plain(torch.zeros_like(e1[..., 1, :]),
+                                  e1[..., 1, :])
+    e3, e5, e6, e7 = _add_rows(torch.stack([e2, e4, e4, e8], 2),
+                               torch.stack([e1, e1, e2, neg], 2)).unbind(2)
+    return torch.stack([e1, e2, e3, e4, e5, e6, e7, e8], dim=2)
 
 
 def fixed_table(points: torch.Tensor) -> torch.Tensor:
@@ -402,44 +414,103 @@ def fixed_table(points: torch.Tensor) -> torch.Tensor:
     return fixed_table_plain(points)
 
 
-def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor
-                    ) -> torch.Tensor:
-    """Plain version of K1 ``g1_msm_fixed``: (M, 32, 3, 12) table, (K, M, 8)
-    canonical scalars → (K, 3, 12), M ≤ ``kernels.FIXED_MAX_KEYS``, by the
-    kernel's adds in the kernel's order. Term j = 32·i + w of MSM c is
-    d·table[i, w], d the byte w of k_{c,i}, by an 8-bit double-and-add
-    from infinity (no double at the top bit, an add where a bit is set);
-    blocks of ``FIXED_THREADS`` consecutive terms sum by ``tree_sum`` (at
-    s = 64 … 1 entry t < s adds entry t + s, as a block's threads do
-    through shared memory), and so do the blocks' sums."""
+def fixed_digits_plain(scalars: torch.Tensor) -> torch.Tensor:
+    """(..., 8) canonical scalars below 2^255 → (..., 64) signed digits in
+    [-7, 8], least significant first, Σ d_w·16^w = k: each window's nibble
+    plus the carry out of the one below, less 16 (and a carry out) where
+    that passes 8."""
+    nib = scalar_digits(scalars, FIXED_DIGIT_BITS)
+    out = torch.empty_like(nib)
+    carry = torch.zeros_like(nib[..., 0])
+    for w in range(FIXED_WINDOWS):
+        d = nib[..., w] + carry
+        carry = (d > FIXED_MULTIPLES).long()
+        out[..., w] = d - 16 * carry
+    return out
+
+
+def fixed_terms_plain(table: torch.Tensor, scalars: torch.Tensor
+                      ) -> torch.Tensor:
+    """The terms of K MSMs over a fixed-base table, as the first launch of
+    ``g1_msm_fixed`` reads them: (K, 64·M, 3, 12), term 64·i + w =
+    d·[16^w]P_i for the signed digit d = d_w(k_i), the table entry of |d|,
+    negated where d < 0, infinity where d = 0."""
     k, m = scalars.shape[:2]
-    if m > kernels.FIXED_MAX_KEYS:
-        raise ValueError(f"msm_fixed: {m} bases, at most "
-                         f"{kernels.FIXED_MAX_KEYS}")
-    terms = NUM_WINDOWS * m
-    digits = scalar_digits(scalars, WINDOW_BITS).reshape(k, terms)
-    base = table.reshape(1, terms, 3, FQ.L)
-    acc = g1_infinity((k, terms), table.device)
-    for b in range(WINDOW_BITS - 1, -1, -1):
-        if b != WINDOW_BITS - 1:
-            acc = g1_double_plain(acc)
-        bit = ((digits >> b) & 1).bool()
-        acc = torch.where(bit[..., None, None], g1_add_plain(acc, base), acc)
-    parts = -(-terms // FIXED_THREADS)
-    inf = g1_infinity((), table.device)
-    blocks = torch.cat([acc, inf.expand(k, parts * FIXED_THREADS - terms, 3,
-                                        FQ.L)], dim=1)
-    partial = tree_sum(blocks.reshape(k * parts, FIXED_THREADS, 3, FQ.L),
-                       g1_add_plain, inf)
-    return tree_sum(partial.reshape(k, parts, 3, FQ.L), g1_add_plain, inf)
+    d = fixed_digits_plain(scalars)                        # (K, M, 64)
+    i = torch.arange(m, device=table.device)[None, :, None]
+    w = torch.arange(FIXED_WINDOWS, device=table.device)[None, None, :]
+    ent = table[i, w, (d.abs() - 1).clamp(min=0)]          # (K, M, 64, 3, 12)
+    ent[..., 1, :] = torch.where((d < 0)[..., None], FQ.sub_plain(
+        torch.zeros_like(ent[..., 1, :]), ent[..., 1, :]), ent[..., 1, :])
+    ent = torch.where((d == 0)[..., None, None],
+                      g1_infinity((), table.device), ent)
+    return ent.reshape(k, m * FIXED_WINDOWS, 3, FQ.L)
+
+
+def fixed_sum_plain(inputs: torch.Tensor, fan_in: int = FIXED_FAN_IN
+                    ) -> torch.Tensor:
+    """The tree of launches of ``g1_msm_fixed`` over (K, n, 3, 12) inputs →
+    (K, 3, 12): each launch cuts every row into blocks of ``fan_in``
+    consecutive inputs, the last block maybe short, and sums each by
+    ``_block_tree``, until one sum is left (``fan_in`` 32 as the kernel;
+    the CPU tests also take toy fan-ins, so that small rows cross several
+    launches and ragged blocks)."""
+    k, t = inputs.shape[0], inputs
+    while True:
+        n = t.shape[1]
+        full, rest = divmod(n, fan_in)
+        sums = []
+        if full:
+            sums.append(_block_tree(t[:, :full * fan_in].reshape(
+                k * full, fan_in, 3, FQ.L), fan_in).view(k, full, 3, FQ.L))
+        if rest:
+            sums.append(_block_tree(t[:, full * fan_in:], fan_in)[:, None])
+        t = torch.cat(sums, 1)
+        if t.shape[1] == 1:
+            return t[:, 0]
+
+
+def _block_tree(t: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """One block's halving tree over (B, c, 3, 12), c ≤ fan_in inputs →
+    (B, 3, 12): at s = fan_in/2 … 1, while more than s entries are left,
+    entry j < c − s adds entry j + s (as group j of the block's lanes does)
+    and s are left; a level with nothing to add is skipped. At c = fan_in
+    this is ``tree_sum``'s tree."""
+    c, s = t.shape[1], fan_in // 2
+    while s >= 1:
+        if c > s:
+            t = torch.cat([_add_rows(t[:, :c - s], t[:, s:c]),
+                           t[:, c - s:s]], 1)
+            c = s
+        s //= 2
+    return t[:, 0]
+
+
+def _add_rows(a: torch.Tensor, b: torch.Tensor,
+              rows: int = 1024) -> torch.Tensor:
+    """``g1_add_plain`` of (B, h, 3, 12) operands in pieces of about
+    ``rows`` points (one batched product of every point is much slower on
+    the CPU than a few cache-sized ones; the values are the same)."""
+    step = max(1, rows // max(1, a.shape[1]))
+    return torch.cat([g1_add_plain(a[j:j + step], b[j:j + step])
+                      for j in range(0, a.shape[0], step)])
+
+
+def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor,
+                    fan_in: int = FIXED_FAN_IN) -> torch.Tensor:
+    """Plain version of K1 ``g1_msm_fixed``: (M, 64, 8, 3, 12) table, (K, M,
+    8) canonical scalars → (K, 3, 12), any M ≥ 1, by the kernel's adds in
+    the kernel's order: the terms (``fixed_terms_plain``) summed by its
+    tree of launches (``fixed_sum_plain``)."""
+    return fixed_sum_plain(fixed_terms_plain(table, scalars), fan_in)
 
 
 def msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """K MSMs over the M fixed bases of ``table`` (``fixed_table``'s), one
-    call: scalars (K, M, 8) canonical → (K, 3, 12). K1 ``g1_msm_fixed`` on
-    a CUDA tensor (two launches whatever K), its plain version on the CPU.
-    The Pianist aggregation's Lagrange-Y MSMs (C_y and W_y of every
-    challenge) go through it."""
+    call: scalars (K, M, 8) canonical → (K, 3, 12), any M. K1
+    ``g1_msm_fixed`` on a CUDA tensor (one tree of launches whatever K), its
+    plain version on the CPU. The Pianist aggregation's Lagrange-Y MSMs (C_y
+    and W_y of every challenge) go through it."""
     if table.is_cuda or scalars.is_cuda:
         return kernels.g1_msm_fixed(table.contiguous(), scalars.contiguous())
     return msm_fixed_plain(table, scalars)
