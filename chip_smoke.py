@@ -710,17 +710,15 @@ TABLE_DEPTH = TABLE_DOUBLES + 1
 
 
 def fixed_table_need(keys: torch.Tensor):
-    """(bytes, operations) of the fixed-base table of these (M, 3, 12)
-    keys: the keys read and the table written once; each entry one point
-    operation from another, for the keys not at infinity: 255 doubles
-    give every window's B, 2B, 4B and 8B, and one add each its 3B, 5B, 6B
-    and 7B."""
-    m = keys.shape[0]
+    """(bytes, operations) of the table that ``fixed_msm_need``'s bound
+    reads, from these (M, 3, 12) keys: each key's 32 window bases
+    [256^w]P of 8 bits, the keys read and the bases written once; 248
+    doubles a key not at infinity, each base 8 doubles from the one
+    below (the bound of table and MSM together is then one design's)."""
     finite = int((keys[:, 2] != 0).any(-1).sum())
-    windows = tmsm.FIXED_WINDOWS
-    return (G1_BYTES * m * (1 + windows * tmsm.FIXED_MULTIPLES),
-            finite * (OPS_G1_DOUBLE * TABLE_DOUBLES
-                      + OPS_G1_ADD * 4 * windows))
+    return (G1_BYTES * keys.shape[0] * (1 + tmsm.NUM_WINDOWS),
+            finite * OPS_G1_DOUBLE * tmsm.WINDOW_BITS
+            * (tmsm.NUM_WINDOWS - 1))
 
 
 def fixed_msm_need(m, scalars):
@@ -786,7 +784,7 @@ def path_calls(x):
         "fr_inv": (lambda: kernels.fr_inv(x1), lambda: fr_inv_plain(x1), 20,
                    fr, 2 * FR_BYTES, inverse_ops(x1)),
         # the aggregation's table (once per SRS) and its two MSMs at 256
-        # keys; the table's bound counts its entries of the finite keys
+        # keys; the table's bound counts the doubles of the finite keys
         "g1_fixed_table": (
             lambda: kernels.g1_fixed_table(x.lag),
             lambda: tmsm.fixed_table_plain(x.lag), 2, limbs,
@@ -1147,11 +1145,15 @@ def phase_kernels(rng, dev, int_ops_per_s):
               ("fr_eval_rows", OPENINGS, same_fr,
                lambda: openings_y(x.rows, x.alpha),
                lambda: kernels.fr_eval_rows(x.rows, x.alpha))]
+    compare_ms = {}
     for name, label, same, kern, plain in others:
         ms, got = time_cuda(kern, 5)
-        record(name, same(got, plain()))
+        compare_ms[name, label], want = time_cuda(plain, 1, warm=False)
+        record(name, same(got, want))
+        del want
         say(f"[kernels] {name}, {label}, {tuple(got.shape)}: equal to "
-            f"plain; kernel {ms:.4f} ms")
+            f"plain; kernel {ms:.4f} ms, the comparison "
+            f"{compare_ms[name, label]:.2f} ms")
         res[name].setdefault("other_ms", {})[label] = ms
     ladder = res["g1_scalar_mul"]
     ladder["other_bound_ms"] = {}
@@ -1175,11 +1177,14 @@ def phase_kernels(rng, dev, int_ops_per_s):
     say(f"[kernels] fr_inv at 16 elements: steps {inverse_steps(x.diffs)}; "
         f"bound {res['fr_inv']['other_bound_ms']['16 elements']:.7f} ms "
         "(operations)")
-    ladder["other_plain_ms"] = {"256 points": time_cuda(
-        lambda: cv.g1_scalar_mul_plain(x.lp256, x.ls256), 1, warm=False)[0]}
+    ladder["other_plain_ms"] = {
+        "256 points": compare_ms["g1_scalar_mul", "256 points"]}
     say("[kernels] g1_scalar_mul at 256 points: plain "
         f"{ladder['other_plain_ms']['256 points']:.2f} ms")
     fixed = res["g1_msm_fixed"]
+    fixed["other_plain_ms"] = {
+        label: compare_ms["g1_msm_fixed", label]
+        for label in ("16 keys, 2 MSMs", "1024 keys, 2 MSMs")}
     fixed["other_bound_ms"] = {
         label: bound(*fixed_msm_need(m, sc), int_ops_per_s)[0]
         for m, label, sc in ((x.m, "16 keys, 2 MSMs", x.fsc16),
@@ -1190,6 +1195,8 @@ def phase_kernels(rng, dev, int_ops_per_s):
         big = m == x.tab.shape[0]
         ms = fixed["ms"] if big else fixed["other_ms"][label]
         b_ms = fixed["bound_ms"] if big else fixed["other_bound_ms"][label]
+        plain_ms = (fixed["plain_ms"] if big
+                    else fixed["other_plain_ms"][label])
         k2 = fixed["other_ms"][f"K2 msm_many, {label}"]
         old = fixed["other_ms"][f"ladder + g1_sum (before), {label}"]
         own_ms = fixed_kernel_ops(sc) / int_ops_per_s * 1e3
@@ -1199,21 +1206,25 @@ def phase_kernels(rng, dev, int_ops_per_s):
             f"{ms / fixed_depth(m) * 1e3:.2f} us each), K2 msm_many "
             f"{k2:.4f} ms, the ladder + g1_sum before {old:.4f} ms; bound "
             f"{b_ms:.6f} ms (buckets over the table, no doubles), "
-            f"{ms / b_ms:.0f} x it; the kernel's own tree of terms "
-            f"{own_ms:.6f} ms at the integer rate"
+            f"{ms / b_ms:.0f} x it; plain {plain_ms:.2f} ms; the kernel's "
+            f"own tree of terms {own_ms:.6f} ms at the integer rate"
             + ("; faster than K2" if ms < k2 else
                "; SLOWER than K2: the aggregation should take K2 here"))
     table = res["g1_fixed_table"]
     b1k = bound(*fixed_table_need(x.lag1k), int_ops_per_s)[0]
     table["other_bound_ms"] = {"1024 keys": b1k}
+    table["other_plain_ms"] = {
+        "1024 keys": compare_ms["g1_fixed_table", "1024 keys"]}
     key_bytes = G1_BYTES * tmsm.FIXED_WINDOWS * tmsm.FIXED_MULTIPLES
-    for label, ms, b_ms in (("256 keys", table["ms"], table["bound_ms"]),
-                            ("1024 keys", table["other_ms"]["1024 keys"],
-                             b1k)):
+    for label, ms, b_ms, plain_ms in (
+            ("256 keys", table["ms"], table["bound_ms"], table["plain_ms"]),
+            ("1024 keys", table["other_ms"]["1024 keys"], b1k,
+             table["other_plain_ms"]["1024 keys"])):
         say(f"[kernels] g1_fixed_table at {label}: {ms:.4f} ms "
             f"({TABLE_DEPTH} dependent point operations, "
-            f"{ms / TABLE_DEPTH * 1e3:.2f} us each); bound {b_ms:.6f} ms, "
-            f"{ms / b_ms:.0f} x it; {key_bytes} bytes a key")
+            f"{ms / TABLE_DEPTH * 1e3:.2f} us each); bound {b_ms:.6f} ms "
+            f"(the 8-bit table's doubles), {ms / b_ms:.0f} x it; plain "
+            f"{plain_ms:.2f} ms; {key_bytes} bytes a key")
     time_opening_batch(x, res, int_ops_per_s, record)
     res["fr_butterfly"].update(time_butterfly(rng, dev, int_ops_per_s,
                                               record))

@@ -126,24 +126,29 @@ def test_aggregate_core_one_msm_call_one_inverse(monkeypatch):
 
 def test_aggregate_core_at_1024_keys_matches_oracle():
     """The aggregation at machines_scale 10 (M = 1024 workers, one
-    challenge, random evals and β), once refused past 512 keys: C = Σ C_i,
+    challenge, evals 0, 1, r − 1 and random, β random, one key at
+    infinity), once refused past 512 keys: C = Σ C_i,
     W = Σ W_i, the value y(β) (the oracle's inverse NTT of the evals, then
     Horner at β), C_y = Σ y_i·V_i and W_y = Σ q_i·V_i with q_i = (y_i −
     y(β))/(ω^i − β), against the oracle. The keys are 16 points of known
     dlog, each 64 times (a key's table rows depend on that key alone, so
-    the table of the 16, repeated, is the table of the 1024). The JAX
-    package's ``aggregate_core`` is not run here: at M = 1024 it runs 1024
-    ladders eagerly on the CPU."""
+    the table of the 16, repeated, is the table of the 1024); the MSMs'
+    terms cross all four launches of ``msm_fixed``'s tree (65,536 → 2,048
+    → 64 → 2 → 1). The JAX package's ``aggregate_core`` is not run here:
+    at M = 1024 it runs 1024 ladders eagerly on the CPU."""
     rng = np.random.default_rng(11)
     m, reps = 1024, 64
     g = o.G1.from_affine(o.G1_GEN)
     vs = [int(v) for v in rng.integers(1, 1 << 62, m // reps)]
     keys = tcv.g1_encode([o.G1.mul(g, v) for v in vs])
+    vs[5] = 0                              # key 5 (and 21, 37, …) infinity
+    keys[5] = tcv.g1_infinity(())
     table = tmsm.fixed_table(keys).repeat(reps, 1, 1, 1, 1)
     cs = [int(v) for v in rng.integers(1, 1 << 62, 2 * m // reps)]
     coms, prfs = (tcv.g1_encode([o.G1.mul(g, c) for c in half]).repeat(
         reps, 1, 1)[None] for half in (cs[:m // reps], cs[m // reps:]))
-    ys = [int.from_bytes(rng.bytes(40), "little") % o.R for _ in range(m)]
+    ys = [0, 1, o.R - 1] + [int.from_bytes(rng.bytes(40), "little") % o.R
+                            for _ in range(m - 3)]
     beta = int.from_bytes(rng.bytes(40), "little") % o.R
     dom, m_inv = pn.aggregation_constants(m)
     C, W, C_y, W_y, value = (x[0] for x in pn.aggregate_core(

@@ -505,8 +505,9 @@ def test_g1_msm_fixed_kernel_matches_plain(dev, m):
     in one call) limb for limb against their plain versions on the card,
     and against the oracle and msm_naive: a base at infinity (from 4
     keys), Z ≠ 1, scalars 0, 1, r − 1, r − 2 and random; M = 1 and 3 (a
-    lone short block in the last launch), 17 (a short block, then a launch
-    of two), 16, 256 and 1024 (machines_scale 10: once refused past 512);
+    lone short block in the last launch, of 2 and of 6 padded with
+    infinity to 8), 17 (a short block, then a launch of two), 16, 256 and
+    1024 (machines_scale 10: once refused past 512);
     one call of each wrapper (the MSM's tree of launches counted as one
     call)."""
     pts, dlogs, ks = _instance(m, 31)

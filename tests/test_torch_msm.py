@@ -494,47 +494,34 @@ def test_msm_fixed_plain_matches_naive_and_oracle(fixed_16, m):
     assert torch.equal(tmsm.msm_fixed(table[:m], sc), got)
 
 
-@pytest.mark.parametrize("m, fan_in, passes", [
-    (1, 64, [64, 1]),                 # one block, one launch
-    (1, 32, [64, 2, 1]),              # two blocks, then one of two
-    (3, 8, [192, 24, 3, 1]),          # a ragged last launch (3 of 8)
-    (2, 16, [128, 8, 1]),             # a ragged block of the second launch
-    (5, 4, [320, 80, 20, 5, 2, 1])])  # ragged blocks at two launches
-def test_msm_fixed_plain_crosses_every_block_boundary(fixed_16, m, fan_in,
-                                                      passes):
-    """The tree of launches at toy fan-ins: one block, two blocks, ragged
-    last blocks (padded with infinity) at every launch, against the oracle;
-    the kernel's own fan-in is 32, and ``kernels.fixed_passes`` counts its
-    launches' inputs the same way."""
+@pytest.mark.parametrize("m, passes", [
+    (1, [64, 2, 1]),            # two blocks, then one block of two
+    (2, [128, 4, 1]),           # a block of four
+    (16, [1024, 32, 1]),        # full blocks at both launches
+    (17, [1088, 34, 2, 1]),     # a ragged block of two at launch 2
+    (33, [2112, 66, 3, 1])])    # ragged: 2 at launch 2, then 3 padded to 4
+def test_msm_fixed_plain_crosses_every_block_boundary(fixed_16, m, passes):
+    """The tree of launches at the kernel's fan-in of 32: one block, two
+    blocks, ragged last blocks (padded with infinity to their power of
+    two) at one and two launches, against the oracle. The table of the 16
+    keys, repeated, is the table of more (an entry depends on its key
+    alone)."""
     _, dlogs, table = fixed_16
     rng = np.random.default_rng(43 + m)
     ks = [[o.R - 1] + _ints(m - 1, rng), _ints(m, rng)]
     sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in ks])
-    n, seen = tmsm.FIXED_WINDOWS * m, []
-    while n > 1:
-        seen.append(n)
-        n = -(-n // fan_in)
-    assert seen + [1] == passes
-    got = tmsm.msm_fixed_plain(table[:m], sc, fan_in)
+    assert tmsm.kernels.fixed_passes(m) == passes
+    reps = -(-m // 16)
+    got = tmsm.msm_fixed_plain(table.repeat(reps, 1, 1, 1, 1)[:m], sc)
     for c in range(2):
-        assert tcv.g1_affine(got[c]) == [_want(dlogs[:m], ks[c])], c
-    assert tmsm.kernels.fixed_passes(1024) == [65536, 2048, 64, 2, 1]
-    assert tmsm.kernels.fixed_passes(16) == [1024, 32, 1]
+        assert tcv.g1_affine(got[c]) == [_want((dlogs * reps)[:m], ks[c])], c
 
 
-def test_msm_fixed_takes_1024_keys(fixed_16):
-    """The aggregation at machines_scale 10: msm_fixed over M = 1024 keys
-    (once refused past 512) equals the oracle's Σ k_i·P_i, with scalars 0,
-    1, r − 1 and random and a key at infinity. The table of 16 keys, each
-    repeated 64 times, is the table of the 1024 keys (an entry depends on
-    its key alone); the terms cross the kernel's four launches (65,536 →
-    2,048 → 64 → 2 → 1)."""
-    _, dlogs, table = fixed_16
-    m = 1024
-    big = table.repeat(m // 16, 1, 1, 1, 1)
-    rng = np.random.default_rng(47)
-    ks = [0, 1, o.R - 1] + _ints(m - 3, rng)
-    sc = tcv.fr_to_scalar_limbs(ks)[None]
-    got = tmsm.msm_fixed(big, sc)
-    assert dlogs[5] == 0                   # key 5 (and 21, 37, …) infinity
-    assert tcv.g1_affine(got[0]) == [_want(dlogs * (m // 16), ks)]
+@pytest.mark.parametrize("m, passes", [
+    (1, [64, 2, 1]), (16, [1024, 32, 1]), (256, [16384, 512, 16, 1]),
+    (1024, [65536, 2048, 64, 2, 1]), (4096, [262144, 8192, 256, 8, 1])])
+def test_fixed_passes_count_each_launchs_inputs(m, passes):
+    """``kernels.fixed_passes``: the inputs of each launch of the kernel's
+    tree (the 64·m terms, then ceil(n / 32) block sums a launch), whose
+    second and third entries size the wrapper's scratch."""
+    assert tmsm.kernels.fixed_passes(m) == passes

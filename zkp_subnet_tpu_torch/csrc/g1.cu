@@ -60,13 +60,14 @@
 //      (negated for a negative digit, infinity for 0): no doubles. The sum
 //      is a tree of launches. A block of FIXED_GROUPS groups of FIXED_LANES
 //      lanes sums FIXED_FAN_IN = 32 consecutive inputs by a halving tree
-//      (at s = 16, 8, ..., 1 group g < s adds entry g + s to its own where
-//      there is one, the points in shared memory); the first launch's
-//      inputs are the terms (its lanes find their terms' signed digits in
-//      the scalars), each later launch's the block sums of the one before,
-//      until one is left: log2(64·M) dependent adds (14 at M = 256, 16 at
-//      1024) in ceil(log32(64·M)) launches, no block of any launch holding
-//      more than 32 inputs, so no limit on M.
+//      (at s = 16, 8, ..., 1 group g < s adds entry g + s to its own, the
+//      points in shared memory, a short last block padded with infinity to
+//      its power of two); the first launch's inputs are the terms (its
+//      lanes find their terms' signed digits in the scalars), each later
+//      launch's the block sums of the one before, until one is left: about
+//      log2(64·M) dependent adds (14 at M = 256, 16 at 1024) in
+//      ceil(log32(64·M)) launches, no block of any launch holding more than
+//      32 inputs, so no limit on M.
 // Measured against other forms of the same trees (each step as
 // msm_combine's table of rounds over Fq values in shared memory; the points
 // in every lane's registers; 16 or 64 inputs a block): each slower at 16,
@@ -410,27 +411,31 @@ __device__ __forceinline__ int fixed_count(long long n) {
 
 // The block's halving tree over its `count` inputs (FIXED_FAN_IN but in a
 // launch's last block), the points in shared memory: group g holds inputs
-// g and g + FIXED_GROUPS. At s = FIXED_GROUPS, 8, ..., 1, while more than
-// s entries are left, group g < count − s adds entry g + s to its own and
-// s entries are left; a level with nothing to add is skipped. A warp with
-// a group that adds takes the steps whole; its other groups keep their
-// sums. Group 0 stores the block's sum to out.
+// g and g + FIXED_GROUPS. A short block is padded with infinity up to its
+// power of two p; then at s = p/2, ..., 1 group g < s adds entry g + s to
+// its own (ops/curve.py:tree_sum's tree). A warp with a group that adds
+// takes the steps whole; its other groups keep their sums. Group 0 stores
+// the block's sum to out.
 __device__ __forceinline__ void fixed_block_sum(uint32_t* pts, int count,
                                                 uint32_t* __restrict__ out) {
   __shared__ __align__(16) uint32_t xs[FIXED_GROUPS * 12 * fq::L];
   const int g = threadIdx.x / FIXED_LANES, l = threadIdx.x % FIXED_LANES;
   const int first = threadIdx.x / 32 * (32 / FIXED_LANES);
   uint32_t* x = xs + g * 12 * fq::L;
+  int p = 1;
+  while (p < count) p *= 2;
+  for (int q = count * G1_WORDS + threadIdx.x; q < p * G1_WORDS;
+       q += FIXED_THREADS) {
+    const int word = q % G1_WORDS - fq::L;
+    pts[q] = word >= 0 && word < fq::L ? fq::ONE[word] : 0u;
+  }
   __syncthreads();
 #pragma unroll 1
-  for (int s = FIXED_GROUPS; s >= 1; s /= 2) {
-    if (count <= s) continue;
-    const int adds = count - s;
-    if (first < adds)
+  for (int s = p / 2; s >= 1; s /= 2) {
+    if (first < s)
       group_add_sh(pts + G1_WORDS * g, pts + G1_WORDS * (g + s), x, l,
-                   g >= adds);
+                   g >= s);
     __syncthreads();
-    count = s;
   }
   if (g == 0)
     for (int q = l; q < G1_WORDS; q += FIXED_LANES) out[q] = pts[q];
@@ -454,8 +459,8 @@ g1_msm_fixed_kernel(const uint32_t* __restrict__ table,
                                         blockIdx.x));
 }
 
-// Every later launch: input j < n of MSM blockIdx.y is src[blockIdx.y][j]
-// (infinity past the end); dst[blockIdx.y][blockIdx.x] = the block's sum.
+// Every later launch: input j < n of MSM blockIdx.y is src[blockIdx.y][j];
+// dst[blockIdx.y][blockIdx.x] = the block's sum.
 __global__ void __launch_bounds__(FIXED_THREADS)
 g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ src,
                         uint32_t* __restrict__ dst, long long n) {
@@ -464,8 +469,7 @@ g1_msm_fixed_sum_kernel(const uint32_t* __restrict__ src,
   const uint32_t* row = src + G1_WORDS * ((long long)blockIdx.y * n + base);
   const long long words = G1_WORDS * (n - base < FIXED_FAN_IN
                                           ? n - base : FIXED_FAN_IN);
-  for (int q = threadIdx.x; q < FIXED_FAN_IN * G1_WORDS; q += FIXED_THREADS)
-    pts[q] = q < words ? row[q] : 0u;
+  for (int q = threadIdx.x; q < words; q += FIXED_THREADS) pts[q] = row[q];
   fixed_block_sum(pts, fixed_count(n),
                   dst + G1_WORDS * ((long long)blockIdx.y * gridDim.x +
                                     blockIdx.x));

@@ -62,7 +62,7 @@ import torch
 
 from . import kernels
 from .curve import (g1_add, g1_add_plain, g1_double_plain, g1_infinity,
-                    g1_scalar_mul, g1_sum, scalar_digits)
+                    g1_scalar_mul, g1_sum, scalar_digits, tree_sum)
 from .field import FQ
 
 WINDOW_BITS = 8
@@ -447,42 +447,25 @@ def fixed_terms_plain(table: torch.Tensor, scalars: torch.Tensor
     return ent.reshape(k, m * FIXED_WINDOWS, 3, FQ.L)
 
 
-def fixed_sum_plain(inputs: torch.Tensor, fan_in: int = FIXED_FAN_IN
-                    ) -> torch.Tensor:
+def fixed_sum_plain(inputs: torch.Tensor) -> torch.Tensor:
     """The tree of launches of ``g1_msm_fixed`` over (K, n, 3, 12) inputs →
-    (K, 3, 12): each launch cuts every row into blocks of ``fan_in``
+    (K, 3, 12): each launch cuts every row into blocks of FIXED_FAN_IN
     consecutive inputs, the last block maybe short, and sums each by
-    ``_block_tree``, until one sum is left (``fan_in`` 32 as the kernel;
-    the CPU tests also take toy fan-ins, so that small rows cross several
-    launches and ragged blocks)."""
+    ``tree_sum`` (a short block padded with infinity to its power of two,
+    as the kernel pads it), until one sum is left."""
     k, t = inputs.shape[0], inputs
-    while True:
-        n = t.shape[1]
-        full, rest = divmod(n, fan_in)
+    inf = g1_infinity((), inputs.device)
+    while t.shape[1] > 1:
+        full, rest = divmod(t.shape[1], FIXED_FAN_IN)
         sums = []
         if full:
-            sums.append(_block_tree(t[:, :full * fan_in].reshape(
-                k * full, fan_in, 3, FQ.L), fan_in).view(k, full, 3, FQ.L))
+            sums.append(tree_sum(t[:, :full * FIXED_FAN_IN].reshape(
+                k * full, FIXED_FAN_IN, 3, FQ.L), _add_rows, inf).view(
+                    k, full, 3, FQ.L))
         if rest:
-            sums.append(_block_tree(t[:, full * fan_in:], fan_in)[:, None])
+            sums.append(tree_sum(t[:, full * FIXED_FAN_IN:], _add_rows,
+                                 inf)[:, None])
         t = torch.cat(sums, 1)
-        if t.shape[1] == 1:
-            return t[:, 0]
-
-
-def _block_tree(t: torch.Tensor, fan_in: int) -> torch.Tensor:
-    """One block's halving tree over (B, c, 3, 12), c ≤ fan_in inputs →
-    (B, 3, 12): at s = fan_in/2 … 1, while more than s entries are left,
-    entry j < c − s adds entry j + s (as group j of the block's lanes does)
-    and s are left; a level with nothing to add is skipped. At c = fan_in
-    this is ``tree_sum``'s tree."""
-    c, s = t.shape[1], fan_in // 2
-    while s >= 1:
-        if c > s:
-            t = torch.cat([_add_rows(t[:, :c - s], t[:, s:c]),
-                           t[:, c - s:s]], 1)
-            c = s
-        s //= 2
     return t[:, 0]
 
 
@@ -496,13 +479,13 @@ def _add_rows(a: torch.Tensor, b: torch.Tensor,
                       for j in range(0, a.shape[0], step)])
 
 
-def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor,
-                    fan_in: int = FIXED_FAN_IN) -> torch.Tensor:
+def msm_fixed_plain(table: torch.Tensor, scalars: torch.Tensor
+                    ) -> torch.Tensor:
     """Plain version of K1 ``g1_msm_fixed``: (M, 64, 8, 3, 12) table, (K, M,
     8) canonical scalars → (K, 3, 12), any M ≥ 1, by the kernel's adds in
     the kernel's order: the terms (``fixed_terms_plain``) summed by its
     tree of launches (``fixed_sum_plain``)."""
-    return fixed_sum_plain(fixed_terms_plain(table, scalars), fan_in)
+    return fixed_sum_plain(fixed_terms_plain(table, scalars))
 
 
 def msm_fixed(table: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
