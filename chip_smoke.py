@@ -24,8 +24,12 @@ Phases (each prints a line; any failure exits non-zero):
    length that is no multiple of the tile and of one whose powers take
    three levels of the tables, and the whole opening of one row and of
    four with the host forbidden to wait for the card; the K1 ladder
-   ``g1_scalar_mul`` with scalars 0, 1, r − 1 and the point at infinity, at
-   16 and 2^16 points, also against the loop of K1 launches it replaces;
+   ``g1_scalar_mul`` in both of its forms with scalars 0, 1, r − 1, r − 2,
+   every 4-bit window 8, a carry through every window and out of the top,
+   2^256 − 1 and the point at infinity at 16 points, at a default
+   request's 2 x 1024 and at 2^16 points against the plain version limb
+   for limb, at 2 x 2048 and 2^19 one form against the other, and as
+   points against the loop of K1 launches it replaces;
    the aggregation's fixed-base MSM ``g1_msm_fixed`` and its table
    ``g1_fixed_table`` at 16, 256 and 1024 bases (one at infinity), scalars
    0, 1, r − 1 and random, three MSMs a call, also against the oracle;
@@ -36,7 +40,10 @@ Phases (each prints a line; any failure exits non-zero):
    then each kernel's time beside its plain version's, both on the card, at
    the shapes the paths below give it (CUDA events around a loop of
    launches: for a short kernel that is the host's cost a launch) and the
-   least time the card could take for the same work (``bound_ms``); for
+   least time the card could take for the same work (``bound_ms``); the
+   ladder also at 16 points, 2 x 1024, 2 x 2048 and 2^19, each form at 2 x
+   1024, beside K2's ``msm_many`` and the naive MSM (one ladder, one tree)
+   of two MSMs at 1024 and 2048 points; for
    K2, the depth of the dependency chain and ms ÷ depth, and
    ``msm_buckets`` on scalars that are all 1 beside uniform ones; the
    aggregation's two MSMs at 16, 256 and 1024 bases by ``g1_msm_fixed``
@@ -96,7 +103,21 @@ Phases (each prints a line; any failure exits non-zero):
    ``serve`` processes. The commands run through the CLI's ``main`` in
    this process, so their launches are counted, but ``localnet``. The SRS
    files of both shapes stay for [mesh] (the flipped byte set back);
-8. ``[mesh]``, the multi-device path (``zkp_subnet_tpu_torch.parallel``) as
+8. ``[default]``, the configuration a user gets with no flags (scale 18,
+   machines_scale 8: 256 workers x 1024 coefficients, the defaults of
+   ``runtime/config.py``, the CLI and ``parallel.launch``), no cut:
+   ``setup`` and ``check`` with the CLI's defaults (./setup.npz and
+   ./precompute.npz in a directory of their own, every line PASS), a
+   ``Worker`` over one of the slices serving six commit+open requests and
+   a commit-only one (the trapdoor self-check and the pairing verify; one
+   ladder launch of the group form, one tree of at most 10 ``g1_add`` and
+   no K2 kernel a request; the warm median and the host split), then
+   ``parallel.launch.main`` with the launcher's defaults over those files
+   as one NCCL rank, two rounds (the split, rows/s, peak memory; a prove's
+   local commit+open one ladder over 2^19 products and at most 10
+   ``g1_add``; the aggregated proof verifies, a tampered copy not; eight
+   sampled workers as in [mesh]);
+9. ``[mesh]``, the multi-device path (``zkp_subnet_tpu_torch.parallel``) as
    one NCCL rank (the machine has one card): ``parallel.launch.main`` at
    the mainnet deployment over the 24/8 files [cli] wrote, two rounds, each
    split into the draws, the X inverse NTT of 256 x 2^16, the local
@@ -113,14 +134,15 @@ Phases (each prints a line; any failure exits non-zero):
    ``MeshTransport`` for two rounds (every reward > 0, one
    ``process_time`` a round) and a round with one corrupt uid (exactly one
    0); then ``dryrun_multichip(1)``;
-9. ``[device]``: each kernel's device time with no host work between
+10. ``[device]``: each kernel's device time with no host work between
    launches (``device_ms``: CUDA events around the replay of a CUDA graph of
    many launches) and torch.profiler's figure beside it; last, because
    graph captures and a profiler run slow every later launch on the
    host.
 
-The launch counts are set to 0 just before each of the four paths
-(``[main]``, ``[round]``, ``[cli]``, ``[mesh]``) and read just after it.
+The launch counts are set to 0 just before each of the five paths
+(``[main]``, ``[round]``, ``[cli]``, ``[default]``, ``[mesh]``) and read
+just after it.
 The last lines are the kernel table as JSON, the nvidia-smi line and ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the repository beside
 it, the script exits non-zero before printing a result.
@@ -155,7 +177,7 @@ from zkp_subnet_tpu_torch import runtime as trt
 from zkp_subnet_tpu_torch.api import SubnetClient
 from zkp_subnet_tpu_torch.models import pianist
 from zkp_subnet_tpu_torch.models.srs import (Srs, _lagrange_coeffs_at,
-                                             _trapdoor)
+                                             _trapdoor, default_paths)
 from zkp_subnet_tpu_torch.ops import curve as cv
 from zkp_subnet_tpu_torch.ops import kernels
 from zkp_subnet_tpu_torch.ops import msm as tmsm
@@ -211,8 +233,14 @@ CLI_FULL_TIMEOUT = 600.0
 CLI_DISK_SLACK = 1 << 30
 # kernels the [cli] and [mesh] paths need not run: the double runs inside
 # the ladder, K4 only in this script's on-curve check, and the ladder only
-# in naive MSMs of toy rows (the aggregation's MSMs are g1_msm_fixed's)
+# in naive MSMs, rows of at most 2048 ([default]'s; theirs are 2^12 and
+# more, and the aggregation's MSMs are g1_msm_fixed's)
 CLI_IDLE = ("g1_double", "fq_mul", "fq_add", "fq_sub", "g1_scalar_mul")
+# [default]: the runtime's default configuration (runtime/config.py, the
+# CLI's setup and parallel.launch: scale 18, machines_scale 8 -> 256
+# workers x 1024 coefficients), no cut; the worker slice its requests go to
+DEFAULT_SHAPE = (18, 8)
+DEFAULT_WORKER = 7
 # [mesh]: rounds of parallel.launch at the mainnet deployment, and the
 # workers of the last one held to the pairing, the trapdoor and the
 # single-worker path
@@ -258,6 +286,14 @@ BATCH_SAMPLED = (0, 1, 128, 255)
 # a row length whose powers take three levels of the tables (> 2^16)
 THREE_LEVELS = 70000
 LADDER_BITS = 256
+# the ladder's scalars beside 0, 1, r − 1 and random ones: r − 2, every
+# 4-bit window 8, a carry through every window and out of the top
+# (0x88…89), 2^256 − 1
+LADDER_EDGES = (o.R - 2, int("8" * 64, 16), int("8" * 64, 16) + 1,
+                (1 << 256) - 1)
+# the group form's chain a point: the table's 7 operations, 63 windows of
+# 4 doubles, an add a window
+LADDER_DEPTH = 7 + 4 * 63 + 64
 # the kernels that time far above the rest at the path's shape: the plain
 # version runs once (no warm-up call) and the kernel a few times
 SLOW_PLAIN = ("g1_scalar_mul", "g1_fixed_table")
@@ -564,6 +600,10 @@ def path_inputs(rng, dev):
     lp[3] = cv.g1_infinity((), dev)
     ls = FR.from_limbs16(random_scalar_limbs(rng, n), dev)
     ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1], dev)
+    # the ladder at a default request (two MSMs over one row of 1024
+    # bases, which msm_auto_many repeats), at the most a naive MSM takes
+    # (2 x 2048) and at a default one-rank prove (2^19 products)
+    lsp = FR.from_limbs16(random_scalar_limbs(rng, 1 << 19), dev)
     # the aggregation's Lagrange-Y MSMs (C_y and W_y) at the mainnet shape
     # of [cli] and [mesh], 256 keys (Z != 1, one at infinity), at [round]'s
     # 16 and at machines_scale 10's 1024: the keys' window table (a key's
@@ -589,8 +629,11 @@ def path_inputs(rng, dev):
                                  ls=ls,
                                  lp16=lp[:16].contiguous(),
                                  ls16=ls[:16].contiguous(),
-                                 lp256=lp[:256].contiguous(),
-                                 ls256=ls[:256].contiguous(),
+                                 lp2k=lp[:1024].repeat(2, 1, 1),
+                                 ls2k=lsp[:2048].contiguous(),
+                                 lp4k=lp[:2048].repeat(2, 1, 1),
+                                 ls4k=lsp[:4096].contiguous(),
+                                 lp512k=lp.repeat(8, 1, 1), ls512k=lsp,
                                  diffs=FR.sub(x1, aggregation_dom(m, dev)),
                                  lag=lag, tab=tab, fsc=fsc, lag1k=lag1k,
                                  tab1k=tab1k, fsc1k=fsc1k,
@@ -908,20 +951,29 @@ def phase_kernels(rng, dev, int_ops_per_s):
     phase_opening_kernels(rng, dev, record)
     phase_eval_rows_kernel(rng, dev, record)
 
-    # the K1 ladder at the aggregation's 16 points: scalars 0, 1, r − 1,
-    # the point at infinity, random; against the plain version and the loop
-    # of K1 launches it replaces (2^16 points: at the path's shape below)
+    # the K1 ladder at 16 points: scalars 0, 1, r − 1, r − 2, every 4-bit
+    # window 8, a carry through every window and out of the top, 2^256 − 1,
+    # the point at infinity, random; in both of its forms against the plain
+    # version, limb for limb, and as points against the loop of K1 launches
+    # it replaces (the other shapes: at the paths' below)
     lp = cv.g1_double_plain(random_points(rng, 16, "cpu")[0])    # Z ≠ 1
     lp[3] = cv.g1_infinity(())
     ls = FR.from_limbs16(random_scalar_limbs(rng, 16))
     ls[:3] = cv.fr_to_scalar_limbs([0, 1, o.R - 1])
-    got = kernels.g1_scalar_mul(lp.to(dev), ls.to(dev))
-    record("g1_scalar_mul", same_limbs(got, cv.g1_scalar_mul_plain(lp, ls)))
-    record("g1_scalar_mul", same_limbs(got, ladder_by_launches(
-        lp.to(dev), ls.to(dev))))
-    say("[kernels] K1 g1_scalar_mul: 16 points, scalars 0, 1, r-1 and "
-        "random, the point at infinity: equal limb for limb to plain and to "
-        "the K1 launch loop")
+    ls[4:8] = torch.from_numpy(np.frombuffer(b"".join(
+        k.to_bytes(32, "little") for k in LADDER_EDGES), "<i4").reshape(
+            4, 8).copy())
+    want = cv.g1_scalar_mul_plain(lp, ls)
+    lp, ls = lp.to(dev), ls.to(dev)
+    for grouped in (True, False):
+        record("g1_scalar_mul", same_limbs(kernels._ladder(lp, ls, grouped),
+                                           want))
+    record("g1_scalar_mul", same_points(kernels.g1_scalar_mul(lp, ls),
+                                        ladder_by_launches(lp, ls)))
+    say("[kernels] K1 g1_scalar_mul: 16 points, scalars 0, 1, r-1, r-2, "
+        "every window 8, a carry through every window, 2^256-1 and random, "
+        "the point at infinity: both forms equal limb for limb to plain, "
+        "and as points to the K1 launch loop")
     phase_fixed_msm_kernels(rng, dev, record)
 
     # K4: the same cases over Fq (0, 1, q−1, q−2, equal, broadcast)
@@ -1068,10 +1120,10 @@ def phase_kernels(rng, dev, int_ops_per_s):
             say(f"[kernels] {name}: longest chain {steps} dependent {unit}, "
                 f"{r['ms'] / steps * 1e3:.3f} us each")
     # the ladder against the loop of K1 launches it replaces, at 2^16 points
-    record("g1_scalar_mul", same_limbs(kernels.g1_scalar_mul(x.lp, x.ls),
-                                       ladder_by_launches(x.lp, x.ls)))
+    record("g1_scalar_mul", same_points(kernels.g1_scalar_mul(x.lp, x.ls),
+                                        ladder_by_launches(x.lp, x.ls)))
     say(f"[kernels] g1_scalar_mul at 2^{LOG_N} points (scalars 0, 1, r-1, "
-        "the point at infinity, random): equal limb for limb to the loop of "
+        "the point at infinity, random): equal as points to the loop of "
         f"{2 * LADDER_BITS} K1 launches it replaces")
     # the same kernels at one MSM (the shapes a lone commit gives them)
     p, runs1, bk, wins = x.p, x.runs1, x.bk, x.wins
@@ -1092,14 +1144,42 @@ def phase_kernels(rng, dev, int_ops_per_s):
               ("msm_combine", "one MSM", limbs,
                lambda: kernels.msm_combine(wins[0], 8),
                lambda: tmsm.msm_combine_plain(wins[0])),
-              # the aggregation's shapes: 16 ladders ([round]), 256 ladders
-              # (the mainnet shape of [cli] and [mesh]), 16 inverses
+              # the ladder at 16 points, a default request's 2 x 1024 (the
+              # plain version beside both), 2 x 2048 and a default prove's
+              # 2^19 (each form beside the other: the wrapper's pick, then
+              # the other form); K2 and the naive MSM at 2 x 1024 and
+              # 2 x 2048 (msm_auto_many: the ladder and one tree), as the
+              # yardstick; the aggregation's 16 inverses
               ("g1_scalar_mul", "16 points", limbs,
                lambda: kernels.g1_scalar_mul(x.lp16, x.ls16),
                lambda: cv.g1_scalar_mul_plain(x.lp16, x.ls16)),
-              ("g1_scalar_mul", "256 points", limbs,
-               lambda: kernels.g1_scalar_mul(x.lp256, x.ls256),
-               lambda: cv.g1_scalar_mul_plain(x.lp256, x.ls256)),
+              ("g1_scalar_mul", "2 x 1024", limbs,
+               lambda: kernels.g1_scalar_mul(x.lp2k, x.ls2k),
+               lambda: cv.g1_scalar_mul_plain(x.lp2k, x.ls2k)),
+              ("g1_scalar_mul", "2 x 1024, the other form", limbs,
+               lambda: kernels._ladder(x.lp2k, x.ls2k, not kernels.
+                                       ladder_grouped(2048)),
+               lambda: kernels.g1_scalar_mul(x.lp2k, x.ls2k)),
+              ("g1_scalar_mul", "2 x 2048", limbs,
+               lambda: kernels.g1_scalar_mul(x.lp4k, x.ls4k),
+               lambda: kernels._ladder(x.lp4k, x.ls4k, not kernels.
+                                       ladder_grouped(4096))),
+              ("g1_scalar_mul", "2^19 points", limbs,
+               lambda: kernels.g1_scalar_mul(x.lp512k, x.ls512k),
+               lambda: kernels._ladder(x.lp512k, x.ls512k, not kernels.
+                                       ladder_grouped(1 << 19))),
+              ("g1_scalar_mul", "msm_auto_many, 2 x 1024", same_points,
+               lambda: tmsm.msm_auto_many(x.lp[:1024], x.ls2k.view(2, -1, 8)),
+               lambda: tmsm.msm_many(x.lp[:1024], x.ls2k.view(2, -1, 8))),
+              ("g1_scalar_mul", "K2 msm_many, 2 x 1024", same_points,
+               lambda: tmsm.msm_many(x.lp[:1024], x.ls2k.view(2, -1, 8)),
+               lambda: tmsm.msm_auto_many(x.lp[:1024], x.ls2k.view(2, -1, 8))),
+              ("g1_scalar_mul", "msm_auto_many, 2 x 2048", same_points,
+               lambda: tmsm.msm_auto_many(x.lp[:2048], x.ls4k.view(2, -1, 8)),
+               lambda: tmsm.msm_many(x.lp[:2048], x.ls4k.view(2, -1, 8))),
+              ("g1_scalar_mul", "K2 msm_many, 2 x 2048", same_points,
+               lambda: tmsm.msm_many(x.lp[:2048], x.ls4k.view(2, -1, 8)),
+               lambda: tmsm.msm_auto_many(x.lp[:2048], x.ls4k.view(2, -1, 8))),
               ("fr_inv", "16 elements", same_fr,
                lambda: kernels.fr_inv(x.diffs),
                lambda: fr_inv_plain(x.diffs)),
@@ -1157,18 +1237,27 @@ def phase_kernels(rng, dev, int_ops_per_s):
         res[name].setdefault("other_ms", {})[label] = ms
     ladder = res["g1_scalar_mul"]
     ladder["other_bound_ms"] = {}
-    for n_pts, pts, sc in ((16, x.lp16, x.ls16), (256, x.lp256, x.ls256)):
-        label = f"{n_pts} points"
-        step_ms = ladder["other_ms"][label] / LADDER_BITS
+    for label, pts, sc in (("16 points", x.lp16, x.ls16),
+                           ("2 x 1024", x.lp2k, x.ls2k),
+                           ("2 x 2048", x.lp4k, x.ls4k),
+                           ("2^19 points", x.lp512k, x.ls512k)):
+        n_pts = pts.shape[0]
+        ms = ladder["other_ms"][label]
         b_ms, b_by = bound(2 * G1_BYTES * n_pts + FR_BYTES * n_pts,
                            scalar_mul_ops(sc), int_ops_per_s)
         ladder["other_bound_ms"][label] = b_ms
-        say(f"[kernels] g1_scalar_mul at {label}: {LADDER_BITS} dependent "
-            f"double-and-add steps, {step_ms * 1e3:.2f} us each "
-            "(msm_combine's point operation, by a warp: PERF.md); bound "
-            f"{b_ms:.6f} ms ({b_by}), "
-            f"{ladder['other_ms'][label] / b_ms:.0f} x it: latency, one "
-            "thread's chain of steps a point")
+        form = "group" if kernels.ladder_grouped(n_pts) else "thread"
+        say(f"[kernels] g1_scalar_mul at {label} ({form} form): {ms:.4f} ms,"
+            f" {LADDER_DEPTH} dependent point operations a point, "
+            f"{ms / LADDER_DEPTH * 1e3:.2f} us each; bound {b_ms:.6f} ms "
+            f"({b_by}), {ms / b_ms:.1f} x it")
+    for n in (1024, 2048):
+        say(f"[kernels] two MSMs of {n} points: the naive path "
+            "(msm_auto_many: one ladder, one tree of "
+            f"{n.bit_length() - 1} g1_add) "
+            f"{ladder['other_ms'][f'msm_auto_many, 2 x {n}']:.4f} ms, K2 "
+            f"msm_many {ladder['other_ms'][f'K2 msm_many, 2 x {n}']:.4f} ms "
+            "(host loop)")
     # the aggregation's 16 inverses: each element's steps on this input and
     # its two closing products, as the one-element row counts them
     res["fr_inv"]["other_bound_ms"] = {"16 elements": bound(
@@ -1178,9 +1267,10 @@ def phase_kernels(rng, dev, int_ops_per_s):
         f"bound {res['fr_inv']['other_bound_ms']['16 elements']:.7f} ms "
         "(operations)")
     ladder["other_plain_ms"] = {
-        "256 points": compare_ms["g1_scalar_mul", "256 points"]}
-    say("[kernels] g1_scalar_mul at 256 points: plain "
-        f"{ladder['other_plain_ms']['256 points']:.2f} ms")
+        label: compare_ms["g1_scalar_mul", label]
+        for label in ("16 points", "2 x 1024")}
+    say("[kernels] g1_scalar_mul plain: " + ", ".join(
+        f"{v:.2f} ms at {k}" for k, v in ladder["other_plain_ms"].items()))
     fixed = res["g1_msm_fixed"]
     fixed["other_plain_ms"] = {
         label: compare_ms["g1_msm_fixed", label]
@@ -1565,8 +1655,28 @@ def phase_device_times(res, dev):
     # the shapes of the aggregation and of one launch of the old inverse
     others = {("g1_scalar_mul", "16 points, device"): (
                   lambda: kernels.g1_scalar_mul(x.lp16, x.ls16), 5),
-              ("g1_scalar_mul", "256 points, device"): (
-                  lambda: kernels.g1_scalar_mul(x.lp256, x.ls256), 5),
+              ("g1_scalar_mul", "2 x 1024, device"): (
+                  lambda: kernels.g1_scalar_mul(x.lp2k, x.ls2k), 5),
+              ("g1_scalar_mul", "2 x 2048, device"): (
+                  lambda: kernels.g1_scalar_mul(x.lp4k, x.ls4k), 5),
+              ("g1_scalar_mul", "2^19 points, device"): (
+                  lambda: kernels.g1_scalar_mul(x.lp512k, x.ls512k), 2),
+              ("g1_scalar_mul", "2 x 1024, the other form, device"): (
+                  lambda: kernels._ladder(x.lp2k, x.ls2k, False), 5),
+              ("g1_scalar_mul", "2^16 points, the other form, device"): (
+                  lambda: kernels._ladder(x.lp, x.ls, True), 2),
+              ("g1_scalar_mul", "msm_auto_many, 2 x 1024, device"): (
+                  lambda: tmsm.msm_auto_many(x.lp[:1024],
+                                             x.ls2k.view(2, -1, 8)), 5),
+              ("g1_scalar_mul", "K2 msm_many, 2 x 1024, device"): (
+                  lambda: tmsm.msm_many(x.lp[:1024], x.ls2k.view(2, -1, 8)),
+                  5),
+              ("g1_scalar_mul", "msm_auto_many, 2 x 2048, device"): (
+                  lambda: tmsm.msm_auto_many(x.lp[:2048],
+                                             x.ls4k.view(2, -1, 8)), 5),
+              ("g1_scalar_mul", "K2 msm_many, 2 x 2048, device"): (
+                  lambda: tmsm.msm_many(x.lp[:2048], x.ls4k.view(2, -1, 8)),
+                  5),
               ("fr_inv", "16 elements, device"): (
                   lambda: kernels.fr_inv(x.diffs), 20),
               ("fr_mul", "one element, device"): (
@@ -1762,24 +1872,28 @@ def phase_main_path(rng, dev):
     return launches, setup, per_request
 
 
-def host_split(worker, rng):
+def host_split(worker, rng, label="[main]", index=0):
     """Where one warm request's time goes: ``Worker.forward``'s steps run
     one by one with ``torch.cuda.synchronize()`` between them, median of
     ``WARM_REQUESTS`` requests, beside ``Worker.forward``'s own total on
     the same requests; the staged outputs must be the forward's wire
-    strings."""
-    n = 1 << LOG_N
-    bases = worker.srs.device_worker_bases(0)
+    strings. A row of at most NAIVE_THRESHOLD coefficients takes the
+    naive MSM (one ladder and one tree) in place of bucket_runs and K2."""
+    n = worker.srs.row_size
+    naive = n <= tmsm.NAIVE_THRESHOLD
+    bases = worker.srs.device_worker_bases(index)
     groups = tmsm._groups(n)
+    msm_stages = (("K1 ladder + one g1_add tree (msm_auto_many)",) if naive
+                  else ("bucket_runs (digits, sort)",
+                        "K2 + K1 (buckets, reduce, folds, combine)"))
     stages = ("b64 -> limbs", "limbs -> card + to_mont", "alpha encode",
-              "opening K3 (+ from_mont_wide)", "bucket_runs (digits, sort)",
-              "K2 + K1 (buckets, reduce, folds, combine)",
+              "opening K3 (+ from_mont_wide)", *msm_stages,
               "g1_decode + g1_to_b64 (and eval b64)")
     split = {k: [] for k in stages}
     totals = []
     for _ in range(WARM_REQUESTS):
         limbs = random_scalar_limbs(rng, n)
-        syn = Prove(index=0, poly=enc.limbs_to_b64(limbs),
+        syn = Prove(index=index, poly=enc.limbs_to_b64(limbs),
                     alpha=enc.fr_to_b64(int.from_bytes(rng.bytes(32),
                                                        "little") % o.R))
         torch.cuda.synchronize()
@@ -1808,26 +1922,31 @@ def host_split(worker, rng):
             return y, torch.stack([tpoly.from_mont_wide(row), quotient])
 
         y, scalars = stage(stages[3], opening)
-        perm, digits = stage(stages[4], lambda: tmsm.bucket_runs(scalars,
-                                                                  groups))
+        if naive:
+            com_prf = stage(stages[4], lambda: tmsm.msm_auto_many(bases,
+                                                                 scalars))
+        else:
+            perm, digits = stage(stages[4], lambda: tmsm.bucket_runs(
+                scalars, groups))
 
-        def k2_k1():
-            sums = tmsm.msm_reduce(tmsm.msm_buckets(bases, perm, digits))
-            g = groups
-            while g > 1:
-                half = sums.shape[0] // 2
-                sums = cv.g1_add(sums[:half], sums[half:])
-                g //= 2
-            return tmsm.msm_combine(sums.view(2, tmsm.NUM_WINDOWS, 3, 12))
+            def k2_k1():
+                sums = tmsm.msm_reduce(tmsm.msm_buckets(bases, perm, digits))
+                g = groups
+                while g > 1:
+                    half = sums.shape[0] // 2
+                    sums = cv.g1_add(sums[:half], sums[half:])
+                    g //= 2
+                return tmsm.msm_combine(sums.view(2, tmsm.NUM_WINDOWS, 3,
+                                                  12))
 
-        com_prf = stage(stages[5], k2_k1)
-        wire = stage(stages[6], lambda: [
+            com_prf = stage(stages[5], k2_k1)
+        wire = stage(stages[-1], lambda: [
             enc.g1_to_b64(cv.g1_decode(p)[0], worker.compressed)
             for p in com_prf] + [enc.fr_to_b64(FR.decode(y)[0])])
         check(wire == [want.commitment, want.proof, want.eval_],
               "host split: the staged request != Worker.forward's")
     med = {k: statistics.median(v) for k, v in split.items()}
-    say(f"[main] host split of a warm 2^{LOG_N} request, median of "
+    say(f"{label} host split of a warm {n}-coefficient request, median of "
         f"{WARM_REQUESTS} (synchronized between stages; the staged outputs "
         "equal Worker.forward's): " + "; ".join(
             f"{k} {v:.2f} ms" for k, v in med.items())
@@ -2585,6 +2704,127 @@ def phase_cli(dev, tmp):
     return launches
 
 
+def check_default_request(used, label, n):
+    """One request at a default row of n coefficients: the opening as
+    [main]'s (five K3 launches, at most seven K3-family launches), its two
+    MSMs as one ladder launch (the group form) and one tree of at most
+    log2(n) g1_add launches for the sums; no K2 kernel, no K1 double."""
+    for k in ("fr_inv",) + OPENING:
+        check(used[k] == 1, f"{label}: {used[k]} {k} launches, not 1")
+    check(used["g1_scalar_mul"] == 1 and kernels.ladder_grouped(2 * n),
+          f"{label}: {used['g1_scalar_mul']} ladder launches, not one of "
+          "the group form")
+    tree = n.bit_length() - 1
+    check(0 < used["g1_add"] <= tree,
+          f"{label}: {used['g1_add']} g1_add launches, not 1..{tree}")
+    for k in ("msm_buckets", "msm_reduce", "msm_combine", "fr_add",
+              "g1_double"):
+        check(used[k] == 0, f"{label}: {used[k]} {k} launches, not 0")
+    k3 = sum(used[k] for k in K3_FAMILY)
+    check(k3 <= 7, f"{label}: {k3} K3-family launches, more than 7")
+
+
+def phase_default(rng, dev, tmp):
+    """[default]: the configuration a user gets with no flags, scale 18 and
+    machines_scale 8 (256 workers x 1024 coefficients), no cut. ``setup``
+    and ``check`` with the CLI's defaults (./setup.npz, ./precompute.npz)
+    in a directory of its own; a ``Worker`` over worker DEFAULT_WORKER's
+    slice serves WARM_REQUESTS + 1 commit+open requests and a commit-only
+    one (the trapdoor self-check, the pairing verify, one ladder launch and
+    one tree of g1_add a request), their median and the host split; then
+    ``parallel.launch.main`` with the launcher's defaults over those files
+    as one NCCL rank (``launch_rounds``, ``check_launch_proof``: one ladder
+    over 2^19 products and one tree of 10 g1_add a prove). Returns its
+    launch counts."""
+    scale, mscale = DEFAULT_SHAPE
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "default")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        rc, out, err, t_setup, setup_used = run_cli(
+            ["setup", "--generate-setup", "--generate-precompute"])
+        check(rc == 0 and out[-1] == "wrote ./setup.npz and "
+              f"./precompute.npz (scale={scale}, machines_scale={mscale})",
+              f"[default] setup: rc {rc}, {out[-1:]}, {err[-2000:]}")
+        passes, _, t_check = cli_check([], "[default] check")
+    finally:
+        os.chdir(cwd)
+    check(passes, "[default] check printed no PASS line")
+    setup_p = os.path.join(work, "setup.npz")
+    pre_p = os.path.join(work, "precompute.npz")
+    say(f"[default] setup with the CLI's defaults (scale {scale}, "
+        f"machines_scale {mscale}: ./setup.npz, ./precompute.npz; "
+        f"{(os.path.getsize(setup_p) + os.path.getsize(pre_p)) / 1e6:.1f} MB"
+        f" written): {t_setup:.2f} s, launches {setup_used}; check: all "
+        f"{len(passes)} lines PASS in {t_check:.2f} s")
+
+    srs = Srs.load(setup_p, pre_p)
+    n = srs.row_size
+    check((srs.scale, srs.machines_scale, n) == (scale, mscale, 1024),
+          f"[default] the files hold {srs.scale}/{srs.machines_scale}")
+    worker = Worker(srs)
+    tau_x, tau_y = _trapdoor(None, None, 0)     # setup's default seed 0
+    key = _lagrange_coeffs_at(tau_y, srs.machines)[DEFAULT_WORKER]
+
+    def request(commit_only):
+        limbs = random_scalar_limbs(rng, n)
+        x_int = None if commit_only else \
+            int.from_bytes(rng.bytes(32), "little") % o.R
+        syn = Prove(index=DEFAULT_WORKER, poly=enc.limbs_to_b64(limbs),
+                    alpha=None if commit_only else enc.fr_to_b64(x_int))
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resp = worker.forward(syn)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        kind = "commit-only" if commit_only else "commit+open"
+        label = f"[default] {kind} request"
+        selfcheck(resp, limbs_to_ints(limbs), x_int, commit_only,
+                  tau=tau_x, key=key)
+        if not commit_only:
+            check(worker.worker_verify(DEFAULT_WORKER, resp.proof,
+                                       resp.alpha, resp.eval_,
+                                       resp.commitment),
+                  f"{label}: worker_verify rejected the proof")
+        check_default_request(used, label, n)
+        return dt, {k: v for k, v in used.items() if v}
+
+    first, used = request(False)
+    times = [request(False)[0] for _ in range(WARM_REQUESTS)]
+    t_commit, used_commit = request(True)
+    med = statistics.median(times) * 1e3
+    say(f"[default] worker {DEFAULT_WORKER}, {n} coefficients: every "
+        f"request trapdoor self-check PASS, pairing verify PASS; first "
+        f"{first * 1e3:.2f} ms, warm commit+open median {med:.2f} ms over "
+        f"{len(times)} ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
+        f"commit-only {t_commit * 1e3:.2f} ms; a request's launches {used} "
+        f"(commit-only {used_commit}): one ladder of {2 * n} products (the "
+        "group form), one tree of g1_add, no K2")
+    host_split(worker, rng, "[default]", DEFAULT_WORKER)
+    del worker, srs
+
+    for path in (setup_p, pre_p):
+        os.symlink(os.path.basename(path), os.path.join(
+            work, os.path.basename(path).replace(".npz",
+                                                 f"_{scale}_{mscale}.npz")))
+    kept = launch_rounds(dev, work, DEFAULT_SHAPE, "[default]", [],
+                         ladders=1)
+    check_launch_proof(kept, work, DEFAULT_SHAPE, "[default]")
+    del kept
+    launches = dict(kernels.LAUNCHES)
+    for k in ("g1_scalar_mul", "g1_add", "fr_inv", "g1_msm_fixed",
+              "g1_fixed_table") + OPENING:
+        check(launches[k] > 0, f"the [default] path never launched {k}")
+    say(f"[default] launches {launches}")
+    say(f"[default] wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 class LogLines(logging.Handler):
     """The messages of one logger at INFO, for the length of a ``with``."""
 
@@ -2607,15 +2847,20 @@ class LogLines(logging.Handler):
         self.logger.setLevel(self.level)
 
 
-def mesh_deployment(dev, tmp):
-    """[mesh] at the mainnet deployment: ``parallel.launch.main`` over the
-    24/8 files [cli] wrote, one NCCL rank, MESH_ROUNDS rounds, each split
-    by stage; then the last round's proof held to the pairing checks, the
-    trapdoor and the single-worker path, and the Y-axis NTT's round trip
-    on its rows."""
-    scale, mscale = CLI_FULL
+def launch_rounds(dev, srs_dir, shape, label, flags, ladders):
+    """``parallel.launch.main`` over the files of ``shape`` in ``srs_dir``
+    (``setup_{scale}_{machines}.npz``), one NCCL rank, MESH_ROUNDS rounds,
+    with ``flags`` beside ``--srs-dir``, ``--rounds`` and ``--seed``; each
+    round split by stage. Checks the launches (a prove: one inverse of
+    alpha, the aggregation's inverse and one ``g1_msm_fixed``, ``ladders``
+    ladder launches; the keys' table once, in ``shard_srs``; the local
+    commit+open of all rows one launch of ``fr_inv`` and of each opening
+    kernel, and where it runs the naive MSM one ladder, no K2 kernel and
+    one tree of log2(row) ``g1_add``). Returns the last round's
+    ``prove_gathered`` arguments and output."""
+    scale, mscale = shape
     m = 1 << mscale
-    (setup, pre, _) = cli_files(tmp, CLI_FULL)[1]
+    setup = default_paths(srs_dir, scale, mscale)[0]
     kept, local_launches = [], []
     prove_gathered, commit_open = par.prove_gathered, par.commit_open
 
@@ -2632,6 +2877,7 @@ def mesh_deployment(dev, tmp):
         return out
     par.prove_gathered, par.commit_open = keep, count_local
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated(dev) / 2**20
     before = dict(kernels.LAUNCHES)
     try:
         with LogLines("zkp_subnet_tpu_torch.launch") as log, Timed(
@@ -2642,8 +2888,7 @@ def mesh_deployment(dev, tmp):
                 prove=(par, "prove")) as clock:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rc = launch.main(["--scale", str(scale), "--machines-scale",
-                              str(mscale), "--srs-dir", tmp, "--rounds",
+            rc = launch.main([*flags, "--srs-dir", srs_dir, "--rounds",
                               str(MESH_ROUNDS), "--seed", str(SEED)])
             t_launch = time.perf_counter() - t0
     finally:
@@ -2651,35 +2896,45 @@ def mesh_deployment(dev, tmp):
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
             if v != before[k]}
-    check(rc == 0, f"launch.main: rc {rc}")
-    # a prove inverts alpha once for its 256 rows and aggregates with one
+    check(rc == 0, f"{label} launch.main: rc {rc}")
+    # a prove inverts alpha once for its rows and aggregates with one
     # inverse and one g1_msm_fixed; shard_srs builds the keys' table once
     check(used.get("fr_inv") == 2 * MESH_ROUNDS
           and used.get("g1_msm_fixed") == MESH_ROUNDS
           and used.get("g1_fixed_table") == 1
-          and "g1_scalar_mul" not in used,
-          f"launch.main: not 2 fr_inv and one g1_msm_fixed a round, the "
-          f"table once and no ladder ({used})")
+          and used.get("g1_scalar_mul", 0) == ladders * MESH_ROUNDS,
+          f"{label} launch.main: not 2 fr_inv, one g1_msm_fixed and "
+          f"{ladders} ladder a round and the table once ({used})")
     # the local step opens all its rows at alpha in one launch of each
-    # opening kernel, with alpha inverted once
+    # opening kernel, with alpha inverted once; a naive MSM's sums are one
+    # tree of log2(row) g1_add
+    tree = (scale - mscale) if ladders else None
     check(len(local_launches) == MESH_ROUNDS and all(
         all(u.get(k) == 1 for k in ("fr_inv",) + OPENING)
+        and (tree is None or (u.get("g1_scalar_mul") == 1
+                              and u.get("g1_add", 0) <= tree
+                              and not {"msm_buckets", "msm_reduce",
+                                       "msm_combine"} & set(u)))
         for u in local_launches),
-        f"launch.main: a local commit+open not one launch of fr_inv and of "
-        f"each opening kernel: {local_launches}")
+        f"{label} launch.main: a local commit+open not one launch of fr_inv "
+        f"and of each opening kernel" + ("" if tree is None else
+                                         f", one ladder and <= {tree} "
+                                         "g1_add, no K2")
+        + f": {local_launches}")
     check(f"loaded SRS from {setup}" in log.lines,
-          f"launch.main did not load [cli]'s files: {log.lines}")
+          f"{label} launch.main did not load {setup}: {log.lines}")
     mesh_line = [x for x in log.lines if x.startswith("mesh ")]
     check(mesh_line and mesh_line[0].endswith("backend nccl"),
-          f"launch.main: not one NCCL rank: {mesh_line}")
+          f"{label} launch.main: not one NCCL rank: {mesh_line}")
     check([x for x in log.lines if x.endswith("sub-proofs aggregated")]
           == [f"round {r}: {m} sub-proofs aggregated"
-              for r in range(MESH_ROUNDS)], f"launch.main: {log.lines}")
-    say(f"[mesh] parallel.launch.main --scale {scale} --machines-scale "
-        f"{mscale} --rounds {MESH_ROUNDS}: {t_launch:.1f} s in all; "
-        + "; ".join(log.lines[:2])
+              for r in range(MESH_ROUNDS)],
+          f"{label} launch.main: {log.lines}")
+    say(f"{label} parallel.launch.main {' '.join(flags)} --rounds "
+        f"{MESH_ROUNDS} (scale {scale}, machines_scale {mscale}): "
+        f"{t_launch:.1f} s in all; " + "; ".join(log.lines[:2])
         + f"; shard_srs {clock.seconds['shard']:.2f} s ({m} worker slices "
-        "from the memmap to the card)")
+        "from the files to the card)")
     # the stages of each round, in call order: the draws, the X inverse
     # NTT, the local commit+open, the gather, the aggregation
     rounds, cur = [], None
@@ -2690,32 +2945,42 @@ def mesh_deployment(dev, tmp):
         if cur is not None:
             cur[name] = cur.get(name, 0.0) + dt
     check(len(rounds) == MESH_ROUNDS and all("prove" in r for r in rounds),
-          f"[mesh] {len(rounds)} rounds timed, not {MESH_ROUNDS}")
+          f"{label} {len(rounds)} rounds timed, not {MESH_ROUNDS}")
     for i, r in enumerate(rounds):
-        say(f"[mesh] round {i}: draw {r['draw'] * 1e3:.1f} ms, X inverse "
+        say(f"{label} round {i}: draw {r['draw'] * 1e3:.1f} ms, X inverse "
             f"NTT of {m} x 2^{scale - mscale} {r['fft'] * 1e3:.2f} ms, local "
             f"commit+open of {m} rows {r['local']:.3f} s, gather "
             f"{r['gather'] * 1e3:.2f} ms, aggregation "
             f"{r['aggregation'] * 1e3:.1f} ms; prove {r['prove']:.3f} s = "
             f"{m / r['prove']:.1f} rows/s ({m / (r['fft'] + r['prove']):.1f}"
             " rows/s with the NTT)")
-    say(f"[mesh] peak device memory {peak:.1f} MiB; launch.main's launches "
+    say(f"{label} peak device memory {peak:.1f} MiB ({held:.1f} MiB of it "
+        f"held before the launch); launch.main's launches "
         f"{used}; a prove's local commit+open of {m} rows launches "
         f"{local_launches[-1]}")
+    return kept
 
-    (sharded, coeff, alpha, beta, _), (out, (_, evals, _)) = kept
-    srs = Srs.load(setup, pre, lazy=True)
+
+def check_launch_proof(kept, srs_dir, shape, label):
+    """The last round's aggregated proof verifies (and not once tampered);
+    MESH_SAMPLED workers pass ``worker_verify`` and the trapdoor self-check
+    (the CLI's ``setup`` with seed 0) and equal
+    ``pianist.worker_commit``/``worker_open`` limb for limb."""
+    scale, mscale = shape
+    m = 1 << mscale
+    (_, coeff, alpha, beta, _), (out, (_, evals, _)) = kept
+    srs = Srs.load(*default_paths(srs_dir, scale, mscale), lazy=True)
     a_int, b_int = FR.decode(alpha)[0], FR.decode(beta[0])[0]
     agg = pianist.AggregatedProof(
         commitment=out.commitment[0], proof_x=out.proof_x[0],
         evals=evals[0], commitment_y=out.commitment_y[0],
         proof_y=out.proof_y[0], value=out.value[0])
     check(pianist.verify_aggregated(srs, agg, a_int, b_int),
-          "[mesh] the distributed proof does not verify")
+          f"{label} the distributed proof does not verify")
     bad = dataclasses.replace(agg, proof_x=agg.commitment)
     check(not pianist.verify_aggregated(srs, bad, a_int, b_int),
-          "[mesh] a tampered distributed proof verifies")
-    tau_x, tau_y = _trapdoor(None, None, 0)      # [cli]'s setup: seed 0
+          f"{label} a tampered distributed proof verifies")
+    tau_x, tau_y = _trapdoor(None, None, 0)      # the CLI's setup: seed 0
     keys = _lagrange_coeffs_at(tau_y, m)
     inner = np.random.default_rng(SEED).permutation(np.arange(1, m - 1))
     sampled = sorted({0, m - 1, *inner[:MESH_SAMPLED - 2].tolist()})
@@ -2726,20 +2991,32 @@ def mesh_deployment(dev, tmp):
         w_y, w_prf = pianist.worker_open(srs, i, row, alpha)
         check(torch.equal(com, w_com) and torch.equal(prf, w_prf)
               and torch.equal(y, w_y),
-              f"[mesh] worker {i}: not the limbs of worker_commit/open")
+              f"{label} worker {i}: not the limbs of worker_commit/open")
         com_pt, prf_pt = cv.g1_decode(com)[0], cv.g1_decode(prf)[0]
         y_int = FR.decode(y)[0]
         check(pianist.worker_verify(srs, i, prf_pt, a_int, y_int, com_pt),
-              f"[mesh] worker {i}: worker_verify False")
+              f"{label} worker {i}: worker_verify False")
         selfcheck(Prove(index=i, poly=[], eval_=enc.fr_to_b64(y_int),
                         commitment=enc.g1_to_b64(com_pt),
                         proof=enc.g1_to_b64(prf_pt)),
                   FR.decode(row), a_int, False, tau=tau_x, key=keys[i])
-    say(f"[mesh] the last round's aggregated proof verifies: True (False "
+    say(f"{label} the last round's aggregated proof verifies: True (False "
         f"with W swapped for C); workers {sampled}: worker_verify and "
         "trapdoor self-check PASS, limbs equal to pianist.worker_commit/"
         "worker_open")
 
+
+def mesh_deployment(dev, tmp):
+    """[mesh] at the mainnet deployment: ``parallel.launch.main`` over the
+    24/8 files [cli] wrote (``launch_rounds``, ``check_launch_proof``),
+    then the Y-axis NTT's round trip on the last round's rows."""
+    scale, mscale = CLI_FULL
+    m = 1 << mscale
+    kept = launch_rounds(dev, tmp, CLI_FULL, "[mesh]",
+                         ["--scale", str(scale), "--machines-scale",
+                          str(mscale)], ladders=0)
+    check_launch_proof(kept, tmp, CLI_FULL, "[mesh]")
+    coeff = kept[0][1]
     mesh = par.make_mesh()
     backend = torch.distributed.get_backend()
     check(backend == "nccl", f"[mesh] backend {backend}, not nccl")
@@ -2873,6 +3150,7 @@ def main() -> int:
         phase_aggregate_wide(rng, dev)
         phase_ntt_cells(dev)
         cli_launches = phase_cli(dev, tmp)
+        default_launches = phase_default(rng, dev, tmp)
         mesh_launches = phase_mesh(dev, tmp)
         phase_device_times(res, dev)
     except SmokeFailure as exc:
@@ -2886,12 +3164,14 @@ def main() -> int:
     # launches: the paths' counts added, each path counted from 0
     table = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
               "launches": (main_launches[k] + round_launches[k]
-                           + cli_launches[k] + mesh_launches[k]),
+                           + cli_launches[k] + default_launches[k]
+                           + mesh_launches[k]),
               "launches_main": main_launches[k],
               "launches_main_setup": setup_launches.get(k, 0),
               "launches_main_request": request_launches[k],
               "launches_round": round_launches[k],
               "launches_cli": cli_launches[k],
+              "launches_default": default_launches[k],
               "launches_mesh": mesh_launches[k],
               "max_abs_err": res[k]["max_abs_err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],

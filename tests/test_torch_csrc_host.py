@@ -3,8 +3,9 @@ fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
 integers and the port's plain point formulas: the field operations, the
 binary inverse (fr::inv), a run of powers (fr::pow_run), the power tables
 (fr::power_table, a level by fr::level_scan) and their lookup
-(fr::table_pow), the point add and double, and the double-and-add ladder
-(g1_scalar_mul).
+(fr::table_pow), the point add and double, and the ladder (g1_scalar_mul
+over signed windows, and the recoding signed_digit that both of its
+kernel forms run).
 
 The headers' carry chains are PTX (csrc/ptx.cuh), which only the card runs.
 Here ptx.cuh is replaced by an emulation of its functions with a carry flag
@@ -74,7 +75,9 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
 # run of four powers (x, then the words k, bits and 1 to leave Montgomery
 # form or 0), 11 a power table (x, then levels and canonical0; all its
 # entries on one line), 12 lookups in one (x, levels, canonical0, a count
-# m, then m exponents as two words each, low first; a line each)
+# m, then m exponents as two words each, low first; a line each), 13 the
+# ladder's signed digits of a scalar's 8 words (4-bit windows and the
+# carry, then 5-bit windows and the carry: two lines)
 HOST_MAIN = r"""
 #include <pthread.h>
 
@@ -167,6 +170,15 @@ int main() {
           write(r, fr::L);
         }
       }
+    } else if (op == 13) {
+      read(a, 8);
+      int d4[ladder_windows<4> + 1], d5[ladder_windows<5> + 1];
+      for (int w = 0; w <= ladder_windows<4>; w++)
+        d4[w] = signed_digit<4>(a, w);
+      for (int w = 0; w <= ladder_windows<5>; w++)
+        d5[w] = signed_digit<5>(a, w);
+      write((const uint32_t*)d4, ladder_windows<4> + 1);
+      write((const uint32_t*)d5, ladder_windows<5> + 1);
     } else if (op < 6) {
       const int n = op < 3 ? fr::L : fq::L;
       read(a, n);
@@ -361,18 +373,57 @@ def test_table_lookup_matches_python_integers(host_binary, levels):
                 1 if c else MONT) % o.R, (x, c, e)
 
 
+#: scalars the ladder is held to: 0, 1, r − 1, r − 2; every 4-bit window 8
+#: (no carry anywhere); a carry through all 64 windows and out of the top
+#: (0x88…89); 2^255 and 2^256 − 1 (a carry out of the top); random
+EIGHTS = int("8" * 64, 16)
+LADDER_SCALARS = [0, 1, o.R - 1, o.R - 2, EIGHTS, EIGHTS + 1, 1 << 255,
+                  (1 << 256) - 1]
+
+
+def _signed(words):
+    return [int(w) - (1 << 32) if w >> 31 else int(w) for w in words]
+
+
+def test_ladder_digits_match_python_integers(host_binary):
+    """signed_digit of g1.cuh (each digit alone, from a comparison of the
+    words below its window) at 4 and 5 bits, against the recoding by a
+    running carry on Python's integers and against curve.signed_digits:
+    digits in [1 − 2^(B−1), 2^(B−1)], Σ d_w·2^(B·w) + carry·2^(B·W) = k."""
+    rng = np.random.default_rng(19)
+    ks = LADDER_SCALARS + [int.from_bytes(rng.bytes(32), "little")
+                           for _ in range(20)]
+    got = _run(host_binary, [(13, (_words(k, 8),)) for k in ks])
+    for i, k in enumerate(ks):
+        for bits, line in ((4, got[2 * i]), (5, got[2 * i + 1])):
+            windows = -(-256 // bits)
+            digits, carry = [], 0
+            for w in range(windows):
+                d = (k >> (bits * w) & ((1 << bits) - 1)) + carry
+                carry = int(d > 1 << (bits - 1))
+                digits.append(d - (carry << bits))
+            assert _signed(line) == digits + [carry], (k, bits)
+            assert sum(d << (bits * w) for w, d in enumerate(digits)) \
+                + (carry << (bits * windows)) == k
+            limbs = torch.tensor(_signed(_words(k, 8)), dtype=torch.int32)
+            assert tcv.signed_digits(limbs, bits).tolist() == \
+                digits + [carry], (k, bits)
+
+
 def test_ladder_matches_plain_and_python_integers(host_binary):
-    """g1_scalar_mul of g1.cuh (the body of K1 g1_scalar_mul) with scalars
-    0, 1, r − 1 and a random one, on projective points and infinity:
-    limb for limb the plain ladder's, and [k]P as Python's integers say."""
+    """g1_scalar_mul of g1.cuh (the thread form of K1 g1_scalar_mul: signed
+    4-bit windows, the table P … 8P) with scalars 0, 1, r − 1, r − 2, every
+    window 8, a carry through every window, 2^255, 2^256 − 1 and a random
+    one, on projective points and infinity: limb for limb the plain
+    ladder's, and [k]P as Python's integers say."""
     rng = np.random.default_rng(17)
+    ks = LADDER_SCALARS + [int.from_bytes(rng.bytes(40), "little") % o.R]
     dlogs = [int.from_bytes(rng.bytes(40), "little") % (o.R - 1) + 1
-             for _ in range(3)]
+             for _ in range(len(ks) - 1)]
     G = o.G1.from_affine(o.G1_GEN)
     p = tcv.g1_double(tcv.g1_encode([o.G1.mul(G, d) for d in dlogs]))
     p = torch.cat([p, tcv.g1_infinity((1,))])
-    ks = [0, 1, o.R - 1, int.from_bytes(rng.bytes(40), "little") % o.R]
-    sc = tcv.fr_to_scalar_limbs(ks)
+    sc = torch.tensor([_signed(_words(k, 8)) for k in ks], dtype=torch.int32)
     words = p.numpy().view(np.uint32).reshape(-1, 36)
     got = np.stack(_run(host_binary, [
         (9, (w, _words(k, 8))) for w, k in zip(words, ks)])).view(np.int32)

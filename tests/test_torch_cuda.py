@@ -6,8 +6,8 @@ The module imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: none (integer arithmetic; points compared as affine points,
-``msm_buckets``, ``msm_reduce``, ``msm_combine``, ``g1_scalar_mul``,
-``g1_fixed_table`` and ``g1_msm_fixed`` limb for limb).
+``msm_buckets``, ``msm_reduce``, ``msm_combine``, ``g1_scalar_mul`` (both
+of its forms), ``g1_fixed_table`` and ``g1_msm_fixed`` limb for limb).
 """
 
 import numpy as np
@@ -477,26 +477,81 @@ def test_opening_reads_nothing_back_and_launches_four_kernels(dev):
             assert torch.equal(y[b], wy) and torch.equal(q[b], wq)
 
 
-@pytest.mark.parametrize("n", [16, 1000])
+#: scalars the ladder is held to beside random ones: 0, 1, r − 1, r − 2;
+#: every 4-bit window 8; a carry through all 64 windows and out of the top;
+#: 2^256 − 1
+EIGHTS = int("8" * 64, 16)
+LADDER_EDGES = [0, 1, o.R - 1, o.R - 2, EIGHTS, EIGHTS + 1, (1 << 256) - 1]
+
+
+def _scalar_limbs(ks, device):
+    """Any 256-bit scalars → (N, 8) int32 limbs."""
+    return torch.from_numpy(np.frombuffer(
+        b"".join(k.to_bytes(32, "little") for k in ks), "<i4").reshape(
+            len(ks), 8).copy()).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 16, 33, 1000, 2048,
+                               kernels.LADDER_GROUP_MAX,
+                               kernels.LADDER_GROUP_MAX + 1])
 def test_g1_scalar_mul_kernel_matches_plain(dev, n):
-    """Scalars 0, 1, r − 1 and random ones, the point at infinity among the
+    """Scalars 0, 1, r − 1, r − 2, every window 8, a carry through every
+    window, 2^256 − 1 and random ones, the point at infinity among the
     bases, limb for limb against the plain ladder (on the card) and one
-    launch for the whole ladder."""
-    pts, dlogs, ks = _instance(n, 28)
+    launch for the whole ladder: n = 1, 16, 33, 1000, a default request's
+    2048 and each side of the crossover of the group form (n ≤
+    LADDER_GROUP_MAX) and the thread form; both forms equal at every n."""
+    m = min(n, 64)
+    pts, dlogs, ks = _instance(m, 28)
     pts = tcv.g1_double_plain(pts)              # Z ≠ 1
-    pts[3] = tcv.g1_infinity(())
-    ks[:3] = [0, 1, o.R - 1]
-    p, sc = pts.to(dev), tcv.fr_to_scalar_limbs(ks, dev)
+    ks[:len(LADDER_EDGES)] = LADDER_EDGES
+    ks = ks[:m]
+    if m > 3:
+        pts[3] = tcv.g1_infinity(())
+        dlogs[3] = 0
+    reps = -(-n // m)
+    p = pts.to(dev).repeat(reps, 1, 1)[:n].contiguous()
+    rng = np.random.default_rng(n)
+    ks_all = (ks + [int.from_bytes(rng.bytes(32), "little")
+                    for _ in range(n - m)])[:n]
+    sc = _scalar_limbs(ks_all, dev)
     before = dict(kernels.LAUNCHES)
     got = tcv.g1_scalar_mul(p, sc)
     used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
             if v != before[k]}
     assert used == {"g1_scalar_mul": 1}
     assert torch.equal(got, tcv.g1_scalar_mul_plain(p, sc))
+    other = kernels._ladder(p, sc, not kernels.ladder_grouped(n))
+    assert torch.equal(other, got)
     want = [o.G1.to_affine(o.G1.mul(G, 2 * d * k % o.R))
             for d, k in zip(dlogs[:8], ks[:8])]
-    want[3] = None
+    if m > 3:
+        want[3] = None
     assert tcv.g1_affine(got[:8]) == want
+
+
+def test_default_request_launches_one_ladder_and_one_tree(dev):
+    """A worker of the default configuration's row (scale 18, machines
+    scale 8: 1024 coefficients) serves commit+open with one launch of the
+    ladder (its group form: 2 × 1024 products), no K2 kernel, and one tree
+    of log2(1024) = 10 g1_add launches for both MSMs' sums; the proof
+    verifies."""
+    srs = Srs.generate(10, 0, seed=3, device=dev)
+    worker = Worker(srs)
+    rng = np.random.default_rng(5)
+    row = [int.from_bytes(rng.bytes(40), "little") % o.R
+           for _ in range(1024)]
+    req = Prove(index=0, poly=enc.poly_to_b64(row), alpha=enc.fr_to_b64(99))
+    worker.forward(req)
+    before = dict(kernels.LAUNCHES)
+    resp = worker.forward(req)
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+    assert used["g1_scalar_mul"] == 1 and kernels.ladder_grouped(2048)
+    assert used["g1_add"] == 10
+    assert not {"msm_buckets", "msm_reduce", "msm_combine"} & set(used)
+    assert worker.worker_verify(0, resp.proof, resp.alpha, resp.eval_,
+                                resp.commitment)
 
 
 @pytest.mark.parametrize("m", [1, 3, 16, 17, 256, 1024])

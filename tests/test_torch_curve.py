@@ -107,18 +107,59 @@ def test_scalar_mul_matches_oracle():
                             for a, k in zip(d, ks)]
 
 
+def _jax_scalar_mul_affine(p, ks):
+    """The JAX package's ladder on the same points and any 256-bit scalars
+    (16-bit limbs), as affine points."""
+    limbs = np.frombuffer(b"".join(k.to_bytes(32, "little") for k in ks),
+                          "<u2").reshape(len(ks), 16).astype(np.uint32)
+    want = jcv.g1_scalar_mul(jnp.asarray(to_numpy_points(p)),
+                             jnp.asarray(limbs))
+    return _affine(from_numpy_points(np.asarray(want)))
+
+
+def _scalar_limbs(ks):
+    """Any 256-bit scalars → (N, 8) int32 limbs."""
+    return torch.from_numpy(np.frombuffer(
+        b"".join(k.to_bytes(32, "little") for k in ks), "<i4").reshape(
+            len(ks), 8).copy())
+
+
 def test_scalar_mul_plain_matches_jax():
-    """The plain version of K1 g1_scalar_mul (the double-and-add loop)
-    against the JAX package's ladder, projectively limb for limb, with
+    """The plain version of K1 g1_scalar_mul (signed 4-bit windows, the
+    table P … 8P) against the JAX package's ladder (binary double-and-add),
+    as affine points (the two methods give other projective Z), with
     scalars 0, 1, r − 1 and a random one, on projective points and the
     point at infinity."""
     p = tcv.g1_double(_points(_dlogs(3, 18)))            # Z ≠ 1
     p = torch.cat([p, tcv.g1_infinity((1,))])
     ks = [0, 1, o.R - 1, _dlogs(1, 19)[0]]
     got = tcv.g1_scalar_mul_plain(p, tcv.fr_to_scalar_limbs(ks))
-    want = jcv.g1_scalar_mul(jnp.asarray(to_numpy_points(p)),
-                             jcv.fr_to_scalar_limbs(ks))
-    assert np.array_equal(to_numpy_points(got), np.asarray(want))
+    assert _affine(got) == _jax_scalar_mul_affine(p, ks)
+
+
+EIGHTS = int("8" * 64, 16)
+
+
+@pytest.mark.parametrize("ks, carries", [
+    ([o.R - 2, EIGHTS, EIGHTS + 1, (1 << 256) - 1], [0, 0, 1, 1]),
+    (_dlogs(4, 20), [0, 0, 0, 0])], ids=["edges", "random"])
+def test_scalar_mul_plain_edges_match_jax_and_oracle(ks, carries):
+    """The plain ladder against the JAX package's and the oracle as affine
+    points: r − 2; every 4-bit window 8 (no carry); 0x88…89, whose carry
+    runs through all 64 windows and out of the top; 2^256 − 1 (any 256-bit
+    scalar is [k]P, k not reduced mod r); random scalars. Three projective
+    points and the point at infinity (the shapes of
+    test_scalar_mul_plain_matches_jax: JAX compiles once)."""
+    d = _dlogs(3, 21)
+    p = tcv.g1_double(_points(d))
+    p = torch.cat([p, tcv.g1_infinity((1,))])
+    got = tcv.g1_scalar_mul_plain(p, _scalar_limbs(ks))
+    want = [o.G1.to_affine(o.G1.mul(G, 2 * a * k % o.R))
+            for a, k in zip(d, ks)] + [None]
+    assert _affine(got) == want
+    assert _affine(got) == _jax_scalar_mul_affine(p, ks)
+    assert tcv.signed_digits(_scalar_limbs(ks), 4)[:, -1].tolist() == \
+        carries
 
 
 def test_fixed_base_tables_match_jax():

@@ -115,6 +115,41 @@ def test_msm_auto_naive_path():
     assert tcv.g1_affine(got)[0] == _want(dlogs[:5], ks[:5])
 
 
+@pytest.mark.parametrize("own_points", [False, True],
+                         ids=["shared points", "points a row"])
+def test_msm_auto_many_sums_in_one_tree(own_points):
+    """msm_auto_many's naive path sums its K rows' products in one tree of
+    adds (log2 N g1_add calls for all K): limb for limb K g1_sum calls over
+    the ladder's products, and the oracle; N = 13 pads each row with
+    infinity to 16; K = 3 over shared points or over points of their own a
+    row."""
+    pts, dlogs, _ = _instance(13, 8)
+    rng = np.random.default_rng(9)
+    ks = [[0, 1, o.R - 1] + _ints(10, rng)] + [_ints(13, rng)
+                                               for _ in range(2)]
+    sc = torch.stack([tcv.fr_to_scalar_limbs(k) for k in ks])
+    if own_points:
+        rows = torch.stack([pts, pts.roll(1, 0), pts.roll(2, 0)])
+        logs = [dlogs, dlogs[-1:] + dlogs[:-1], dlogs[-2:] + dlogs[:-2]]
+    else:
+        rows, logs = pts, [dlogs] * 3
+    adds = []
+    real_add = tmsm.g1_add
+    try:
+        tmsm.g1_add = lambda a, b: adds.append(a.shape) or real_add(a, b)
+        got = tmsm.msm_auto_many(rows, sc)
+    finally:
+        tmsm.g1_add = real_add
+    assert adds == [(3, 8, 3, 12), (3, 4, 3, 12), (3, 2, 3, 12),
+                    (3, 1, 3, 12)]
+    prods = tcv.g1_scalar_mul(
+        rows.reshape(-1, 3, 12) if own_points else rows.repeat(3, 1, 1),
+        sc.reshape(-1, 8)).view(3, 13, 3, 12)
+    assert torch.equal(got, torch.stack([tcv.g1_sum(p) for p in prods]))
+    for c in range(3):
+        assert tcv.g1_affine(got[c])[0] == _want(logs[c], ks[c]), c
+
+
 # -- the segmented reduction, the batched Horner and the batched MSM -----------
 
 def _running_sum(buckets):

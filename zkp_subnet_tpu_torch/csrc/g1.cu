@@ -23,18 +23,37 @@
 // kernel_ab.py over copies of the sources with that one choice changed;
 // PERF.md has the times).
 //
-// g1_scalar_mul_kernel: [k_i]P_i, the whole double-and-add ladder in one
-// launch. Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ
-// as reached through dispatch_ldouble/dispatch_ladd from
-// zkp_subnet_tpu/ops/curve.py:g1_scalar_mul (a fori_loop of 256 doubles,
-// adds and selects, one jitted program on the TPU; eagerly that was 512 K1
-// launches and 512 selects). Bound: integer multiplies, 256 doubles and an
-// add for each set bit of k, ~1.2 million 32-bit operations a point, and
-// at a few points (the aggregation's 16) the latency of one thread's chain
-// of 256 dependent steps. The design: one thread a point, acc and P in
-// registers for the whole ladder (no point leaves the SM between steps),
-// the double and add of g1.cuh with the carry chains of mont.cuh, the
-// scalar read a word at a time from memory.
+// g1_scalar_mul: [k_i]P_i, the whole ladder in one launch. Replaces
+// zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ as reached through
+// dispatch_ldouble/dispatch_ladd from zkp_subnet_tpu/ops/curve.py:
+// g1_scalar_mul (a fori_loop of 256 doubles, adds and selects, one jitted
+// program on the TPU). The naive MSM (ops/msm.py, at most 2048 points a
+// row) runs it over every product of a call: a worker's commit and opening
+// of a 1024-coefficient row are 2048 ladders, a one-rank prove at the
+// default 18/8 is 2^19. Bound: integer multiplies (bitlen(k) − 1 doubles and
+// the adds of the best fixed window, ~1 million 32-bit operations a point),
+// and, at a few thousand points, the latency of one point's chain of
+// dependent operations. The design shortens that chain and each of its
+// steps, with one order of operations for both of its forms (g1.cuh, "the
+// ladder"):
+//  (1) signed windows of LADDER_DIGIT_BITS = 4 bits, digits in [-7, 8]
+//      recoded on the card (signed_digit) and a table P … 8P a point, built
+//      in the kernel: 252 doubles and at most 64 adds a point in place of
+//      the binary method's 255 and ~128, and 7 operations for the table;
+//      a carry out of the top window makes every 256-bit k exact;
+//  (2) the group form (g1_scalar_mul_group_kernel), for few points: a
+//      point a group of 8 lanes, each step's independent Fq products side
+//      by side on its lanes (group_double, group_add_sh: two products in a
+//      row a step, where one thread has eight or twelve), the table, acc
+//      and the products in shared memory for the whole ladder;
+//  (3) the thread form (g1_scalar_mul_kernel), for many points: a thread a
+//      point, acc in registers and the table in the thread's local memory,
+//      no lane computing a product that is thrown away (a group's double
+//      keeps 4 of its 8 lanes busy).
+// The wrapper picks the form by the number of points, at the crossover
+// measured on the card (ops/kernels.py:LADDER_GROUP_MAX). Measured against
+// 5-bit windows (zkp_subnet_tpu_torch/kernel_ab.py; PERF.md has the
+// times).
 //
 // g1_fixed_table and g1_msm_fixed: K MSMs over the same M fixed bases, any
 // M >= 1, for the Pianist aggregation's C_y = sum y_i·L_i and W_y = sum
@@ -301,6 +320,92 @@ __device__ __forceinline__ void g1_store_part(uint32_t* dst, const G1& P,
     }
 }
 
+// The ladder's group form: a point a group of LADDER_LANES lanes,
+// LADDER_GROUPS points a block of one warp. Each group keeps its table
+// T[j] = (j + 1)P, its acc for the adds, the add's operand and the
+// exchange words of its products in shared memory (GROUP_WORDS, a stride
+// that puts the groups of a warp on different banks); acc stays in every
+// lane's registers between the adds. The operations are g1.cuh's ladder,
+// in its order: the table (even multiples a double, odd ones an add of P),
+// then from the top window down B doubles (group_double) and, where the
+// digit is not 0, one add (group_add_sh, its result kept where the digit
+// is 0). A group past the end runs the last point and stores nothing,
+// since every lane of the warp takes the steps.
+constexpr int LADDER_LANES = 8;
+constexpr int LADDER_GROUPS = 32 / LADDER_LANES;
+constexpr int LADDER_MULTIPLES = 1 << (LADDER_DIGIT_BITS - 1);
+constexpr int LADDER_ACC = LADDER_MULTIPLES * G1_WORDS;
+constexpr int LADDER_IN = LADDER_ACC + G1_WORDS;
+constexpr int LADDER_X = LADDER_IN + G1_WORDS;
+constexpr int GROUP_WORDS = LADDER_X + 12 * fq::L;
+static_assert(GROUP_WORDS % 4 == 0 && GROUP_WORDS % 32 != 0,
+              "16-byte aligned, a warp's groups on different banks");
+
+__global__ void __launch_bounds__(32)
+g1_scalar_mul_group_kernel(const uint32_t* __restrict__ p,
+                           const uint32_t* __restrict__ scalars,
+                           uint32_t* __restrict__ out, long long n) {
+  constexpr int B = LADDER_DIGIT_BITS, W = ladder_windows<B>;
+  __shared__ __align__(16) uint32_t sh[LADDER_GROUPS * GROUP_WORDS];
+  const int l = threadIdx.x % LADDER_LANES, g = threadIdx.x / LADDER_LANES;
+  const long long i = blockIdx.x * (long long)LADDER_GROUPS + g;
+  const bool live = i < n;
+  const long long src = live ? i : n - 1;
+  const uint32_t* k = scalars + 8 * src;
+  uint32_t* T = sh + g * GROUP_WORDS;
+  uint32_t *acc_sh = T + LADDER_ACC, *in = T + LADDER_IN, *x = T + LADDER_X;
+  G1 acc;
+  g1_load(acc, p + G1_WORDS * src);
+  g1_store_part<LADDER_LANES>(T, acc, l);
+  __syncwarp();
+#pragma unroll 1
+  for (int m = 2; m <= LADDER_MULTIPLES; m++) {
+    uint32_t* e = T + G1_WORDS * (m - 1);
+    if (m % 2 == 0) {
+      g1_load(acc, T + G1_WORDS * (m / 2 - 1));
+      group_double(acc, x, l);
+      g1_store_part<LADDER_LANES>(e, acc, l);
+    } else {
+      for (int q = l; q < G1_WORDS; q += LADDER_LANES) e[q] = e[q - G1_WORDS];
+      __syncwarp();
+      group_add_sh(e, T, x, l, false);
+    }
+    __syncwarp();
+  }
+  const int carry = signed_digit<B>(k, W);
+  if (carry) g1_load(acc, T);
+  else g1_set_infinity(acc);
+#pragma unroll 1
+  for (int w = W - 1; w >= 0; w--) {
+    if (w < W - 1 || __any_sync(0xffffffffu, carry)) {
+#pragma unroll 1
+      for (int b = 0; b < B; b++) group_double(acc, x, l);
+    }
+    const int d = signed_digit<B>(k, w);
+    if (__any_sync(0xffffffffu, d != 0)) {
+      // in = T[|d| − 1], Y negated where d < 0 (T[0] where d = 0: kept)
+      const uint32_t* e = T + G1_WORDS * ((d < 0 ? -d : d > 0 ? d : 1) - 1);
+      uint32_t y[fq::L];
+      fq_load_sh(y, e + fq::L);
+      if (d < 0) {
+        uint32_t zero[fq::L] = {};
+        fq::sub(y, zero, y);
+      }
+      fq_store_part(in + fq::L, y, l);
+      for (int q = l; q < fq::L; q += LADDER_LANES) {
+        in[q] = e[q];
+        in[2 * fq::L + q] = e[2 * fq::L + q];
+      }
+      g1_store_part<LADDER_LANES>(acc_sh, acc, l);
+      __syncwarp();
+      group_add_sh(acc_sh, in, x, l, d == 0);
+      g1_load(acc, acc_sh);
+      __syncwarp();
+    }
+  }
+  if (live) g1_store_part<LADDER_LANES>(out + G1_WORDS * i, acc, l);
+}
+
 // Launch 1 of the table: key i = TABLE_KEYS·blockIdx.x + group. Its group
 // of TABLE_LANES lanes doubles the key FIXED_DIGIT_BITS times a window and
 // stores the window's B, 2B, 4B and 8B on the way (entries 0, 1, 3, 7;
@@ -358,26 +463,9 @@ g1_fixed_multiples_kernel(uint32_t* __restrict__ table, long long bases) {
 }
 
 // Digit w of k (8 canonical little-endian words) in the signed recoding
-// with digits in [-7, 8]: its nibble plus the carry out of the windows
-// below, which is 1 exactly when k mod 16^w > 0x88...8 (w nibbles of 8),
-// compared from the top word down.
+// with digits in [-7, 8] (g1.cuh:signed_digit).
 __device__ __forceinline__ int fixed_digit(const uint32_t* k, int w) {
-  const int nib = (k[w >> 3] >> (4 * (w & 7))) & 15;
-  int carry = 0, done = 0;
-#pragma unroll
-  for (int j = 7; j >= 0; j--) {
-    const int bits = FIXED_DIGIT_BITS * w - 32 * j;
-    if (bits > 0) {
-      const uint32_t mask = bits >= 32 ? 0xffffffffu : (1u << bits) - 1u;
-      const uint32_t a = k[j] & mask, b = 0x88888888u & mask;
-      if (!done && a != b) {
-        carry = a > b;
-        done = 1;
-      }
-    }
-  }
-  const int d = nib + carry;
-  return d > FIXED_MULTIPLES ? d - 16 : d;
+  return signed_digit<FIXED_DIGIT_BITS>(k, w);
 }
 
 // Term j of an MSM with scalars k (m of them): d·[16^w]P_i, i = j / 64,
@@ -499,10 +587,18 @@ extern "C" int zkp_g1_double(const void* p, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// scalars: (n, 8) canonical 32-bit words, little-endian.
+// scalars: (n, 8) canonical 32-bit words, little-endian, any 256-bit
+// value; grouped: the group form (a point a group of LADDER_LANES lanes),
+// else a thread a point. The wrapper picks by n (ops/kernels.py).
 extern "C" int zkp_g1_scalar_mul(const void* p, const void* scalars,
-                                 void* out, long long n, void* stream) {
-  if (n > 0) {
+                                 void* out, long long n, int grouped,
+                                 void* stream) {
+  if (n > 0 && grouped) {
+    const long long blocks = (n + LADDER_GROUPS - 1) / LADDER_GROUPS;
+    g1_scalar_mul_group_kernel<<<(unsigned)blocks, 32, 0,
+                                 (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)scalars, (uint32_t*)out, n);
+  } else if (n > 0) {
     const long long blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
     g1_scalar_mul_kernel<<<(unsigned)blocks, LADDER_THREADS, 0,
                            (cudaStream_t)stream>>>(

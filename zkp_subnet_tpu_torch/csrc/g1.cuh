@@ -192,31 +192,118 @@ __device__ __forceinline__ void g1_double(G1& R, const G1& P) {
   g1_double_with<FqInline>(R, P);
 }
 
-// R = [k]P by double-and-add over the 256 bits of k, most significant
-// first: each step one complete double and, where the bit is set, one
-// complete add (zkp_subnet_tpu/ops/curve.py:159-181 adds at every bit and
-// selects; both give the same limbs). k is 8 little-endian 32-bit words
-// in memory, read one word at a time, so that no bit is picked out of a
-// register array by a run-time index (that would put the array in local
-// memory). R may alias P.
-template <class F>
+// -- the ladder [k]P over signed windows -------------------------------------
+//
+// k (8 canonical little-endian 32-bit words, any 256-bit value) is recoded
+// into ladder_windows<B> windows of B bits with digits in
+// [1 − 2^(B−1), 2^(B−1)], least significant first, and, where B divides 256,
+// a carry out of the top window (0 or 1): k = carry·2^256 + Σ d_w·2^(B·w).
+// Then [k]P is Horner's rule from the top window down over the table
+// T[j] = (j + 1)P, j < 2^(B−1): acc = carry ? P : ∞, and for each window B
+// doubles and, where d ≠ 0, one add of T[|d| − 1] (negated where d < 0).
+// ops/curve.py:g1_scalar_mul_plain repeats these operations in this order,
+// so every form of the kernel and the plain version agree limb for limb.
+
+template <int B>
+constexpr int ladder_windows = (256 + B - 1) / B;
+
+// The word of H = Σ_j 2^(B−1)·2^(B·j) (2^(B−1) in every window: 0x88…8 at
+// B = 4) that holds bits 32·j … 32·j + 31 (j a constant once unrolled).
+template <int B>
+__device__ __forceinline__ uint32_t half_word(int j) {
+  uint32_t h = 0;
+#pragma unroll
+  for (int t = 0; t < 32; t++)
+    if ((32 * j + t) % B == B - 1) h |= 1u << t;
+  return h;
+}
+
+// Digit w of k in the recoding above, for w ≤ ladder_windows<B> (w = that
+// count: the carry out of the top window): the window's bits plus the carry
+// out of the windows below, less 2^B where that passes 2^(B−1). The carry
+// into window w is 1 exactly when k mod 2^(B·w) > H mod 2^(B·w), compared
+// from the top word down. Where B does not divide 256, the top window holds
+// fewer than B bits and never carries out. k is read a word at a time from
+// memory (no register array indexed at run time).
+template <int B>
+__device__ __forceinline__ int signed_digit(const uint32_t* k, int w) {
+  const int lo = B * w;
+  if (lo >= 256 && 256 % B != 0) return 0;
+  uint32_t bits = 0;
+  if (lo < 256) {
+    const int j = lo >> 5, s = lo & 31;
+    bits = k[j] >> s;
+    if (s + B > 32 && j < 7) bits |= k[j + 1] << (32 - s);
+    bits &= (1u << B) - 1u;
+  }
+  int carry = 0, done = 0;
+#pragma unroll
+  for (int j = 7; j >= 0; j--) {
+    const int below = lo - 32 * j;  // bits of word j below window w
+    if (below > 0) {
+      const uint32_t mask = below >= 32 ? 0xffffffffu : (1u << below) - 1u;
+      const uint32_t a = k[j] & mask, h = half_word<B>(j) & mask;
+      if (!done && a != h) {
+        carry = a > h;
+        done = 1;
+      }
+    }
+  }
+  const int d = (int)bits + carry;
+  return d > (1 << (B - 1)) ? d - (1 << B) : d;
+}
+
+// T[j] = (j + 1)P for j < M: an even multiple m by a double of m/2, an odd
+// one by an add of P to m − 1 (2P, 3P = 2P + P, 4P, 5P = 4P + P, 6P = 2·3P,
+// 7P = 6P + P, 8P = 2·4P at M = 8).
+template <int M, class F>
+__device__ __forceinline__ void g1_ladder_table(G1* T, const G1& P) {
+  T[0] = P;
+#pragma unroll 1
+  for (int m = 2; m <= M; m++) {
+    if (m % 2 == 0) g1_double_with<F>(T[m - 1], T[m / 2 - 1]);
+    else g1_add_with<F>(T[m - 1], T[m - 2], P);
+  }
+}
+
+// R = [k]P in one thread, by the recoding and table above (the table in
+// the thread's local memory: a digit picks its entry at run time). R may
+// alias P. The top window's doubles of acc = ∞ are skipped where there is
+// no carry: a double of (0 : 1 : 0) is (0 : 1 : 0), limb for limb.
+template <int B, class F>
 __device__ __forceinline__ void g1_scalar_mul_with(G1& R, const G1& P,
                                                    const uint32_t* k) {
+  constexpr int W = ladder_windows<B>;
+  G1 T[1 << (B - 1)];
+  g1_ladder_table<1 << (B - 1), F>(T, P);
   G1 acc;
-  g1_set_infinity(acc);
+  const int carry = signed_digit<B>(k, W);
+  if (carry) acc = P;
+  else g1_set_infinity(acc);
 #pragma unroll 1
-  for (int w = 7; w >= 0; w--) {
-    const uint32_t word = k[w];
+  for (int w = W - 1; w >= 0; w--) {
+    if (w < W - 1 || carry) {
 #pragma unroll 1
-    for (int b = 31; b >= 0; b--) {
-      g1_double_with<F>(acc, acc);
-      if ((word >> b) & 1) g1_add_with<F>(acc, acc, P);
+      for (int b = 0; b < B; b++) g1_double_with<F>(acc, acc);
+    }
+    const int d = signed_digit<B>(k, w);
+    if (d != 0) {
+      G1 Q = T[(d < 0 ? -d : d) - 1];
+      if (d < 0) {
+        uint32_t zero[fq::L] = {};
+        F::sub(Q.Y, zero, Q.Y);
+      }
+      g1_add_with<F>(acc, acc, Q);
     }
   }
   R = acc;
 }
 
+// The ladder's window width (ops/curve.py:LADDER_DIGIT_BITS is its mirror):
+// 4 bits, signed digits in [-7, 8], a table of P … 8P.
+constexpr int LADDER_DIGIT_BITS = 4;
+
 __device__ __forceinline__ void g1_scalar_mul(G1& R, const G1& P,
                                               const uint32_t* k) {
-  g1_scalar_mul_with<FqInline>(R, P, k);
+  g1_scalar_mul_with<LADDER_DIGIT_BITS, FqInline>(R, P, k);
 }

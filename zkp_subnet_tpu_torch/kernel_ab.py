@@ -14,8 +14,12 @@ Each is driven through its own package, in a process of its own: its
 checkouts at once), and its wrappers ``g1_add``, ``g1_double``,
 ``msm_buckets(points, *msm.bucket_runs(scalars, groups))``, ``fr_inv`` (of
 one random element, and of 16 with 0, 1 and r − 1 among them) and, where
-the checkout has it, the ladder ``g1_scalar_mul`` (at 2^16 points and at
-16, the first MSM's scalars) are timed; and the aggregation's two MSMs
+the checkout has it, the ladder ``g1_scalar_mul`` (``LADDER_POINTS``: 16
+points, a default request's 2 × 1024, 2 × 2048, 2^16 and a default
+prove's 2^19, scalars below r; where the checkout has two forms, each at
+``LADDER_FORMS``) and beside it a request's naive MSM (``msm_auto_many``)
+and K2's ``msm_many`` at 2 × 1024 and 2 × 2048 are timed; and the
+aggregation's two MSMs
 over 16, 256 and 1024 keys, as the checkout's aggregation runs them:
 ``g1_msm_fixed`` over the keys' window table (built untimed) where it has
 one, else a ladder and a ``g1_sum`` tree an MSM (``msm.msm_naive``), and
@@ -32,8 +36,8 @@ shape), uniform, and all equal to 1, and the opening's row and its
 batch's factors. Device ms: CUDA events around the replay of a CUDA graph of several
 launches. Every checkout is timed twice, in the order given and then in
 the reverse order. Its outputs must equal those of the first checkout
-that has the kernel: the K1 kernels and the inverses limb for limb,
-the bucket sums and the aggregation's MSMs as points; and before any
+that has the kernel: the K1 kernels but the ladder and the inverses limb
+for limb, the ladder, the bucket sums and the MSMs as points; and before any
 number, each checkout's aggregation MSMs must equal the oracle's Σ
 k_i·P_i (the keys' discrete logs are known). Then, for each
 checkout, the registers and spills of the kernels (``KERNELS``, from
@@ -59,6 +63,16 @@ SEED = 20261016
 #: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder,
 #: the opening's kernels over the batch
 REPS_POINT, REPS_BUCKETS, REPS_LADDER, REPS_BATCH = 100, 5, 2, 2
+#: the ladder's shapes (label, points, rows of bases): 16 points (the
+#: aggregation's before g1_msm_fixed), a default request's two MSMs of 1024
+#: and two of 2048 (the most a naive MSM takes), 2^16 (chip_smoke.py's SRS
+#: row), a one-rank prove's 2^19 at 18/8; and the points at which each form
+#: of a checkout that has two is timed (around their crossover)
+LADDER_POINTS = (("16 points", 16, 1), ("2 x 1024", 2048, 2),
+                 ("2 x 2048", 4096, 2), ("2^16 points", 1 << 16, 1),
+                 ("2^19 points", 1 << 19, 1), ("2^13 points", 1 << 13, 1),
+                 ("2^14 points", 1 << 14, 1), ("2^15 points", 1 << 15, 1))
+LADDER_FORMS = (2048, 4096, 1 << 13, 1 << 14, 1 << 15)
 #: the aggregation's MSMs over the keys' table, and the table
 REPS_FIXED, REPS_TABLE = 10, 2
 #: the aggregation's keys: [round]'s 16, the mainnet's 256, machines_scale
@@ -67,7 +81,8 @@ FIXED_KEYS = (16, 256, 1024)
 #: rows of the opening's batch (a prove's 256 workers at 24/8)
 BATCH = 256
 KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel",
-           "g1_scalar_mul_kernel", "fr_inv_kernel", "g1_msm_fixed_kernel",
+           "g1_scalar_mul_kernel", "g1_scalar_mul_group_kernel",
+           "fr_inv_kernel", "g1_msm_fixed_kernel",
            "g1_msm_fixed_sum_kernel", "g1_fixed_table_kernel",
            "g1_fixed_multiples_kernel", "fr_power_tables_kernel",
            "fr_powers_kernel", "fr_open_quotient_kernel")
@@ -138,12 +153,7 @@ def child_time(inputs: str, reference: str) -> dict:
         fns[f"msm_buckets {label}"] = (
             lambda runs=runs: kernels.msm_buckets(p, *runs), REPS_BUCKETS)
     if hasattr(kernels, "g1_scalar_mul"):
-        k = data["scalars"]["uniform"][0].to(dev)
-        p16, k16 = p[:16].contiguous(), k[:16].contiguous()
-        fns["g1_scalar_mul"] = (lambda: kernels.g1_scalar_mul(p, k),
-                                REPS_LADDER)
-        fns["g1_scalar_mul 16 points"] = (
-            lambda: kernels.g1_scalar_mul(p16, k16), REPS_LADDER)
+        fns.update(_ladder_fns(kernels, tmsm, p, data["ladder"].to(dev)))
     for n, x in ((1, data["fr"][3:4]), (16, data["fr"])):
         x = x.to(dev)
         fns[f"fr_inv {n}"] = (lambda x=x: kernels.fr_inv(x), REPS_POINT)
@@ -161,10 +171,43 @@ def child_time(inputs: str, reference: str) -> dict:
         ref.update(missing)
         torch.save(ref, reference)
     ref = {k: v.to(dev) for k, v in ref.items()}
+    # the ladder's forms give other projective Z than the binary ladder
     equal = {k: (torch.equal(v, ref[k]) if k.startswith(("g1_", "fr_"))
+                 and not k.startswith("g1_scalar_mul")
                  else _same_points(kernels, v, ref[k]))
              for k, v in outs.items()}
     return {"ms": ms, "equal": equal, "package": kernels.CSRC}
+
+
+def _ladder_fns(kernels, tmsm, p, scalars) -> dict:
+    """The ladder at LADDER_POINTS (the first points and scalars; a
+    request's 2 × 1024 and 2 × 2048 are one row of bases twice, as
+    ``msm_auto_many`` repeats them), as the checkout's wrapper picks its
+    form; where the checkout has two forms, each of them at LADDER_FORMS;
+    and the naive MSM of a request (the ladder and its sums) beside K2's
+    ``msm_many`` at 2 × 1024 and 2 × 2048."""
+    import torch
+
+    fns = {}
+    for label, n, rows in LADDER_POINTS:
+        pts = (p[:n // rows].repeat(rows, 1, 1) if n <= p.shape[0]
+               else p.repeat(-(-n // p.shape[0]), 1, 1)[:n]).contiguous()
+        k = scalars[:n].contiguous()
+        fns[f"g1_scalar_mul {label}"] = (
+            lambda pts=pts, k=k: kernels.g1_scalar_mul(pts, k),
+            REPS_LADDER)
+        if hasattr(kernels, "_ladder") and n in LADDER_FORMS:
+            for form, grouped in (("group", True), ("thread", False)):
+                fns[f"g1_scalar_mul {form} form {label}"] = (
+                    lambda pts=pts, k=k, g=grouped: kernels._ladder(pts, k, g),
+                    REPS_LADDER)
+    for n in (1024, 2048):
+        sc = scalars[:2 * n].view(2, n, 8)
+        fns[f"msm_auto_many 2 x {n}"] = (
+            lambda sc=sc, n=n: tmsm.msm_auto_many(p[:n], sc), REPS_LADDER)
+        fns[f"msm_many (K2) 2 x {n}"] = (
+            lambda sc=sc, n=n: tmsm.msm_many(p[:n], sc), REPS_LADDER)
+    return fns
 
 
 def _fixed_fns(kernels, tmsm, p, scalars) -> dict:
@@ -310,7 +353,11 @@ def _inputs(path: str) -> None:
     row = rng.integers(0, 1 << 16, (n + BATCH, 16), dtype=np.uint32)
     row[:, 15] = rng.integers(0, 0x73ED, n + BATCH, dtype=np.uint32)
     row = FR.from_limbs16(row)
+    # the ladder's scalars (below r, as the MSMs' are): 2^19
+    lad = rng.integers(0, 1 << 16, (1 << 19, 16), dtype=np.uint32)
+    lad[:, 15] = rng.integers(0, 0x73ED, 1 << 19, dtype=np.uint32)
     torch.save({"p": p.cpu(), "q": p.roll(1, 0).cpu(),
+                "ladder": FR.from_limbs16(lad, dev).cpu(),
                 "fr": FR.from_limbs16(fr), "row": row[:n].clone(),
                 "factors": row[n:].clone(), "scalars": {
         "uniform": FR.from_limbs16(limbs, dev).cpu(),

@@ -7,9 +7,9 @@ complete RCB15 formulas (eprint 2015/1060, Algorithms 7 and 9, a = 0):
 kernel K1 (``csrc/g1.cu``) on a CUDA tensor, ``g1_add_plain``/
 ``g1_double_plain`` on a CPU tensor. Both evaluate the same field-op
 sequence as the JAX package, so even the projective outputs agree.
-``g1_scalar_mul`` is the double-and-add ladder as one K1 launch on a CUDA
-tensor (``g1_scalar_mul_plain``, the loop over the plain double and add, on
-a CPU tensor). ``g1_sum`` is a glue loop over the add, and so is the
+``g1_scalar_mul`` is the ladder over signed 4-bit windows as one K1 launch
+on a CUDA tensor (``g1_scalar_mul_plain``, the kernel's doubles and adds in
+its order, on a CPU tensor). ``g1_sum`` is a glue loop over the add, and so is the
 fixed-base comb ``g1_fixed_base_mul`` (a table gather and one K1 add per
 8-bit window), which generates the SRS.
 
@@ -165,25 +165,85 @@ def g1_select(cond: torch.Tensor, p: torch.Tensor, q: torch.Tensor):
     return torch.where(cond[..., None, None], p, q)
 
 
+#: the ladder's signed windows (LADDER_DIGIT_BITS of csrc/g1.cuh): digits
+#: in [-7, 8], a table of the multiples P … 8P a point
+LADDER_DIGIT_BITS = 4
+LADDER_WINDOWS = -(-256 // LADDER_DIGIT_BITS)
+LADDER_MULTIPLES = 1 << (LADDER_DIGIT_BITS - 1)
+
+
+def signed_digits(scalars: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., 8) canonical scalars (any 256-bit value) → (..., W + 1) int64,
+    W = ceil(256 / bits): the signed digits of ``bits``-bit windows in
+    [1 − 2^(bits−1), 2^(bits−1)], least significant first (each window's
+    bits plus the carry out of the one below, less 2^bits and a carry out
+    where that passes 2^(bits−1)), then the carry out of the top window:
+    k = carry·2^(bits·W) + Σ d_w·2^(bits·w). ``csrc/g1.cuh:signed_digit``
+    computes each digit alone."""
+    s = scalars.to(torch.int64) & 0xFFFFFFFF
+    pos = torch.arange(32, device=scalars.device)
+    flat = ((s.unsqueeze(-1) >> pos) & 1).flatten(-2)       # (..., 256)
+    windows = -(-256 // bits)
+    pad = windows * bits - 256
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (pad,))],
+                         -1)
+    weights = 1 << torch.arange(bits, device=scalars.device)
+    nib = (flat.unflatten(-1, (windows, bits)) * weights).sum(-1)
+    out = torch.empty(nib.shape[:-1] + (windows + 1,), dtype=torch.int64,
+                      device=scalars.device)
+    carry = torch.zeros_like(nib[..., 0])
+    for w in range(windows):
+        d = nib[..., w] + carry
+        carry = (d > 1 << (bits - 1)).long()
+        out[..., w] = d - (carry << bits)
+    out[..., windows] = carry
+    return out
+
+
+def ladder_table_plain(p: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 12) → (N, LADDER_MULTIPLES, 3, 12), entry j = (j + 1)P, as the
+    kernel builds it: an even multiple m by a double of m/2, an odd one by
+    an add of P to m − 1."""
+    table = [p]
+    for m in range(2, LADDER_MULTIPLES + 1):
+        table.append(g1_double_plain(table[m // 2 - 1]) if m % 2 == 0
+                     else g1_add_plain(table[m - 2], p))
+    return torch.stack(table, 1)
+
+
 def g1_scalar_mul_plain(p: torch.Tensor,
                         scalars: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1 ``g1_scalar_mul``: [k_i]P_i by double-and-add
-    over 256 bits, most significant first
-    (``zkp_subnet_tpu/ops/curve.py:159-181``), each step a plain double, a
-    plain add and a select (the kernel adds only where the bit is set: the
-    same limbs)."""
-    acc = g1_infinity(p.shape[:-2], p.device)
-    for bit in range(FR.L * 32 - 1, -1, -1):
-        b = (scalars[..., bit // 32] >> (bit % 32)) & 1
-        acc = g1_double_plain(acc)
-        acc = g1_select(b.bool(), g1_add_plain(acc, p), acc)
-    return acc
+    """Plain version of K1 ``g1_scalar_mul``, its operations in its order:
+    the signed digits of 4-bit windows (``signed_digits``), the table P …
+    8P (``ladder_table_plain``), acc = P where the top window carries out,
+    else ∞; then from the top window down 4 doubles and, where the digit d
+    is not 0, one add of entry |d| − 1, its Y negated where d < 0, every
+    point at once. The top window's doubles of ∞ are (0 : 1 : 0) limb for
+    limb, so they run only where a point carries."""
+    shape = p.shape
+    p = p.reshape(-1, 3, FQ.L)
+    d = signed_digits(scalars.reshape(-1, FR.L), LADDER_DIGIT_BITS)
+    table = ladder_table_plain(p)
+    rows = torch.arange(p.shape[0], device=p.device)
+    carry = d[:, LADDER_WINDOWS] != 0
+    acc = g1_select(carry, p, g1_infinity((p.shape[0],), p.device))
+    for w in range(LADDER_WINDOWS - 1, -1, -1):
+        if w < LADDER_WINDOWS - 1 or bool(carry.any()):
+            for _ in range(LADDER_DIGIT_BITS):
+                acc = g1_double_plain(acc)
+        dw = d[:, w]
+        entry = table[rows, (dw.abs() - 1).clamp(min=0)]
+        entry[:, 1] = torch.where((dw < 0)[:, None], FQ.sub_plain(
+            torch.zeros_like(entry[:, 1]), entry[:, 1]), entry[:, 1])
+        acc = g1_select(dw != 0, g1_add_plain(acc, entry), acc)
+    return acc.reshape(shape)
 
 
 def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """[k_i]P_i. p: (N, 3, 12); scalars: (N, 8) canonical int32 limbs. One
-    K1 launch for the whole ladder on a CUDA tensor, the plain version on
-    the CPU."""
+    """[k_i]P_i. p: (N, 3, 12); scalars: (N, 8) canonical int32 limbs (any
+    256-bit value). One K1 launch for the whole ladder on a CUDA tensor,
+    the plain version on the CPU."""
     if p.is_cuda or scalars.is_cuda:
         return kernels.g1_scalar_mul(p.contiguous(), scalars.contiguous())
     return g1_scalar_mul_plain(p, scalars)

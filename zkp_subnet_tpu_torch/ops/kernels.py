@@ -79,6 +79,11 @@ EVAL_PER_THREAD = 4
 #: rows of one ``fr_eval_rows`` launch at most (the grid's second dimension)
 MAX_EVAL_ROWS = 65535
 
+#: points at most that ``g1_scalar_mul`` takes in its group form (a point
+#: a group of 8 lanes); above, a thread a point. The crossover of the two
+#: forms on the H100 (PERF.md, kernel_ab.py)
+LADDER_GROUP_MAX = 1 << 13
+
 #: the fixed-base table of ``g1_fixed_table``: windows of 4 bits (signed
 #: digits in [-7, 8]) and the multiples 1..8 of each window's base
 #: (FIXED_WINDOWS and FIXED_MULTIPLES of csrc/g1.cu), and the inputs a block
@@ -233,7 +238,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         "zkp_g1_add": [p, p, p, i64, p],
         "zkp_g1_double": [p, p, i64, p],
-        "zkp_g1_scalar_mul": [p, p, p, i64, p],
+        "zkp_g1_scalar_mul": [p, p, p, i64, i32, p],
         "zkp_g1_fixed_table": [p, p, i64, p],
         "zkp_g1_msm_fixed": [p, p, p, p, i32, i32, i32, i32, i32, p],
         "zkp_msm_buckets": [p, p, p, p, i32, i32, p],
@@ -325,25 +330,45 @@ def g1_double(p: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ladder_grouped(n: int) -> bool:
+    """Whether ``g1_scalar_mul`` runs n points in its group form (a point a
+    group of 8 lanes: few points, bound by the chain's latency) rather than
+    its thread form (a thread a point: many points, bound by the integer
+    rate)."""
+    return n <= LADDER_GROUP_MAX
+
+
 def g1_scalar_mul(p: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """[k_i]P_i for (N, 3, 12) points and (N, 8) canonical int32 scalars.
+    """[k_i]P_i for (N, 3, 12) points and (N, 8) canonical int32 scalars
+    (any 256-bit value).
 
     Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ as
     reached through dispatch_ldouble/dispatch_ladd from curve.g1_scalar_mul
-    (:373/:385). Bound: integer multiplies (256 doubles and an add a set
-    bit, a point); at a few points the latency of one thread's 256 steps.
-    One launch for the whole ladder, one thread a point, acc and P in
-    registers."""
+    (:373/:385). Bound: integer multiplies (bitlen(k) − 1 doubles and the
+    adds of the best fixed window, a point); at a few thousand points the
+    latency of a point's chain. One launch for the whole ladder over signed
+    4-bit windows and a table P … 8P a point, built in the kernel: in its
+    group form at N ≤ ``LADDER_GROUP_MAX`` (each step's products side by
+    side on the lanes of a group), else a thread a point. Both forms give
+    the limbs of ``curve.g1_scalar_mul_plain``."""
     _check(p, "p", tail=(3, 12))
     _check(scalars, "scalars", tail=(8,))
     if (p.shape[:-2] != scalars.shape[:-1]
             or p.device != scalars.device):
         raise ValueError("g1_scalar_mul: one scalar a point, on one device")
+    n = p.numel() // 36
+    return _ladder(p, scalars, ladder_grouped(n))
+
+
+def _ladder(p: torch.Tensor, scalars: torch.Tensor,
+            grouped: bool) -> torch.Tensor:
+    """``g1_scalar_mul`` in the form named (checked inputs): for timing the
+    two forms against each other at one N."""
     out = torch.empty_like(p)
     n = p.numel() // 36
     if n:
-        _launch("g1_scalar_mul", _load().zkp_g1_scalar_mul,
-                p.data_ptr(), scalars.data_ptr(), out.data_ptr(), n)
+        _launch("g1_scalar_mul", _load().zkp_g1_scalar_mul, p.data_ptr(),
+                scalars.data_ptr(), out.data_ptr(), n, int(grouped))
     return out
 
 

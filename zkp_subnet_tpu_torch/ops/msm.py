@@ -62,7 +62,8 @@ import torch
 
 from . import kernels
 from .curve import (g1_add, g1_add_plain, g1_double_plain, g1_infinity,
-                    g1_scalar_mul, g1_sum, scalar_digits, tree_sum)
+                    g1_scalar_mul, g1_sum, scalar_digits, signed_digits,
+                    tree_sum)
 from .field import FQ
 
 WINDOW_BITS = 8
@@ -360,16 +361,17 @@ def msm_auto(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """``msm_auto`` for (K, N, 8) scalars → (K, 3, 12), over the same points
     (N, 3, 12) or over points of their own a row (K, N, 3, 12): at
-    N ≤ NAIVE_THRESHOLD one double-and-add sweep over all K·N products (one
-    ladder launch on the card) and K tree sums, the limbs of K
-    ``msm_naive`` calls; above, one batched Pippenger over shared points,
-    or one Pippenger a row."""
+    N ≤ NAIVE_THRESHOLD one ladder over all K·N products (one launch on
+    the card) and one tree of adds over the K rows (log2 N ``g1_add``
+    launches), the limbs of K ``msm_naive`` calls; above, one batched
+    Pippenger over shared points, or one Pippenger a row."""
     k, n = scalars.shape[:2]
     shared = points.dim() == 3
     if n <= NAIVE_THRESHOLD:
         pts = points.repeat(k, 1, 1) if shared else points.reshape(k * n, 3, -1)
         prods = g1_scalar_mul(pts, scalars.reshape(k * n, -1))
-        return torch.stack([g1_sum(p) for p in prods.view(k, n, 3, -1)])
+        return tree_sum(prods.view(k, n, 3, -1), g1_add,
+                        g1_infinity((), prods.device))
     if shared:
         return msm_many(points, scalars)
     return torch.stack([msm(p, s) for p, s in zip(points, scalars)])
@@ -416,17 +418,10 @@ def fixed_table(points: torch.Tensor) -> torch.Tensor:
 
 def fixed_digits_plain(scalars: torch.Tensor) -> torch.Tensor:
     """(..., 8) canonical scalars below 2^255 → (..., 64) signed digits in
-    [-7, 8], least significant first, Σ d_w·16^w = k: each window's nibble
-    plus the carry out of the one below, less 16 (and a carry out) where
-    that passes 8."""
-    nib = scalar_digits(scalars, FIXED_DIGIT_BITS)
-    out = torch.empty_like(nib)
-    carry = torch.zeros_like(nib[..., 0])
-    for w in range(FIXED_WINDOWS):
-        d = nib[..., w] + carry
-        carry = (d > FIXED_MULTIPLES).long()
-        out[..., w] = d - 16 * carry
-    return out
+    [-7, 8], least significant first, Σ d_w·16^w = k: the ladder's
+    recoding (``curve.signed_digits``), whose carry out of the top window
+    is 0 below 2^255."""
+    return signed_digits(scalars, FIXED_DIGIT_BITS)[..., :FIXED_WINDOWS]
 
 
 def fixed_terms_plain(table: torch.Tensor, scalars: torch.Tensor
@@ -504,7 +499,8 @@ def msm_auto_groups(points: torch.Tensor,
     """K MSMs over each of G point sets: points (G, N, 3, 12), scalars
     (G, K, N, 8) → (G, K, 3, 12), as the multi-device prove gives each
     worker's bases its commitments and openings. At N ≤ NAIVE_THRESHOLD
-    one ``msm_auto_many`` over all G·K rows (one ladder launch); above, one
+    one ``msm_auto_many`` over all G·K rows (one ladder launch, one tree of
+    log2 N adds); above, one
     batched Pippenger a group (``msm_many``), where points of their own a
     row would cost one Pippenger a row."""
     g, k, n = scalars.shape[:3]
