@@ -21,7 +21,8 @@ Phases (each prints a line; any failure exits non-zero):
    r − 2 and the aggregation's differences), ``fr_power_tables``,
    ``fr_powers``, ``fr_suffix_scan`` and ``fr_open_quotient`` at x = 0, 1,
    r − 1 and random, one row and four at one x, on rows of zeros, of a
-   length that is no multiple of the tile and of one whose powers take
+   length that is no multiple of the tile, at the scan's tile (a tile less
+   one, one past it, a default row of 1024) and of one whose powers take
    three levels of the tables, and the whole opening of one row and of
    four with the host forbidden to wait for the card; the K1 ladder
    ``g1_scalar_mul`` in both of its forms with scalars 0, 1, r − 1, r − 2,
@@ -34,9 +35,11 @@ Phases (each prints a line; any failure exits non-zero):
    ``g1_fixed_table`` at 16, 256 and 1024 bases (one at infinity), scalars
    0, 1, r − 1 and random, three MSMs a call, also against the oracle;
    the challenge's row evaluation ``fr_eval_rows`` at x = 0, 1, r − 1 and
-   random, on a row of zeros, one row, lengths 1, 1024, 1025 and 3000, one
-   row at 16 points, and 16 x 2^16 at one point with the host forbidden to
-   wait for the card);
+   random, on a row of zeros, one row, every length from 1 to 33 (a
+   lane's Horner run of one step, then two), one past a warp's run, 1024,
+   1025, 3000, a tile less one, one tile, one past it, and more than 32
+   tiles (the second pass's Horner steps), one row at 16 points, and 16 x
+   2^16 at one point with the host forbidden to wait for the card);
    then each kernel's time beside its plain version's, both on the card, at
    the shapes the paths below give it (CUDA events around a loop of
    launches: for a short kernel that is the host's cost a launch) and the
@@ -52,7 +55,9 @@ Phases (each prints a line; any failure exits non-zero):
    in µs a dependent point operation; the
    opening's kernels also at the [mesh] batch, 256 rows of 2^16 at one
    point (held to the plain versions on four of the rows), and the whole
-   opening at one row and at the batch;
+   opening at one row and at the batch; the scan also at a default row of
+   1024; ``fr_eval_rows`` also at [cli]'s challenge, 256 rows of 2^16 at
+   one point, and at one 2^16 row at 16 points;
 4. ``[main]``, the worker's path: a 2^16-base SRS slice [τ^j]G1 built on the
    card, a ``Worker`` over it, and three 2^16-coefficient ``Prove`` requests
    (two with a challenge point, one commit-only), each checked by the
@@ -617,9 +622,11 @@ def path_inputs(rng, dev):
         2, WIDE_KEYS, 16), dev)
     fsc = fsc1k[:, :256].contiguous()
     # the coordinator's challenge: m rows of 2^16 coefficients at one alpha
+    # ([cli]'s 256 rows: the batch); poly_eval_many's one row at 16 points
     rows = fr_from_canonical_limbs(
         random_scalar_limbs(rng, m * n).reshape(m, n, 16), dev)
     return types.SimpleNamespace(rows=rows, alpha=x1.view(1, 8),
+                                 pts16=random_fr(rng, m, dev),
                                  n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
                                  sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
                                  runs1=runs1, runs_ones=runs_ones, bk=bk,
@@ -798,6 +805,16 @@ def quotient_need(rows, n):
             + rows * tiles * OPS_FR_LIN)
 
 
+def eval_need(rows, n, coeff_rows, points):
+    """(bytes, operations) of y_r = Σ_k c_{r,k}·x_r^k for rows × n from
+    coeff_rows rows of coefficients (rows, or one for every point) and
+    points points: the coefficients and the points read and y written once;
+    Horner's one product and one add an element, the least any method
+    needs."""
+    return (FR_BYTES * (coeff_rows * n + points + rows),
+            rows * n * (OPS_FR_MUL + OPS_FR_LIN))
+
+
 def scan_need(rows, n):
     """(bytes, operations) of the scan's first pass over rows × n: terms
     read, local sums written once, the tiles' totals; an add an element."""
@@ -854,12 +871,9 @@ def path_calls(x):
             lambda: tpoly.fr_open_quotient_plain(local, totals, x1, tab1[1],
                                                  a),
             50, same_fr_pair, *quotient_need(1, n)),
-        # Horner's one product and one add an element is the least any
-        # method needs; the coefficients read once
         "fr_eval_rows": (lambda: kernels.fr_eval_rows(x.rows, x.alpha),
                          lambda: tpoly.fr_eval_rows_plain(x.rows, x.alpha),
-                         50, fr, FR_BYTES * (m * n + 1 + m),
-                         m * n * (OPS_FR_MUL + OPS_FR_LIN)),
+                         50, fr, *eval_need(m, n, m, 1)),
         "g1_add": (lambda: kernels.g1_add(p, q),
                    lambda: cv.g1_add_plain(p, q), 20, pts,
                    3 * G1_BYTES * n, OPS_G1_ADD * n),
@@ -1225,16 +1239,27 @@ def phase_kernels(rng, dev, int_ops_per_s):
               ("fr_eval_rows", OPENINGS, same_fr,
                lambda: openings_y(x.rows, x.alpha),
                lambda: kernels.fr_eval_rows(x.rows, x.alpha))]
+    others += [(name, label, same, kern, plain) for (name, label), (
+        kern, plain, same, _, _) in extra_shapes(x).items()]
     compare_ms = {}
     for name, label, same, kern, plain in others:
         ms, got = time_cuda(kern, 5)
         compare_ms[name, label], want = time_cuda(plain, 1, warm=False)
         record(name, same(got, want))
         del want
-        say(f"[kernels] {name}, {label}, {tuple(got.shape)}: equal to "
+        say(f"[kernels] {name}, {label}, {shape_of(got)}: equal to "
             f"plain; kernel {ms:.4f} ms, the comparison "
             f"{compare_ms[name, label]:.2f} ms")
         res[name].setdefault("other_ms", {})[label] = ms
+    for (name, label), (*_, need, _) in extra_shapes(x).items():
+        r = res[name]
+        ms, plain_ms = r["other_ms"][label], compare_ms[name, label]
+        b_ms, b_by = bound(*need, int_ops_per_s)
+        r.setdefault("other_bound_ms", {})[label] = b_ms
+        r.setdefault("other_plain_ms", {})[label] = plain_ms
+        say(f"[kernels] {name} at {label}: {ms:.4f} ms on the host's loop, "
+            f"bound {b_ms:.5f} ms ({b_by}), {ms / b_ms:.1f} x it; plain "
+            f"{plain_ms:.2f} ms")
     ladder = res["g1_scalar_mul"]
     ladder["other_bound_ms"] = {}
     for label, pts, sc in (("16 points", x.lp16, x.ls16),
@@ -1324,6 +1349,30 @@ def phase_kernels(rng, dev, int_ops_per_s):
     return res
 
 
+def extra_shapes(x):
+    """{(kernel, label): (call, plain call, comparison, (bytes,
+    operations), launches a CUDA graph replays)}: the shapes the paths give
+    the scan and the row evaluation besides ``path_calls``' and
+    ``batch_calls``': the scan at a default row of 1024 ([default]),
+    ``fr_eval_rows`` at [cli]'s challenge (256 rows of 2^16 at one point)
+    and one 2^16 row at 16 points (``poly_eval_many``)."""
+    n, b = x.n, MESH_BATCH
+    row1k = x.a[:1024]
+    return {
+        ("fr_suffix_scan", "1 x 1024"): (
+            lambda: kernels.fr_suffix_scan(row1k),
+            lambda: tpoly.fr_suffix_scan_plain(row1k), same_fr_pair,
+            scan_need(1, 1024), 100),
+        ("fr_eval_rows", f"{b} x 2^{LOG_N} at one point"): (
+            lambda: kernels.fr_eval_rows(x.batch, x.alpha),
+            lambda: tpoly.fr_eval_rows_plain(x.batch, x.alpha), same_fr,
+            eval_need(b, n, b, 1), 10),
+        ("fr_eval_rows", f"1 x 2^{LOG_N} at {x.m} points"): (
+            lambda: kernels.fr_eval_rows(x.a[None], x.pts16),
+            lambda: tpoly.fr_eval_rows_plain(x.a[None], x.pts16), same_fr,
+            eval_need(x.m, n, 1, x.m), 50)}
+
+
 def batch_calls(x):
     """{(kernel, label): (call, plain call on BATCH_SAMPLED rows, (bytes,
     operations), launches a CUDA graph replays)} at [mesh]'s batch of
@@ -1374,15 +1423,19 @@ def time_opening_batch(x, res, int_ops_per_s, record):
             got = tuple(t[rows] for t in got) if isinstance(got, tuple) \
                 else got[rows]
         same = same_fr_pair if isinstance(got, tuple) else same_fr
-        record(name, same(got, plain()))
-        del got
+        plain_ms, want = time_cuda(plain, 1, warm=False)
+        record(name, same(got, want))
+        del got, want
         b_ms, b_by = bound(nbytes, ops, int_ops_per_s)
+        sampled = '0' if '1 row' in label else rows
         res[name].setdefault("other_ms", {})[label] = ms
         res[name].setdefault("other_bound_ms", {})[label] = b_ms
-        say(f"[kernels] {name}, {label}: equal to plain (rows "
-            f"{'0' if '1 row' in label else rows}); {ms:.4f} ms a call on "
-            f"the host's loop, bound {b_ms:.5f} ms ({b_by}), "
-            f"{ms / b_ms:.1f} x it")
+        res[name].setdefault("other_plain_ms", {})[
+            f"{label}, rows {sampled}"] = plain_ms
+        say(f"[kernels] {name}, {label}: equal to plain (rows {sampled}); "
+            f"{ms:.4f} ms a call on the host's loop, bound {b_ms:.5f} ms "
+            f"({b_by}), {ms / b_ms:.1f} x it; plain {plain_ms:.2f} ms on "
+            f"rows {sampled}")
 
 
 def phase_fixed_msm_kernels(rng, dev, record):
@@ -1478,8 +1531,12 @@ def phase_opening_kernels(rng, dev, record):
     rand = random_fr(rng, big, dev)
     three = random_fr(rng, THREE_LEVELS, dev)
     short = random_fr(rng, 3000, dev)
+    tile = tpoly.SCAN_TILE
     rows = (("random", rand), ("all zeros", FR.zeros((big,), dev)),
             ("3000 coefficients", short),
+            (f"{tile - 1} coefficients, a tile less one", short[:tile - 1]),
+            (f"{tile + 1} coefficients, one past a tile", short[:tile + 1]),
+            ("1024 coefficients, a default row", short[:1024]),
             (f"{THREE_LEVELS} coefficients", three),
             (f"4 rows of 2^{LOG_N}", four(rand)),
             ("4 rows of 3000", four(short)),
@@ -1539,26 +1596,36 @@ def phase_opening_kernels(rng, dev, record):
 
 def phase_eval_rows_kernel(rng, dev, record):
     """K3 ``fr_eval_rows`` against its plain version (on CPU copies; at
-    16 x 2^16 on the card), tolerance 0: 4 rows, each at its own x of 0, 1,
-    r - 1 and random, and all 4 at each x; a row of zeros among them; one
-    row; n = 1, one tile (1024), one element past it (1025) and 3000 (no
-    multiple of the tile); one polynomial at 16 points
+    16 x 2^16 and past 32 tiles on the card), tolerance 0: 4 rows, each at
+    its own x of 0, 1, r - 1 and random, and all 4 at each x; a row of zeros
+    among them; one row; n = 1, one past a warp's run (a tile's eighth),
+    1024, 1025, 3000, a tile less one, one tile (EVAL_TILE), one past it;
+    every n from 2 to 33 (a lane's Horner run of one step, then two), four
+    rows at their own x; 33 tiles and 5 (the second pass's Horner steps
+    over a lane's tiles), two rows; one polynomial at 16 points
     (``poly_eval_many``); and the challenge's 16 x 2^16 at one point through
     ``poly_eval``, with the host forbidden to wait for the card, and row 0
     against the oracle."""
     xs = random_fr(rng, 5, dev)[[0, 1, 2, 4]].contiguous()  # 0, 1, r−1, rand
     cases = []
-    for n in (1, 1024, 1025, 3000):
+    tile = kernels.EVAL_TILE
+    for n in (1, tile // 8 + 1, 1024, 1025, 3000, tile - 1, tile, tile + 1):
         c = random_fr(rng, 4 * n, dev).view(4, n, 8).clone()
         c[1] = 0
         cases += [(f"4 x {n}, own x", c, xs)]
         cases += [(f"4 x {n}, x = {label}", c, xs[i:i + 1].contiguous())
                   for i, label in enumerate(("0", "1", "r-1", "random"))]
         cases += [(f"1 x {n}", c[2:3].contiguous(), xs[3:4].contiguous())]
+    for n in range(2, 34):
+        cases.append((f"4 x {n}, own x", random_fr(rng, 4 * n, dev).view(
+            4, n, 8), xs))
     for label, c, x in cases:
         record("fr_eval_rows", same_fr(kernels.fr_eval_rows(c, x),
                                        tpoly.fr_eval_rows_plain(c.cpu(),
                                                                 x.cpu())))
+    wide = random_fr(rng, 2 * (33 * tile + 5), dev).view(2, -1, 8)
+    record("fr_eval_rows", same_fr(kernels.fr_eval_rows(wide, xs[2:]),
+                                   tpoly.fr_eval_rows_plain(wide, xs[2:])))
     row = random_fr(rng, 3000, dev)
     pts = random_fr(rng, 16, dev)
     got = tpoly.poly_eval_many(row, pts)
@@ -1584,7 +1651,9 @@ def phase_eval_rows_kernel(rng, dev, record):
           "fr_eval_rows: row 0 != oracle")
     say(f"[kernels] K3 fr_eval_rows: {len(cases)} cases (4 rows at x = 0, "
         "1, r-1, random, each its own or all one; a row of zeros; one row; "
-        "n = 1, 1024, 1025, 3000), poly_eval_many of one row at 16 points, "
+        f"n = 1 to 33, {tile // 8 + 1}, 1024, 1025, 3000, {tile - 1}, "
+        f"{tile}, {tile + 1}), 2 rows of {33 * tile + 5} (34 tiles), "
+        "poly_eval_many of one row at 16 points, "
         f"and poly_eval of {m} x 2^{LOG_N} rows at one x with no wait for "
         "the card on the host: equal to plain; row 0 and two of the 16 "
         "points equal the oracle")
@@ -1700,6 +1769,8 @@ def phase_device_times(res, dev):
                   lambda: tmsm.msm_many(x.lag16, x.fsc16), 5)}
     others.update({(name, label + ", device"): (call[0], call[3])
                    for (name, label), call in batch_calls(x).items()})
+    others.update({(name, label + ", device"): (call[0], call[4])
+                   for (name, label), call in extra_shapes(x).items()})
     for (name, label), (fn, launches) in others.items():
         ms = time_graph(fn, launches)
         res[name].setdefault("other_ms", {})[label] = ms

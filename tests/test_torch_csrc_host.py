@@ -1,7 +1,8 @@
 """The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
 fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
 integers and the port's plain point formulas: the field operations, the
-binary inverse (fr::inv), a run of powers (fr::pow_run), the power tables
+binary inverse (fr::inv), Horner's steps (fr::horner_step, fr::tree_step:
+K3 fr_eval_rows's runs and its tree), the power tables
 (fr::power_table, a level by fr::level_scan) and their lookup
 (fr::table_pow), the point add and double, and the ladder (g1_scalar_mul
 over signed windows, and the recoding signed_digit that both of its
@@ -72,8 +73,10 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
 # reads records "op word...", writes the result's words a line each:
 # ops 0-2 Fr mul/add/sub, 3-5 Fq mul/add/sub, 6 g1_add, 7 g1_double,
 # 8 Fr inverse, 9 the ladder (a point, then its scalar's 8 words), 10 a
-# run of four powers (x, then the words k, bits and 1 to leave Montgomery
-# form or 0), 11 a power table (x, then levels and canonical0; all its
+# Horner run (X, a count m, then m coefficients: Σ c_e·X^e by
+# fr::horner_step from the top, below 2r between the steps, then one
+# conditional subtract), 14 a tree step (a, b, x^d: a + x^d·b),
+# 11 a power table (x, then levels and canonical0; all its
 # entries on one line), 12 lookups in one (x, levels, canonical0, a count
 # m, then m exponents as two words each, low first; a line each), 13 the
 # ladder's signed digits of a scalar's 8 words (4-bit windows and the
@@ -147,12 +150,23 @@ int main() {
       fr::inv(r, a);
       write(r, fr::L);
     } else if (op == 10) {
-      uint32_t T[32 * fr::L], run[4][fr::L], one[fr::L] = {1};
+      uint32_t m, c[fr::L];
       read(a, fr::L);
-      read(b, 3);
-      fr::square_table(T, a, (int)b[1]);
-      fr::pow_run<4>(run, T, b[0], (int)b[1], b[2] ? one : nullptr);
-      write(run[0], 4 * fr::L);
+      read(&m, 1);
+      read(r, fr::L);
+      for (uint32_t e = 1; e < m; e++) {
+        read(c, fr::L);
+        fr::horner_step(r, a, c);
+      }
+      mont::reduce_once<fr::L>(r, r, fr::P);
+      write(r, fr::L);
+    } else if (op == 14) {
+      uint32_t xd[fr::L];
+      read(a, fr::L);
+      read(b, fr::L);
+      read(xd, fr::L);
+      fr::tree_step(r, a, b, xd);
+      write(r, fr::L);
     } else if (op == 11 || op == 12) {
       static uint32_t T[4 * fr::POW_WIDTH * fr::L];
       read(a, fr::L);
@@ -309,27 +323,52 @@ def test_inverse_chain_matches_python_integers(host_binary):
                                       % o.R for v in vals]
 
 
-def test_power_run_matches_python_integers(host_binary):
-    """fr::square_table and fr::pow_run (a thread's run in K3 fr_powers
-    and fr_open_quotient) at x 0, 1, r − 1 and random, from k = 0, a k
-    with every bit of the table set and one with none but the top, in
-    Montgomery form and canonical, against x^(k+e) mod r."""
-    rng = np.random.default_rng(19)
-    xs = [0, 1, o.R - 1, int.from_bytes(rng.bytes(40), "little") % o.R]
-    cases = [(x, k, bits, canon) for x in xs
-             for k, bits in ((0, 1), (4, 3), ((1 << 16) - 4, 16),
-                             (1 << 15, 16)) for canon in (0, 1)]
+MONT = 1 << 256
+
+#: Fr values the Horner helpers are held to: 0, 1, r − 1, r − 2 and random
+HORNER_VALUES = [0, 1, o.R - 1, o.R - 2] + [
+    int.from_bytes(np.random.default_rng(29).bytes(40), "little") % o.R
+    for _ in range(4)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 33])
+def test_horner_run_matches_python_integers(host_binary, m):
+    """fr::horner_step (a lane's run in K3 fr_eval_rows, and a lane's run
+    over the tiles in its second pass) from h = c_(m-1) down to c_0 with X
+    0, 1, r − 1, r − 2 and random (in Montgomery form, as x^32 and x^(32
+    tile) are), on coefficients that hold each of those values and a row
+    of zeros, h kept below 2r between the steps and reduced once at the
+    end: Σ c_e·X^e mod r, limb for limb in Montgomery form."""
+    rng = np.random.default_rng(31 + m)
+    rows = [[int.from_bytes(rng.bytes(40), "little") % o.R
+             for _ in range(m)] for _ in range(3)]
+    rows[0][:4] = HORNER_VALUES[:min(4, m)]
+    rows.append([0] * m)
+    cases = [(X, row) for X in HORNER_VALUES[:5] for row in rows]
     got = _run(host_binary, [
-        (10, (_words(x * (1 << 256) % o.R, 8), [k, bits, canon]))
-        for x, k, bits, canon in cases])
-    for g, (x, k, _, canon) in zip(got, cases):
-        scale = 1 if canon else 1 << 256
-        assert [_int(g[8 * e:8 * e + 8]) for e in range(4)] == [
-            pow(x, k + e, o.R) * scale % o.R for e in range(4)], (x, k)
+        (10, (_words(X * MONT % o.R, 8), [m],
+              *[_words(c * MONT % o.R, 8) for c in row[::-1]]))
+        for X, row in cases])
+    assert [_int(g) for g in got] == [
+        sum(c * pow(X, e, o.R) for e, c in enumerate(row)) * MONT % o.R
+        for X, row in cases]
+
+
+def test_tree_step_matches_python_integers(host_binary):
+    """fr::tree_step (the tree that joins a tile's warps in K3
+    fr_eval_rows: a + x^d·b) over every pair of 0, 1, r − 1, r − 2 and
+    random values for a and b, at x^d of each: limb for limb in
+    Montgomery form."""
+    cases = [(a, b, xd) for a in HORNER_VALUES for b in HORNER_VALUES
+             for xd in HORNER_VALUES[::2]]
+    got = _run(host_binary, [
+        (14, tuple(_words(v * MONT % o.R, 8) for v in case))
+        for case in cases])
+    assert [_int(g) for g in got] == [(a + xd * b) * MONT % o.R
+                                      for a, b, xd in cases]
 
 
 TABLE_XS = [0, 1, o.R - 1, 0x5EED * (1 << 190) + 12345]
-MONT = 1 << 256
 
 
 @pytest.mark.parametrize("levels", [1, 2, 3])

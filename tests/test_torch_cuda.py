@@ -399,11 +399,14 @@ def test_fr_powers_kernel_matches_plain(dev, n):
                            fr_powers_plain(want[0], n, rows))
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1024, 3000, 1 << 16, 70000])
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 1000, 1024, 3000,
+                               1 << 16, 70000])
 def test_opening_kernels_match_plain(dev, n):
     """fr_suffix_scan and fr_open_quotient each against its plain version
-    on the same inputs (tiles of the kernel's 1024: one partial tile, one
-    full, three with a partial last, 64 full, three levels of the table),
+    on the same inputs (tiles of the kernel's SCAN_TILE = 512: one partial
+    tile, one full, one element past it, two with a partial last, two
+    full (a default row of 1024), six with a partial last, 128 full, three
+    levels of the table),
     at x 0, 1, r − 1 and random, one row and four at once (the scan on the
     rows laid end to end where they are whole tiles); and a row of zeros.
     The plain versions run on the card."""
@@ -676,14 +679,17 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
 
 @pytest.mark.parametrize("rows, n, shared", [
     (4, 1, None), (4, 1000, None), (4, 1024, None), (4, 1025, None),
-    (4, 3000, "x"), (1, 3000, None), (16, 3000, "row"),
-    (16, 1 << 16, "x")])
+    (4, 2048, None), (4, 2049, "x"), (4, 3000, "x"), (1, 3000, None),
+    (16, 3000, "row"), (16, 1 << 16, "x"), (16, 1 << 16, "row"),
+    (3, 34 * 2048 + 5, None)])
 def test_fr_eval_rows_kernel_matches_plain(dev, rows, n, shared):
     """K3 fr_eval_rows against its plain version limb for limb: x = 0, 1,
     r − 1 and random (each row its point, or all rows one point), a row of
-    zeros, one row at many points, n of one element, one tile, one element
-    past it and no multiple of the tile; at the challenge's 16 × 2^16 one
-    launch and the oracle for row 0."""
+    zeros, one row at many points, n of one element, one tile
+    (EVAL_TILE = 2048), one element past it, no multiple of the tile and
+    more than 32 tiles (the second pass's Horner steps); at the
+    challenge's 16 × 2^16 and one 2^16 row at 16 points, one launch and
+    the oracle for row 0. The plain version runs on the card past 3000."""
     c = _edge_fr(40 + n, rows * n).view(rows, n, 8).clone()
     c[1 % rows] = 0
     xs = _edge_fr(41, max(rows, 4))[:rows].clone()
@@ -694,14 +700,41 @@ def test_fr_eval_rows_kernel_matches_plain(dev, rows, n, shared):
     before = dict(kernels.LAUNCHES)
     got = kernels.fr_eval_rows(c.to(dev), xs.to(dev))
     assert kernels.LAUNCHES["fr_eval_rows"] == before["fr_eval_rows"] + 1
-    if n <= 3000:
-        want = tpoly.fr_eval_rows_plain(c, xs)
-    else:
-        want = tpoly.fr_eval_rows_plain(c[:1].to(dev), xs.to(dev))[:1]
-        got = got[:1]
-        assert FR.decode(got) == [o.poly_eval(FR.decode(c[0]),
-                                              FR.decode(xs[0])[0])]
+    on = (lambda t: t) if n <= 3000 else (lambda t: t.to(dev))
+    want = tpoly.fr_eval_rows_plain(on(c), on(xs))
     assert torch.equal(got.cpu(), want.cpu())
+    if n > 3000:
+        assert FR.decode(got[:1]) == [o.poly_eval(FR.decode(c[0]),
+                                                  FR.decode(xs[0])[0])]
+
+
+@pytest.mark.parametrize("rows", [600, 1100])
+def test_fr_eval_rows_many_rows_at_one_point(dev, rows):
+    """K3 fr_eval_rows over many rows of two tiles (2049 coefficients) at
+    one random point: on a card of 132 SMs a block takes two rows at 600
+    rows and four at 1100 (the most that leave four blocks an SM), the
+    last block fewer; limb for limb to the plain version on the card."""
+    rng = np.random.default_rng(46 + rows)
+    limbs = rng.integers(0, 1 << 16, (rows, 2049, 16), dtype=np.uint32)
+    limbs[..., 15] %= 0x73ED                     # below r
+    c = FR.from_limbs16(limbs, dev)
+    x = _edge_fr(47, 4)[3:4].contiguous().to(dev)
+    assert torch.equal(kernels.fr_eval_rows(c, x),
+                       tpoly.fr_eval_rows_plain(c, x))
+
+
+def test_fr_eval_rows_short_rows_match_plain(dev):
+    """K3 fr_eval_rows at every n from 1 to 33 (a lane's run of one Horner
+    step, then two): four rows each at its own x of 0, 1, r − 1 and random,
+    the four at one x, and one row at the four points, limb for limb to
+    the plain version."""
+    xs = _edge_fr(44, 4)
+    for n in range(1, 34):
+        c = _edge_fr(45 + n, 4 * n).view(4, n, 8)
+        for cc, xx in ((c, xs), (c, xs[3:4]), (c[2:3], xs)):
+            got = kernels.fr_eval_rows(cc.contiguous().to(dev),
+                                       xx.contiguous().to(dev))
+            assert torch.equal(got.cpu(), tpoly.fr_eval_rows_plain(cc, xx)), n
 
 
 def test_fr_eval_rows_refuses_what_it_does_not_take(dev):

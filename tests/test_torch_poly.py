@@ -193,6 +193,27 @@ def test_from_mont_wide_matches_jax():
     assert FR.limbs_to_ints(got) == coeffs
 
 
+@pytest.mark.parametrize("n", [tpoly.SCAN_TILE - 1, tpoly.SCAN_TILE,
+                               tpoly.SCAN_TILE + 1, 2 * tpoly.SCAN_TILE + 3])
+def test_scan_plain_at_the_kernels_tile(n):
+    """fr_suffix_scan_plain at the kernel's tile (SCAN_TILE): a tile less
+    one, one tile, one element past it, two tiles and a short third; one
+    row and two at once: each tile's local suffix sums and its total
+    against Python's integers."""
+    tile = tpoly.SCAN_TILE
+    rows = [_row(n, 70 + n), [0] * n]
+    local, totals = tpoly.fr_suffix_scan_plain(
+        FR.encode(sum(rows, [])).view(2, n, 8))
+    for b, coeffs in enumerate(rows):
+        ends = [min(n, (j // tile + 1) * tile) for j in range(n)]
+        assert FR.decode(local[b]) == [sum(coeffs[j:e]) % o.R
+                                       for j, e in zip(range(n), ends)]
+        assert FR.decode(totals[b]) == [sum(coeffs[k:k + tile]) % o.R
+                                        for k in range(0, n, tile)]
+    one = tpoly.fr_suffix_scan_plain(FR.encode(rows[0]))
+    assert torch.equal(one[0], local[0]) and torch.equal(one[1], totals[0])
+
+
 # -- the row evaluation: K3 fr_eval_rows's plain version, poly_eval on a
 # batch, poly_eval_many, and the rest of the JAX package's poly.py ---------
 
@@ -211,7 +232,9 @@ def jax_eval_pairs():
 @pytest.mark.parametrize("n", [1, 16, 100])
 def test_eval_rows_plain_and_batched_eval_match_jax(jax_eval_pairs, n):
     """fr_eval_rows_plain at tiles of 8 (one partial tile at 1, two at 16,
-    thirteen at 100) and the CPU poly_eval of a batch of rows at one x,
+    thirteen at 100: the tiles joined by Horner runs of one step and the
+    tree), at the kernel's tile, and the CPU poly_eval of a batch of rows
+    at one x,
     against the JAX package's vmapped poly_eval, limb for limb, at x = 0,
     1, r − 1 and random; poly_eval_many (one row at the four points)
     against the same."""
@@ -241,6 +264,35 @@ def test_eval_rows_plain_and_batched_eval_match_jax(jax_eval_pairs, n):
                           want)
     assert np.array_equal(FR.to_limbs16(tpoly.fr_eval_rows_plain(
         c[:1], xs, tile=8)), want)
+
+
+@pytest.mark.parametrize("n, tile", [
+    (1, None), (31, None), (32, None), (33, None), (tpoly.EVAL_TILE, None),
+    (tpoly.EVAL_TILE + 1, None), (2 * tpoly.EVAL_TILE + 100, None),
+    (34 * 32 + 5, 32)])
+def test_eval_rows_plain_at_the_kernels_boundaries(n, tile):
+    """fr_eval_rows_plain at the lengths where fr_eval_rows changes
+    course: one coefficient, a lane's run of one or two steps (31, 32,
+    33), one tile (EVAL_TILE), one past it, past two tiles; and, at tiles
+    of 32, more than 32 tiles (the second pass's Horner steps over a lane's
+    tiles). Four rows at x = 0, 1, r − 1 and random each, the four rows at
+    each of those x, and one row at the four points (poly_eval_many),
+    against the oracle."""
+    tile = tile or tpoly.EVAL_TILE
+    rows = [_row(n, 80 + n + i) for i in range(len(EVAL_POINTS))]
+    rows[1] = [0] * n
+    c = FR.encode(sum(rows, [])).view(len(rows), n, 8)
+    xs = FR.encode(EVAL_POINTS)
+    got = tpoly.fr_eval_rows_plain(c, xs, tile)
+    assert FR.decode(got) == [o.poly_eval(r, x)
+                              for r, x in zip(rows, EVAL_POINTS)]
+    for i, point in enumerate(EVAL_POINTS):
+        got = tpoly.fr_eval_rows_plain(c, xs[i:i + 1], tile)
+        assert FR.decode(got) == [o.poly_eval(r, point) for r in rows]
+    got = tpoly.fr_eval_rows_plain(c[3:4], xs, tile)
+    assert FR.decode(got) == [o.poly_eval(rows[3], x) for x in EVAL_POINTS]
+    if tile == tpoly.EVAL_TILE:
+        assert torch.equal(tpoly.poly_eval_many(c[3], xs), got)
 
 
 def test_eval_many_quotient_add_scale_match_jax():

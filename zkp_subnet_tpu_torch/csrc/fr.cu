@@ -85,10 +85,6 @@ fr_inv_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   mont::store<fr::L>(out + i * fr::L, x);
 }
 
-// The tables of x^(2^j) of fr_eval_rows (fr::square_table) live in shared
-// memory.
-constexpr int MAX_POW_BITS = 32;
-
 // -- power tables, once a point --------------------------------------------
 //
 // fr_power_tables: the tables of powers that fr_powers (x) and
@@ -159,13 +155,26 @@ fr_powers_kernel(const uint32_t* __restrict__ table,
 }
 
 // The suffix scan S_j = sum_{k >= j} t_k in two passes over tiles of
-// SCAN_TILE elements, SCAN_PER_THREAD consecutive ones a thread. Modular
-// addition is associative and a sum has one representation, so the sums
-// are the Hillis-Steele scan's limb for limb.
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_PER_THREAD = 4;
+// SCAN_TILE elements. Modular addition is associative and a sum has one
+// representation, so the sums are the Hillis-Steele scan's limb for limb.
+//
+// Pass 1 (fr_suffix_scan) is bound by bytes: terms read and local written
+// once, 64 B an element, against one add. A tile is SCAN_THREADS threads
+// by SCAN_PER_THREAD elements, element e of thread t at e * SCAN_THREADS +
+// t: consecutive lanes take consecutive elements, so each 16-byte load and
+// store of a warp is part of one contiguous span, and one 2^16 row gives
+// 128 blocks for the H100's 132 SMs. On an H100 (PERF.md, kernel_ab.py
+// over copies) this took 0.0040 ms at one 2^16 row and 0.36 ms at 256
+// rows (1.1x its bound); 256 threads by 2 elements 0.0043 and 0.36, and
+// tiles of 256 0.0041 and 0.36, with 0.0003 ms more in fr_open_quotient,
+// which adds twice the tiles' totals.
+constexpr int SCAN_THREADS = 512;
+constexpr int SCAN_PER_THREAD = 1;
 constexpr int SCAN_TILE = SCAN_THREADS * SCAN_PER_THREAD;
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+// the tile's runs of 32 consecutive elements, one a warp and element
+constexpr int SCAN_RUNS = SCAN_WARPS * SCAN_PER_THREAD;
+static_assert(SCAN_RUNS <= 32, "one warp scans the runs' totals");
 
 __device__ __forceinline__ void shfl_down(uint32_t* r, const uint32_t* v,
                                           int d) {
@@ -178,75 +187,95 @@ __device__ __forceinline__ void set_zero(uint32_t* r) {
   for (int j = 0; j < fr::L; j++) r[j] = 0;
 }
 
-// Pass 1: each block's tile, from the right. A thread sums its elements
-// serially, a warp scans its lanes' sums by shuffles (8 limbs a step), the
-// warps' totals meet in shared memory. Writes the tile's local inclusive
-// suffix sums and the tile's total.
+// Pass 1: each block's tile, from the right. Each warp scans its lanes'
+// elements by shuffles (a run of 32 consecutive elements for each of the
+// thread's SCAN_PER_THREAD, side by side), the runs' totals meet in shared
+// memory, and each warp scans them by shuffles for its runs' carries, so
+// that one barrier is all the block waits at. Writes the tile's local
+// inclusive suffix sums and the tile's total.
 __global__ void __launch_bounds__(SCAN_THREADS)
 fr_suffix_scan_kernel(const uint32_t* __restrict__ terms,
                       uint32_t* __restrict__ local,
                       uint32_t* __restrict__ totals, long long n) {
-  __shared__ __align__(16) uint32_t warp_total[SCAN_WARPS * fr::L];
+  __shared__ __align__(16) uint32_t run[SCAN_RUNS * fr::L];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long first =
-      blockIdx.x * (long long)SCAN_TILE + threadIdx.x * SCAN_PER_THREAD;
-  uint32_t s[SCAN_PER_THREAD][fr::L], acc[fr::L];
-  set_zero(acc);
-#pragma unroll
-  for (int e = SCAN_PER_THREAD - 1; e >= 0; e--) {
-    if (first + e < n) {
-      uint32_t t[fr::L];
-      mont::load<fr::L>(t, terms + (first + e) * fr::L);
-      fr::add(acc, acc, t);
-    }
-    fr::copy(s[e], acc);
-  }
-  // inclusive suffix over the warp's lanes of the threads' sums
-  uint32_t inc[fr::L], o[fr::L], carry[fr::L];
-  fr::copy(inc, acc);
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    shfl_down(o, inc, d);
-    if (lane + d < 32) fr::add(inc, inc, o);
-  }
-  // the carry into a thread: the lanes above it in its warp, then the
-  // warps above its warp
-  shfl_down(carry, inc, 1);
-  if (lane == 31) set_zero(carry);
-  if (lane == 0) mont::store<fr::L>(warp_total + warp * fr::L, inc);
-  __syncthreads();
-  for (int w = warp + 1; w < SCAN_WARPS; w++) {
-    uint32_t t[fr::L];
-    mont::load<fr::L>(t, warp_total + w * fr::L);
-    fr::add(carry, carry, t);
-  }
+  const long long first = blockIdx.x * (long long)SCAN_TILE + threadIdx.x;
+  uint32_t s[SCAN_PER_THREAD][fr::L], o[fr::L];
 #pragma unroll
   for (int e = 0; e < SCAN_PER_THREAD; e++) {
-    fr::add(s[e], s[e], carry);
-    if (first + e < n) mont::store<fr::L>(local + (first + e) * fr::L, s[e]);
+    const long long j = first + e * SCAN_THREADS;
+    if (j < n)
+      mont::load<fr::L>(s[e], terms + j * fr::L);
+    else
+      set_zero(s[e]);
   }
-  if (threadIdx.x == 0) mont::store<fr::L>(totals + blockIdx.x * fr::L, s[0]);
+  // inclusive suffix over each run's lanes; past n the terms are 0
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int e = 0; e < SCAN_PER_THREAD; e++) {
+      shfl_down(o, s[e], d);
+      if (lane + d < 32) fr::add(s[e], s[e], o);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int e = 0; e < SCAN_PER_THREAD; e++)
+      mont::store<fr::L>(run + (e * SCAN_WARPS + warp) * fr::L, s[e]);
+  }
+  __syncthreads();
+  // the runs' carries: an inclusive suffix over the runs' totals, in
+  // element order, by every warp; a run's carry is the next run's sum, and
+  // the tile's total the sum at run 0
+  uint32_t v[fr::L];
+  if (lane < SCAN_RUNS)
+    mont::load<fr::L>(v, run + lane * fr::L);
+  else
+    set_zero(v);
+#pragma unroll
+  for (int d = 1; d < SCAN_RUNS; d <<= 1) {
+    shfl_down(o, v, d);
+    if (lane + d < 32) fr::add(v, v, o);
+  }
+  if (threadIdx.x == 0) mont::store<fr::L>(totals + blockIdx.x * fr::L, v);
+#pragma unroll
+  for (int e = 0; e < SCAN_PER_THREAD; e++) {
+    const long long j = first + e * SCAN_THREADS;
+    const int next = e * SCAN_WARPS + warp + 1;
+#pragma unroll
+    for (int w = 0; w < fr::L; w++)
+      o[w] = __shfl_sync(FULL_MASK, v[w], next < SCAN_RUNS ? next : 0);
+    if (next >= SCAN_RUNS) set_zero(o);
+    fr::add(s[e], s[e], o);
+    if (j < n) mont::store<fr::L>(local + j * fr::L, s[e]);
+  }
 }
 
 // Pass 2, fused with the rest of the opening, over B rows at one point: a
-// block of QUOT_THREADS elements of one row (a quarter of a scan tile), one
-// element a thread. Warp 0 adds the totals of the row's tiles to the right
-// into the tile's carry, while every thread looks up (1/x)^(j+1) in the
-// table of 1/x (fr::table_pow; its level 0 is canonical, so the power is
-// too). Then S_{j+1} = local_{j+1} + carry inside the tile, the carry alone
-// at the tile's last element (S_n = 0, so q_{n-1} = 0, written without a
-// lookup), y_b = S_{b,0} (the row's first block), and q_j = S_{j+1} *
-// (1/x)^(j+1), canonical. At x = 0 the quotient is c[1:] and a 0, from
-// Montgomery form, chosen here on the card. The grid (n / QUOT_THREADS, B)
-// fills the card from one row of 2^16 up; nothing is a chain but the
-// carry's ~7 adds. Bound: bytes, local read and q written once (B·n·64 B),
-// against one add and one product an element. On an H100 (PERF.md,
-// zkp_subnet_tpu_torch/kernel_ab.py over copies) two elements a thread
-// took 0.739 ms at 256 rows of 2^16 against this form's 0.763, and 0.0066
-// ms at one row against 0.0058; four, 0.810 and 0.0100; and loading
-// local_{j+1} before the barrier, 0.801 against 0.755.
+// block of QUOT_THREADS elements of one row (QUOT_BLOCKS_A_TILE blocks a
+// scan tile), one element a thread. Warp 0 adds the totals of the row's
+// tiles to the right into the tile's carry, while every thread looks up
+// (1/x)^(j+1) in the table of 1/x (fr::table_pow; its level 0 is
+// canonical, so the power is too). Then S_{j+1} = local_{j+1} + carry
+// inside the tile, the carry alone at the tile's last element (S_n = 0, so
+// q_{n-1} = 0, written without a lookup), y_b = S_{b,0} (the row's first
+// block), and q_j = S_{j+1} * (1/x)^(j+1), canonical. At x = 0 the
+// quotient is c[1:] and a 0, from Montgomery form, chosen here on the
+// card. The grid (n / QUOT_THREADS, B) fills the card from one row of 2^16
+// up; nothing is a chain but the carry's adds (a lane's QUOT_CARRY_RUN
+// totals tiles / 64 times, then five shuffle steps where more than lane
+// 0 holds totals).
+// Bound: bytes, local read and q written once (B·n·64 B), against one add
+// and one product an element. On an H100 (PERF.md,
+// zkp_subnet_tpu_torch/kernel_ab.py over copies, with scan tiles of 1024)
+// two elements a thread took 0.739 ms at 256 rows of 2^16 against this
+// form's 0.763, and 0.0066 ms at one row against 0.0058; four, 0.810 and
+// 0.0100; and loading local_{j+1} before the barrier, 0.801 against
+// 0.755.
 constexpr int QUOT_THREADS = 256;
 constexpr int QUOT_BLOCKS_A_TILE = SCAN_TILE / QUOT_THREADS;
+constexpr int QUOT_CARRY_RUN = 2;  // tiles' totals a lane loads at once
+static_assert(SCAN_TILE % QUOT_THREADS == 0, "whole blocks a scan tile");
 
 __global__ void __launch_bounds__(QUOT_THREADS)
 fr_open_quotient_kernel(const uint32_t* __restrict__ local,
@@ -266,16 +295,33 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
   mont::load<fr::L>(v, x);
   const bool at_zero = fr::is_zero(v);
   if (warp == 0) {
-    uint32_t o[fr::L];
+    // lane l takes QUOT_CARRY_RUN totals at once from b = tile + 1 + l *
+    // QUOT_CARRY_RUN, their loads out together, so that a 2^16 row's 128
+    // tiles cost a lane two round trips, as its 64 tiles of 1024 did one at
+    // a time
     set_zero(carry);
-    for (int b = tile + 1 + lane; b < tiles; b += 32) {
-      mont::load<fr::L>(o, totals + (row * tiles + b) * fr::L);
-      fr::add(carry, carry, o);
-    }
+    for (int b = tile + 1 + QUOT_CARRY_RUN * lane; b < tiles;
+         b += 32 * QUOT_CARRY_RUN) {
+      uint32_t o[QUOT_CARRY_RUN][fr::L];
 #pragma unroll
-    for (int d = 16; d >= 1; d >>= 1) {
-      shfl_down(o, carry, d);
-      if (lane < d) fr::add(carry, carry, o);
+      for (int i = 0; i < QUOT_CARRY_RUN; i++) {
+        if (b + i < tiles)
+          mont::load<fr::L>(o[i], totals + (row * tiles + b + i) * fr::L);
+        else
+          set_zero(o[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < QUOT_CARRY_RUN; i++) fr::add(carry, carry, o[i]);
+    }
+    // the lanes' sum, unless lane 0 holds them all (as the first tile of a
+    // row of two tiles does)
+    if (tiles - tile > QUOT_CARRY_RUN + 1) {
+      uint32_t o[fr::L];
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) {
+        shfl_down(o, carry, d);
+        if (lane < d) fr::add(carry, carry, o);
+      }
     }
     if (lane == 0) mont::store<fr::L>(carry_s, carry);
   }
@@ -319,30 +365,61 @@ fr_open_quotient_kernel(const uint32_t* __restrict__ local,
 // as poly._fmul and poly._tree_sum_lane reach it from poly_eval
 // (zkp_subnet_tpu/ops/poly.py:85-95): the termwise products of a row and a
 // table of powers, then a halving tree of adds, once a row under the
-// jax.vmap of the coordinator's challenge (runtime/coordinator.py:91). Until
-// this kernel the port evaluated a row by a whole opening (fr_inv, the
-// powers, both scan passes): four launches a row, 0.2 ms of them the
-// inverse, and a quotient of n elements that was then dropped.
+// jax.vmap of the coordinator's challenge (runtime/coordinator.py:91).
 //
 // Bound on the H100: bytes. A row's n coefficients are read once, n * 32 B
 // (33.6 MB at the challenge's 16 rows of 2^16: ~0.010 ms at 3.35 TB/s),
-// against Horner's one product and one add an element (~0.009 ms). Two
-// passes, with no inverse, no scan and no quotient: pass 1 gives each
-// block one tile of one row; its thread 0 squares x_r into the table of
-// x_r^(2^j) as fr_powers does, each thread takes EVAL_PER_THREAD
-// consecutive powers by fr::pow_run (one walk of the table, then a product
-// by x a step), multiplies them by its coefficients and sums them, and the
-// block reduces its threads' sums by warp shuffles, then the warps' totals
-// through shared memory, into one partial sum of the (row, tile). Pass 2 is
-// one warp a row adding the row's partial sums. Fr sums are exact and a
-// fully reduced value has one representation, so any order of the adds
-// gives the same limbs. A row of one tile needs pass 1 alone, written
-// straight to the output.
+// against Horner's one product and one add an element (~0.009 ms at the
+// integer rate). So the design spends about one product an element and
+// keeps every chain short. Pass 1 gives each block one tile of EVAL_TILE
+// elements of one row, or of up to EVAL_ROWS rows that share their point
+// where there are enough rows to fill the card with blocks. Warp w takes
+// the tile's run of EVAL_CHUNK elements from w * EVAL_CHUNK, lane l the
+// EVAL_STEPS coefficients l + 32e of that run (each load of a warp one
+// contiguous span), by Horner's steps from the top with X = x^32
+// (fr::horner_step: one product and one add a coefficient, the value kept
+// below 2r until the next product reduces it). Lane l's value times x^l,
+// summed over the lanes by shuffles (adds only), is the run's; the tile's
+// is the warps' values joined by a tree of Horner steps (fr::tree_step
+// with Z^4, Z^2, Z, Z = x^EVAL_CHUNK) in one warp. x^l and x^32 come from
+// warp 0's product scan by shuffles (warp_powers: five steps) before the
+// others start; Z's powers are squarings of x^32 that warp 0 takes during
+// its first run. Pass 2 is one warp a row: lane l takes the tiles l + 32i
+// by Horner's steps with x^(32 EVAL_TILE), times x^(EVAL_TILE l), then the
+// lanes' sum. Those powers come from one more block of pass 1 a point, in
+// front of the tiles (x^EVAL_TILE by squarings, then the same scan), off
+// the tiles' path. A row of one tile needs pass 1 alone, written straight
+// to the output. Fr sums are exact and a fully reduced value has one
+// representation, so any order of the adds gives the same limbs.
+//
+// On an H100 (PERF.md, kernel_ab.py over copies) this takes 0.037 ms at
+// 16 rows of 2^16 and 0.40 ms at 256; the design before, where one thread
+// of every block squared x into a table of x^(2^j) while the others waited
+// and an element cost ~3.75 products, 0.126 and 1.80. What is left is the
+// products' own instructions: ~6.3 SM cycles an element at 256 rows, 2.8x
+// the integer rate the bound assumes, since each 32-bit limb product is
+// two multiply-adds (its lo and hi halves). 16 Horner steps a lane (tiles
+// of 4096) were slower, with half the blocks; prefetching the first row
+// into L2 cost registers (64 with 8 B of spills) and time.
 constexpr int EVAL_THREADS = 256;
-constexpr int EVAL_PER_THREAD = 4;
-constexpr int EVAL_TILE = EVAL_THREADS * EVAL_PER_THREAD;
 constexpr int EVAL_WARPS = EVAL_THREADS / 32;
+constexpr int EVAL_LOG_STEPS = 3;
+constexpr int EVAL_STEPS = 1 << EVAL_LOG_STEPS;  // Horner's steps a lane
+constexpr int EVAL_CHUNK = 32 * EVAL_STEPS;       // a warp's run
+constexpr int EVAL_TILE = EVAL_WARPS * EVAL_CHUNK;
+constexpr int EVAL_LOG_TILE = 5 + EVAL_LOG_STEPS + 3;
+// rows a block at most where the rows share a point (the C entry takes
+// fewer where more would leave an SM fewer than EVAL_BLOCKS_AN_SM blocks),
+// and the blocks an SM holds at once (registers: at most 64 a thread)
+constexpr int EVAL_ROWS = 4;
+constexpr int EVAL_BLOCKS_AN_SM = 4;
+// pass 2's powers of a point: x^(EVAL_TILE l) for l < 32, x^(32 EVAL_TILE)
+constexpr int EVAL_POWERS = 33;
 constexpr int MAX_EVAL_ROWS = 65535;  // gridDim.y
+static_assert(EVAL_WARPS == 8, "the tree joins 8 warps by Z^4, Z^2, Z");
+static_assert(EVAL_TILE == 1 << EVAL_LOG_TILE, "a tile of 2^k elements");
+static_assert(EVAL_ROWS * EVAL_WARPS <= 32, "one warp joins a block's rows");
+static_assert(EVAL_LOG_STEPS + 2 <= EVAL_STEPS, "Z's squarings in one run");
 
 // Sum of the warp's 32 values into lane 0 (the other lanes' are partial).
 __device__ __forceinline__ void warp_sum(uint32_t* v, int lane) {
@@ -354,71 +431,152 @@ __device__ __forceinline__ void warp_sum(uint32_t* v, int lane) {
   }
 }
 
-// Pass 1: grid (tiles, rows). partial[row * tiles + tile] = sum over the
-// tile's k < n of c_{row,k} * x_row^k.
-__global__ void __launch_bounds__(EVAL_THREADS)
-fr_eval_partial_kernel(const uint32_t* __restrict__ coeffs,
-                       const uint32_t* __restrict__ xs,
-                       uint32_t* __restrict__ partial, long long n,
-                       long long c_step, int x_step, int bits) {
-  __shared__ __align__(16) uint32_t T[MAX_POW_BITS * fr::L];
-  __shared__ __align__(16) uint32_t warp_total[EVAL_WARPS * fr::L];
-  const long long row = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    uint32_t v[fr::L];
-    mont::load<fr::L>(v, xs + row * x_step);
-    fr::square_table(T, v, bits);
-  }
-  __syncthreads();
-  const uint32_t* c = coeffs + row * c_step;
-  const long long first =
-      blockIdx.x * (long long)EVAL_TILE + threadIdx.x * EVAL_PER_THREAD;
-  uint32_t acc[fr::L];
-  set_zero(acc);
-  if (first < n) {
-    uint32_t pw[EVAL_PER_THREAD][fr::L];
-    fr::pow_run<EVAL_PER_THREAD>(pw, T, (unsigned long long)first, bits,
-                                 nullptr);
+// Lane l: v = b^l and top = b^32 (every lane), by a Hillis-Steele product
+// scan of (1, b, b, ...) over the warp's lanes, five steps of shuffles.
+// After four, lane 16 holds b^16, whose square is taken beside the fifth
+// step's product; every lane takes each product and keeps it where its
+// lane needs it, so that no product waits on a branch.
+__device__ __forceinline__ void warp_powers(uint32_t* v, uint32_t* top,
+                                            const uint32_t* b, int lane) {
+  uint32_t o[fr::L], t[fr::L];
 #pragma unroll
-    for (int e = 0; e < EVAL_PER_THREAD; e++) {
-      const long long k = first + e;
-      if (k >= n) break;
-      uint32_t t[fr::L];
-      mont::load<fr::L>(t, c + k * fr::L);
-      fr::mul(t, t, pw[e]);
-      fr::add(acc, acc, t);
+  for (int j = 0; j < fr::L; j++) v[j] = lane == 0 ? fr::ONE[j] : b[j];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    if (d == 16) {
+#pragma unroll
+      for (int j = 0; j < fr::L; j++)
+        o[j] = __shfl_sync(FULL_MASK, v[j], 16);
+      fr::mul(top, o, o);
     }
-  }
-  // every thread reaches the shuffles and the barrier, those past n with 0
-  warp_sum(acc, lane);
-  if (lane == 0) mont::store<fr::L>(warp_total + warp * fr::L, acc);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < EVAL_WARPS; w++) {
-      uint32_t t[fr::L];
-      mont::load<fr::L>(t, warp_total + w * fr::L);
-      fr::add(acc, acc, t);
-    }
-    mont::store<fr::L>(partial + (row * gridDim.x + blockIdx.x) * fr::L,
-                       acc);
+#pragma unroll
+    for (int j = 0; j < fr::L; j++)
+      o[j] = __shfl_up_sync(FULL_MASK, v[j], d);
+    fr::mul(t, v, o);
+#pragma unroll
+    for (int j = 0; j < fr::L; j++) v[j] = lane >= d ? t[j] : v[j];
   }
 }
 
-// Pass 2: one warp a row. out[row] = sum of partial[row * tiles + b].
+// Pass 1: grid (tiles, row groups of `group` rows), and where a row has
+// more than one tile one block more in front of the tiles, for pass 2's
+// powers of each point. partial[row * tiles + tile] = sum over the tile's
+// k < n of c_{row,k} * x_row^(k - tile * EVAL_TILE); at one tile it is the
+// output.
+__global__ void __launch_bounds__(EVAL_THREADS, EVAL_BLOCKS_AN_SM)
+fr_eval_partial_kernel(const uint32_t* __restrict__ coeffs,
+                       const uint32_t* __restrict__ xs,
+                       uint32_t* __restrict__ partial,
+                       uint32_t* __restrict__ powers, long long n,
+                       long long c_step, int x_step, int rows, int group,
+                       int tiles) {
+  __shared__ __align__(16) uint32_t xl[32 * fr::L];  // x^l, l < 32
+  __shared__ __align__(16) uint32_t zp[4 * fr::L];   // x^32, Z, Z^2, Z^4
+  __shared__ __align__(16) uint32_t run[EVAL_ROWS * EVAL_WARPS * fr::L];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first_row = blockIdx.y * group;
+  const int nrows = min(group, rows - first_row);
+  const uint32_t* x = xs + (long long)first_row * x_step;
+  uint32_t v[fr::L], X[fr::L], h[fr::L], t[fr::L];
+  if (tiles > 1 && blockIdx.x == 0) {
+    // pass 2's powers: x^(EVAL_TILE l) and x^(32 EVAL_TILE), once a point
+    if (warp != 0 || (x_step == 0 && blockIdx.y != 0)) return;
+    mont::load<fr::L>(h, x);
+#pragma unroll 1
+    for (int s = 0; s < EVAL_LOG_TILE; s++) fr::mul(h, h, h);
+    warp_powers(v, X, h, lane);
+    uint32_t* pw = powers + (long long)(x_step == 0 ? 0 : first_row) *
+                                EVAL_POWERS * fr::L;
+    mont::store<fr::L>(pw + lane * fr::L, v);
+    if (lane == 0) mont::store<fr::L>(pw + 32 * fr::L, X);
+    return;
+  }
+  const long long tile = blockIdx.x - (tiles > 1);
+  const long long first = tile * EVAL_TILE + warp * EVAL_CHUNK + lane;
+  if (warp == 0) {
+    mont::load<fr::L>(h, x);
+    warp_powers(v, X, h, lane);
+    mont::store<fr::L>(xl + lane * fr::L, v);
+    if (lane == 0) mont::store<fr::L>(zp, X);
+  }
+  __syncthreads();
+  mont::load<fr::L>(X, zp);
+  fr::copy(v, X);  // warp 0: Z and its squares, from x^32
+#pragma unroll 1
+  for (int r = 0; r < nrows; r++) {
+    const uint32_t* c = coeffs + (first_row + r) * c_step;
+#pragma unroll
+    for (int e = EVAL_STEPS - 1; e >= 0; e--) {
+      const long long k = first + 32 * e;
+      if (k < n)
+        mont::load<fr::L>(t, c + k * fr::L);
+      else
+        set_zero(t);
+      if (e == EVAL_STEPS - 1)
+        fr::copy(h, t);
+      else
+        fr::horner_step(h, X, t);
+      const int s = EVAL_STEPS - 1 - e;  // squaring s + 1 of x^32
+      if (warp == 0 && r == 0 && s < EVAL_LOG_STEPS + 2) {
+        fr::mul(v, v, v);
+        if (s + 2 > EVAL_LOG_STEPS && lane == 0)
+          mont::store<fr::L>(zp + (s + 2 - EVAL_LOG_STEPS) * fr::L, v);
+      }
+    }
+    mont::load<fr::L>(t, xl + lane * fr::L);
+    fr::mul(h, t, h);  // h < 2r read as the scanned operand: below r again
+    warp_sum(h, lane);
+    if (lane == 0)
+      mont::store<fr::L>(run + (r * EVAL_WARPS + warp) * fr::L, h);
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  // lane r * EVAL_WARPS + w holds warp w's run of row r: the tree over w
+  const int r = lane / EVAL_WARPS, w = lane % EVAL_WARPS;
+  if (r < nrows)
+    mont::load<fr::L>(h, run + lane * fr::L);
+  else
+    set_zero(h);
+#pragma unroll
+  for (int d = EVAL_WARPS / 2, j = 3; d >= 1; d >>= 1, j--) {
+    shfl_down(t, h, d);
+    mont::load<fr::L>(v, zp + j * fr::L);  // Z^d
+    if (w < d) fr::tree_step(h, h, t, v);
+  }
+  if (w == 0 && r < nrows)
+    mont::store<fr::L>(partial + ((first_row + r) * (long long)tiles + tile) *
+                                     fr::L, h);
+}
+
+// Pass 2: one warp a row. out[row] = sum over b < tiles of partial[row *
+// tiles + b] * x^(b * EVAL_TILE): lane l takes the tiles l + 32i by Horner's
+// steps with x^(32 EVAL_TILE), times x^(EVAL_TILE l), then the lanes' sum.
 __global__ void __launch_bounds__(32)
 fr_eval_sum_kernel(const uint32_t* __restrict__ partial,
-                   uint32_t* __restrict__ out, int tiles) {
+                   const uint32_t* __restrict__ powers,
+                   uint32_t* __restrict__ out, int tiles, int x_step) {
   const long long row = blockIdx.x;
   const int lane = threadIdx.x;
-  uint32_t acc[fr::L], t[fr::L];
-  set_zero(acc);
-  for (int b = lane; b < tiles; b += 32) {
-    mont::load<fr::L>(t, partial + (row * tiles + b) * fr::L);
-    fr::add(acc, acc, t);
+  const uint32_t* pw = powers + (x_step == 0 ? 0 : row) * EVAL_POWERS * fr::L;
+  const int steps = (tiles + 31) / 32;
+  uint32_t h[fr::L], t[fr::L], X[fr::L];
+  mont::load<fr::L>(X, pw + 32 * fr::L);
+#pragma unroll 1
+  for (int i = steps - 1; i >= 0; i--) {
+    const int b = lane + 32 * i;
+    if (b < tiles)
+      mont::load<fr::L>(t, partial + (row * tiles + b) * fr::L);
+    else
+      set_zero(t);
+    if (i == steps - 1)
+      fr::copy(h, t);
+    else
+      fr::horner_step(h, X, t);
   }
-  warp_sum(acc, lane);
-  if (lane == 0) mont::store<fr::L>(out + row * fr::L, acc);
+  mont::load<fr::L>(t, pw + lane * fr::L);
+  fr::mul(h, t, h);  // h < 2r read as the scanned operand: below r again
+  warp_sum(h, lane);
+  if (lane == 0) mont::store<fr::L>(out + row * fr::L, h);
 }
 
 constexpr int REFUSED = (int)cudaErrorInvalidValue;
@@ -546,28 +704,55 @@ extern "C" int zkp_fr_open_quotient(const void* local, const void* totals,
   return (int)cudaGetLastError();
 }
 
+// The card's SMs, asked once a process.
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    sms = count > 0 ? count : 1;
+  }
+  return sms;
+}
+
 // rows <= MAX_EVAL_ROWS rows of n >= 1 coefficients. c_step: n * fr::L, or
 // 0 for one row at every point; x_step: fr::L, or 0 for one point for every
-// row. bits: 1 <= bits <= MAX_POW_BITS, n <= 2^bits. partial holds rows *
-// ceil(n / tile) elements (unused, and may be null, at one tile). tile: the
-// caller's idea of EVAL_TILE, refused unless it is this one.
+// row. scratch holds rows * ceil(n / tile) partial sums, then EVAL_POWERS
+// elements a point (one point where x_step is 0, else rows); it is unused,
+// and may be null, at one tile. tile: the caller's idea of EVAL_TILE,
+// refused unless it is this one.
 extern "C" int zkp_fr_eval_rows(const void* coeffs, const void* xs,
-                                void* partial, void* out, long long rows,
+                                void* scratch, void* out, long long rows,
                                 long long n, long long c_step, int x_step,
-                                int bits, int tile, void* stream) {
-  if (tile != EVAL_TILE || bits < 1 || bits > MAX_POW_BITS ||
-      n > (1LL << bits) || n < 1 || rows < 1 || rows > MAX_EVAL_ROWS)
+                                int tile, void* stream) {
+  if (tile != EVAL_TILE || n < 1 || n >= (1LL << 31) || rows < 1 ||
+      rows > MAX_EVAL_ROWS)
     return REFUSED;
   const long long tiles = (n + EVAL_TILE - 1) / EVAL_TILE;
-  if (tiles > 1 && partial == nullptr) return REFUSED;
-  uint32_t* first_out = (uint32_t*)(tiles == 1 ? out : partial);
-  fr_eval_partial_kernel<<<dim3((unsigned)tiles, (unsigned)rows),
+  if (tiles > 1 && scratch == nullptr) return REFUSED;
+  // rows a block: where they share a point, as many (up to EVAL_ROWS) as
+  // leave the grid EVAL_BLOCKS_AN_SM blocks an SM; their chain of powers
+  // of x is then built once for them all
+  int group = 1;
+  if (x_step == 0) {
+    const long long fill = (long long)EVAL_BLOCKS_AN_SM * sm_count();
+    while (group < EVAL_ROWS &&
+           tiles * ((rows + 2 * group - 1) / (2 * group)) >= fill)
+      group *= 2;
+  }
+  const long long groups = (rows + group - 1) / group;
+  uint32_t* partial = (uint32_t*)(tiles == 1 ? out : scratch);
+  uint32_t* powers =
+      tiles == 1 ? nullptr : (uint32_t*)scratch + rows * tiles * fr::L;
+  fr_eval_partial_kernel<<<dim3((unsigned)(tiles + (tiles > 1)),
+                                (unsigned)groups),
                            EVAL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)coeffs, (const uint32_t*)xs, first_out, n, c_step,
-      x_step, bits);
+      (const uint32_t*)coeffs, (const uint32_t*)xs, partial, powers, n,
+      c_step, x_step, (int)rows, group, (int)tiles);
   if (tiles > 1) {
     fr_eval_sum_kernel<<<(unsigned)rows, 32, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)partial, (uint32_t*)out, (int)tiles);
+        partial, powers, (uint32_t*)out, (int)tiles, x_step);
   }
   return (int)cudaGetLastError();
 }

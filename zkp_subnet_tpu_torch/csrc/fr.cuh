@@ -207,47 +207,31 @@ __device__ __forceinline__ void inv(uint32_t* out, const uint32_t* a) {
   mul(out, d, INV_FIX);
 }
 
-// T[j] = x^(2^j) for j < bits: a chain of bits - 1 squarings.
-__device__ __forceinline__ void square_table(uint32_t* T, const uint32_t* x,
-                                             int bits) {
-  uint32_t t[L];
-  copy(t, x);
-  for (int j = 0; j < bits; j++) {
-    copy(T + j * L, t);
-    if (j + 1 < bits) mul(t, t, t);
-  }
+// -- Horner's steps: K3 fr_eval_rows --------------------------------------
+//
+// h = h·X + c: one step of a thread's Horner run over the coefficients it
+// takes at a stride s from the top down, X = x^s (fr_eval_rows: s = 32
+// over a warp's lanes, s = 32 tiles over a row's tiles), so that a run of
+// m steps from h = c_(m-1) gives Σ_e c_e·X^e. h is kept below 2r, not
+// reduced: the product reads h as the operand whose words it scans, which
+// may be any 256-bit value (mont::mul's sums stay below X + r < 2r), and
+// is below r, so h·X + c < 2r < 2^256 is one carry chain. A product with h
+// in the same place, or one conditional subtract, brings it below r.
+__device__ __forceinline__ void horner_step(uint32_t* h, const uint32_t* X,
+                                            const uint32_t* c) {
+  mul(h, X, h);
+  add_wide(h, h, c);
 }
 
-// r = T[0]^k for k < 2^bits, T[j] = T[0]^(2^j) (Montgomery): one product
-// for each bit set in k, from the Montgomery one.
-__device__ __forceinline__ void pow_from_table(uint32_t* r, const uint32_t* T,
-                                               unsigned long long k,
-                                               int bits) {
+// r = a + xd·b: a step of the tree that joins the values of two runs that
+// start d apart, xd = x^d (fr_eval_rows: a tile's warps, d = 4, 2, 1 runs
+// of a warp). r may alias a or b.
+__device__ __forceinline__ void tree_step(uint32_t* r, const uint32_t* a,
+                                          const uint32_t* b,
+                                          const uint32_t* xd) {
   uint32_t t[L];
-  copy(r, ONE);
-#pragma unroll 1
-  for (int j = 0; j < bits; j++) {
-    if ((k >> j) & 1) {
-      copy(t, T + j * L);
-      mul(r, r, t);
-    }
-  }
-}
-
-// r[e] = T[0]^(k+e) * s for e < COUNT: one walk of the table for k, the
-// product by s (null: none; the integer 1 leaves Montgomery form, and a
-// canonical value times a Montgomery one stays canonical), then one
-// product by T[0] a step. k < 2^bits.
-template <int COUNT>
-__device__ __forceinline__ void pow_run(uint32_t (*r)[L], const uint32_t* T,
-                                        unsigned long long k, int bits,
-                                        const uint32_t* s) {
-  uint32_t x[L];
-  pow_from_table(r[0], T, k, bits);
-  if (s != nullptr) mul(r[0], r[0], s);
-  copy(x, T);
-#pragma unroll
-  for (int e = 1; e < COUNT; e++) mul(r[e], r[e - 1], x);
+  mul(t, b, xd);
+  add(r, a, t);
 }
 
 // -- power tables: K3 fr_power_tables builds them, fr_powers and

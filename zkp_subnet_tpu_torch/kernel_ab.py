@@ -29,7 +29,12 @@ tree of launches, past 512); the keys' table ``g1_fixed_table`` at 256 and
 layout holds; and
 the opening's ``fr_powers`` and ``fr_open_quotient`` at one row of 2^16 and
 at 256 such rows at one point, and ``fr_power_tables``, as the checkout
-runs them (``_opening_fns``). The inputs are made once, from a seed, by
+runs them (``_opening_fns``); the scan's first pass ``fr_suffix_scan`` at
+one row of 2^16, at the 256 rows laid end to end and at a default row of
+1024 (with the quotient and the opening there), and the challenge's
+``fr_eval_rows`` at 16 and at 256 of those rows at one point and at one
+row at 16 points, and the whole opening of one row and of the 256
+(``_scan_eval_fns``). The inputs are made once, from a seed, by
 this checkout's package: 2^16 points with Z ≠ 1, the scalars of two MSMs
 of 2^16 points (8 point groups: 512 rows of 8192 entries, the main path's
 shape), uniform, and all equal to 1, and the opening's row and its
@@ -39,7 +44,11 @@ the reverse order. Its outputs must equal those of the first checkout
 that has the kernel: the K1 kernels but the ladder and the inverses limb
 for limb, the ladder, the bucket sums and the MSMs as points; and before any
 number, each checkout's aggregation MSMs must equal the oracle's Σ
-k_i·P_i (the keys' discrete logs are known). Then, for each
+k_i·P_i (the keys' discrete logs are known). A scan's local sums and
+totals depend on the checkout's tile: they are held limb for limb to the
+checkout's own plain version, and compared across checkouts by the
+opening ``fr_open_quotient`` makes of them. ``--only PREFIX ...`` times
+only the functions whose names start so (``fr_`` for K3). Then, for each
 checkout, the registers and spills of the kernels (``KERNELS``, from
 ``-Xptxas -v``) and the SASS
 instruction mix of ``g1_add_kernel`` (``cuobjdump -sass``; a static count,
@@ -78,14 +87,23 @@ REPS_FIXED, REPS_TABLE = 10, 2
 #: the aggregation's keys: [round]'s 16, the mainnet's 256, machines_scale
 #: 10's 1024
 FIXED_KEYS = (16, 256, 1024)
-#: rows of the opening's batch (a prove's 256 workers at 24/8)
+#: rows of the opening's batch (a prove's 256 workers at 24/8), and the
+#: rows a scan of it is held to its plain version on
 BATCH = 256
+BATCH_SAMPLED = (0, 1, 128, 255)
+#: a default configuration's row (18/8: 1024 coefficients a worker)
+DEFAULT_ROW = 1024
+#: launches a graph replays: the scan and the evaluation over the batch,
+#: the evaluation of 16 rows and of one row at 16 points
+REPS_SCAN, REPS_EVAL = 5, 20
 KERNELS = ("g1_add_kernel", "g1_double_kernel", "msm_buckets_kernel",
            "g1_scalar_mul_kernel", "g1_scalar_mul_group_kernel",
            "fr_inv_kernel", "g1_msm_fixed_kernel",
            "g1_msm_fixed_sum_kernel", "g1_fixed_table_kernel",
            "g1_fixed_multiples_kernel", "fr_power_tables_kernel",
-           "fr_powers_kernel", "fr_open_quotient_kernel")
+           "fr_powers_kernel", "fr_suffix_scan_kernel",
+           "fr_open_quotient_kernel", "fr_eval_partial_kernel",
+           "fr_eval_sum_kernel")
 
 
 def _graph_ms(fn, reps: int) -> float:
@@ -135,9 +153,10 @@ def child_build() -> dict:
             "lib": kernels.LIB_PATH}
 
 
-def child_time(inputs: str, reference: str) -> dict:
-    """In a checkout's process: time its kernels on the inputs, and hold
-    the outputs to ``reference`` (written here if it does not exist)."""
+def child_time(inputs: str, reference: str, *only: str) -> dict:
+    """In a checkout's process: time its kernels on the inputs (those whose
+    names start with one of ``only``, where given), and hold the outputs
+    to ``reference`` (written here if it does not exist)."""
     import torch
     from zkp_subnet_tpu_torch.ops import kernels
     from zkp_subnet_tpu_torch.ops import msm as tmsm
@@ -160,10 +179,16 @@ def child_time(inputs: str, reference: str) -> dict:
     fixed = _fixed_fns(kernels, tmsm, p, data["scalars"]["uniform"].to(dev))
     fns.update(fixed)
     fns.update(_opening_fns(kernels, data, dev))
-    outs = {name: _flat(fn()) for name, (fn, _) in fns.items()}
+    fns.update(_scan_eval_fns(kernels, data, dev))
+    if only:
+        fns = {k: v for k, v in fns.items() if k.startswith(only)}
+    # a function's output, or where it has a view (fns[name][2]) what the
+    # view makes of it, is compared across checkouts
+    outs = {name: _flat(view[0](fn()) if view else fn())
+            for name, (fn, _, *view) in fns.items()}
     torch.cuda.synchronize()
     _oracle_check(outs, data["scalars"]["uniform"], p)
-    ms = {name: _graph_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    ms = {name: _graph_ms(fn, reps) for name, (fn, reps, *_) in fns.items()}
     # the first checkout that has a kernel writes its reference output
     ref = torch.load(reference) if os.path.exists(reference) else {}
     missing = {k: v.cpu() for k, v in outs.items() if k not in ref}
@@ -291,10 +316,8 @@ def _opening_fns(kernels, data, dev) -> dict:
     The first pass of the scan (untimed) is the same kernel in both."""
     import torch
 
-    row, x = data["row"].to(dev), data["fr"][3].contiguous().to(dev)
+    row, x, batch = _opening_batch(kernels, data, dev)
     n = row.shape[0]
-    batch = kernels.fr_mul(row.repeat(BATCH, 1), data["factors"].to(
-        dev).repeat_interleave(n, 0)).view(BATCH, n, 8)
     xi = kernels.fr_inv(x)
     local1, totals1 = kernels.fr_suffix_scan(row)
     local, totals = kernels.fr_suffix_scan(batch.view(-1, 8))
@@ -324,6 +347,80 @@ def _opening_fns(kernels, data, dev) -> dict:
             local1, totals1, x, tables[1], row), REPS_POINT),
         f"fr_open_quotient {BATCH} rows": (lambda: kernels.fr_open_quotient(
             local, totals, x, tables[1], batch), REPS_BATCH)}
+
+
+def _opening_batch(kernels, data, dev):
+    """The opening's row of 2^16, its point x (random), and the batch of
+    BATCH rows: the row times each row's factor."""
+    row, x = data["row"].to(dev), data["fr"][3].contiguous().to(dev)
+    n = row.shape[0]
+    batch = kernels.fr_mul(row.repeat(BATCH, 1), data["factors"].to(
+        dev).repeat_interleave(n, 0)).view(BATCH, n, 8)
+    return row, x, batch
+
+
+def _scan_eval_fns(kernels, data, dev) -> dict:
+    """{name: (call, reps, view)}: ``fr_suffix_scan`` at one row of 2^16
+    and at the batch laid end to end, its view the opening's (y, q) from
+    ``fr_open_quotient`` after the local sums and totals were held to the
+    checkout's own plain version (rows BATCH_SAMPLED of the batch); and
+    ``fr_eval_rows`` at 16 and at BATCH rows of the batch at x, and at the
+    row at 16 points (0, 1, r − 1 and random); and the whole opening
+    (``poly._open_on_card`` with 1/x given: four launches) of the row and
+    of the batch. The scan, the quotient and the opening also at a default
+    row of DEFAULT_ROW coefficients."""
+    import torch
+    from zkp_subnet_tpu_torch.ops import poly as tpoly
+
+    row, x, batch = _opening_batch(kernels, data, dev)
+    xi = kernels.fr_inv(x)
+    row1k = row[:DEFAULT_ROW]
+    sampled = list(BATCH_SAMPLED)
+
+    def opened(coeffs):
+        rows, n = coeffs.shape[:2]
+        tables = kernels.fr_power_tables(x, n, xi)
+
+        def view(out):
+            local, totals = out
+            local, totals = local.view(rows, n, 8), totals.view(rows, -1, 8)
+            some = sampled if rows > 1 else [0]
+            plain = tpoly.fr_suffix_scan_plain(coeffs[some])
+            if not (torch.equal(local[some], plain[0])
+                    and torch.equal(totals[some], plain[1])):
+                raise RuntimeError("fr_suffix_scan != its plain version")
+            return kernels.fr_open_quotient(local, totals, x, tables[1],
+                                            coeffs)
+        return view
+    pts = data["fr"].to(dev)
+    local1k, totals1k = kernels.fr_suffix_scan(row1k)
+    tables1k = kernels.fr_power_tables(x, DEFAULT_ROW, xi)
+    return {
+        f"fr_suffix_scan 1 x {DEFAULT_ROW}": (
+            lambda: kernels.fr_suffix_scan(row1k), REPS_POINT,
+            opened(row1k[None])),
+        f"fr_open_quotient 1 x {DEFAULT_ROW}": (
+            lambda: kernels.fr_open_quotient(local1k, totals1k, x,
+                                             tables1k[1], row1k),
+            REPS_POINT),
+        f"fr_opening 1 x {DEFAULT_ROW}, 1/x given": (
+            lambda: tpoly._open_on_card(row1k, x, xi), REPS_POINT),
+        "fr_opening 1 row, 1/x given": (
+            lambda: tpoly._open_on_card(row, x, xi), REPS_POINT),
+        f"fr_opening {BATCH} rows, 1/x given": (
+            lambda: tpoly._open_on_card(batch, x, xi), REPS_SCAN),
+        "fr_suffix_scan 1 row": (lambda: kernels.fr_suffix_scan(row),
+                                 REPS_POINT, opened(row[None])),
+        f"fr_suffix_scan {BATCH} rows": (
+            lambda: kernels.fr_suffix_scan(batch.view(-1, 8)), REPS_SCAN,
+            opened(batch)),
+        "fr_eval_rows 16 rows at one point": (
+            lambda: kernels.fr_eval_rows(batch[:16], x.view(1, 8)),
+            REPS_EVAL),
+        f"fr_eval_rows {BATCH} rows at one point": (
+            lambda: kernels.fr_eval_rows(batch, x.view(1, 8)), REPS_SCAN),
+        "fr_eval_rows 1 row at 16 points": (
+            lambda: kernels.fr_eval_rows(row[None], pts), REPS_EVAL)}
 
 
 def _inputs(path: str) -> None:
@@ -407,6 +504,9 @@ def main(argv=None) -> int:
     parser.add_argument("checkouts", nargs="+", metavar="DIR",
                         help="roots of the checkouts, the first the "
                         "reference for the outputs")
+    parser.add_argument("--only", nargs="+", default=[], metavar="PREFIX",
+                        help="time only the functions whose names start "
+                        "with one of these")
     args = parser.parse_args(argv)
     import torch
     from .ops import kernels
@@ -429,7 +529,7 @@ def main(argv=None) -> int:
              for root, proc in builds.items()}
     runs = {root: [] for root in unique}
     for turn, root in enumerate(roots + roots[::-1]):
-        res = _result(_spawn(root, "--time", inputs, reference),
+        res = _result(_spawn(root, "--time", inputs, reference, *args.only),
                       f"turn {turn} of {root}")
         if not res["package"].startswith(root + os.sep):
             raise RuntimeError(f"{root}: imported {res['package']}")
@@ -470,6 +570,6 @@ def main(argv=None) -> int:
 if __name__ == "__main__" and sys.argv[1:2] == ["--build"]:
     print(json.dumps(child_build()))
 elif __name__ == "__main__" and sys.argv[1:2] == ["--time"]:
-    print(json.dumps(child_time(*sys.argv[2:4])))
+    print(json.dumps(child_time(*sys.argv[2:])))
 elif __name__ == "__main__":
     sys.exit(main())

@@ -60,7 +60,7 @@ LAUNCHES = {name: 0 for name in ("g1_add", "g1_double", "g1_scalar_mul",
 
 #: elements of one block's tile in the suffix scan (SCAN_TILE of
 #: csrc/fr.cu, whose C entries refuse another)
-SCAN_TILE = 1024
+SCAN_TILE = 512
 
 #: entries of a level of the power tables (POW_WIDTH of csrc/fr.cuh, whose
 #: C entries refuse another), and their levels at most (MAX_POW_LEVELS)
@@ -71,10 +71,10 @@ MAX_POW_LEVELS = 4
 MAX_OPEN_ROWS = 65535
 
 #: elements of one block's tile in ``fr_eval_rows`` (EVAL_TILE of
-#: csrc/fr.cu, whose C entry refuses another), and the consecutive powers a
-#: thread takes (EVAL_PER_THREAD)
-EVAL_TILE = 1024
-EVAL_PER_THREAD = 4
+#: csrc/fr.cu, whose C entry refuses another), and the second pass's powers
+#: of a point that its scratch holds (EVAL_POWERS)
+EVAL_TILE = 2048
+EVAL_POWERS = 33
 
 #: rows of one ``fr_eval_rows`` launch at most (the grid's second dimension)
 MAX_EVAL_ROWS = 65535
@@ -253,8 +253,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "zkp_fr_suffix_scan": [p, p, p, i64, i32, p],
         "zkp_fr_open_quotient": [p, p, p, p, p, p, p, i64, i64, i32, i32,
                                  i32, p],
-        "zkp_fr_eval_rows": [p, p, p, p, i64, i64, i64, i32, i32, i32,
-                             p],
+        "zkp_fr_eval_rows": [p, p, p, p, i64, i64, i64, i32, i32, p],
         "zkp_fq_mul": [p, p, p, i64, i32, i32, p],
         "zkp_fq_add": [p, p, p, i64, i32, i32, p],
         "zkp_fq_sub": [p, p, p, i64, i32, i32, p],
@@ -721,8 +720,9 @@ def fr_suffix_scan(terms: torch.Tensor):
 
     Replaces pallas_g1.py:pfield("add", BFR) as reached from
     poly._suffix_sums (log2 n Hillis-Steele launches). Bound: bytes and an
-    add an element; a thread's elements serially, its warp by shuffles, the
-    warps through shared memory."""
+    add an element; an element a thread, consecutive lanes on consecutive
+    elements, a warp's by shuffles, the warps' totals by one warp's
+    shuffles."""
     _check(terms, "terms", tail=(8,))
     if terms.dim() != 2:
         raise ValueError("fr_suffix_scan: expected (n, 8)")
@@ -793,10 +793,11 @@ def fr_eval_rows(coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     Replaces pallas_g1.py:pfield over lane8.BFR as poly._fmul and
     poly._tree_sum_lane reach it from poly_eval (the challenge's jax.vmap,
     zkp_subnet_tpu/runtime/coordinator.py:91). Bound: bytes, n·32 B a row.
-    One call: a pass of per-(row, tile) partial sums (x^k by a thread's run
-    from the per-block table of x^(2^j), times c_k, reduced by warp
-    shuffles and shared memory), then one warp a row adding the partials;
-    a row of one tile skips the second. No inverse, no scan, no quotient,
+    One call: a pass of per-(row, tile) partial sums (a lane's Horner run
+    over the coefficients 32 apart, times x^lane, summed by shuffles; a
+    tile's warps joined by a tree of Horner steps), then one warp a row
+    joining the partials the same way; a row of one tile skips the second.
+    About one Fr product an element; no inverse, no scan, no quotient,
     nothing read back to the host."""
     _check(coeffs, "coeffs", tail=(8,))
     _check(xs, "xs", tail=(8,))
@@ -817,12 +818,16 @@ def fr_eval_rows(coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         return torch.zeros((rows, 8), dtype=torch.int32, device=xs.device)
     out = torch.empty((rows, 8), dtype=torch.int32, device=xs.device)
     tiles = -(-n // EVAL_TILE)
-    partial = (torch.empty((rows, tiles, 8), dtype=torch.int32,
-                           device=xs.device) if tiles > 1 else None)
+    x_step = 8 if rows_x == rows else 0
+    # every (row, tile)'s partial sum, then the second pass's powers of
+    # each point
+    points = rows if x_step else 1
+    scratch = (torch.empty((rows * tiles + points * EVAL_POWERS, 8),
+                           dtype=torch.int32, device=xs.device)
+               if tiles > 1 else None)
     _launch("fr_eval_rows", _load().zkp_fr_eval_rows, coeffs.data_ptr(),
-            xs.data_ptr(), None if partial is None else partial.data_ptr(),
-            out.data_ptr(), rows, n, 8 * n if rows_c == rows else 0,
-            8 if rows_x == rows else 0, max(1, (n - 1).bit_length()),
+            xs.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), rows, n, 8 * n if rows_c == rows else 0, x_step,
             EVAL_TILE)
     return out
 

@@ -26,7 +26,8 @@ An evaluation alone (``poly_eval``, ``poly_eval_many``: one row or a batch
 of rows, as the coordinator's challenge evaluates all its rows at α) is
 one call of K3 ``fr_eval_rows`` on a CUDA tensor, and its plain version
 ``fr_eval_rows_plain`` on a CPU one: the sum of c_k·x^k over tiles, with no
-inverse and no quotient.
+inverse and no quotient: Horner runs at a warp's stride and trees of Horner
+steps, about one product an element.
 
 Tensors are (N, 8) int32 Fr elements (Montgomery unless said otherwise),
 fully reduced: the TPU's byte-lane layout (``ops/lane8.py``) that
@@ -38,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .curve import tree_sum
 from .field import (FR, fr_add, fr_inv_plain, fr_mul, fr_power_tables_plain,
                     fr_powers_plain, table_pow_plain)
 
@@ -45,8 +47,10 @@ from .field import (FR, fr_add, fr_inv_plain, fr_mul, fr_power_tables_plain,
 #: smaller tiles to the plain versions)
 SCAN_TILE = kernels.SCAN_TILE
 
-#: elements of one tile of the row evaluation (the kernel's)
+#: elements of one tile of the row evaluation (the kernel's), and the
+#: stride of a lane's Horner run in it (a warp's lanes)
 EVAL_TILE = kernels.EVAL_TILE
+EVAL_STRIDE = 32
 
 #: entries of a level of the power tables (the kernel's; CPU tests pass
 #: smaller widths to the plain versions)
@@ -176,60 +180,58 @@ def open_pieces_plain(coeffs: torch.Tensor, x: torch.Tensor,
     return fr_open_quotient_plain(local, totals, x, tables[1], coeffs, tile)
 
 
-def _powers_by_runs(x: torch.Tensor, n: int, c: torch.Tensor,
-                    per_thread: int) -> torch.Tensor:
-    """x^k·c_k, (n, 8), as a thread of ``fr_eval_rows`` takes them
-    (``fr::pow_run``): the table x^(2^j); for the first k of each run of
-    ``per_thread`` the product of the entries of the bits set in k; then a
-    product by x a step along the run; then c."""
-    bits = max(1, (n - 1).bit_length())
-    table = [x.reshape(FR.L)]
-    for _ in range(bits - 1):
-        table.append(FR.mont_mul_plain(table[-1], table[-1]))
-    first = torch.arange(0, n, per_thread, device=x.device)
-    run = [FR.ones(first.shape, x.device)]
-    for j, t in enumerate(table):
-        run[0] = FR.select(((first >> j) & 1).bool(),
-                           FR.mont_mul_plain(run[0], t), run[0])
-    for _ in range(per_thread - 1):
-        run.append(FR.mont_mul_plain(run[-1], table[0]))
-    out = torch.stack(run, dim=1).reshape(-1, FR.L)[:n]
-    return FR.mont_mul_plain(out, c)
-
-
 def fr_eval_rows_plain(coeffs: torch.Tensor, xs: torch.Tensor,
                        tile: int = EVAL_TILE):
     """Plain version of K3 ``fr_eval_rows``: y_r = Σ_k c_{r,k}·x_r^k, (R, 8)
     Montgomery, from ``coeffs`` (R, n, 8) and ``xs`` (R, 8), either of
-    which may hold one row or one point for all R. As the kernel: the terms
-    x^k·c_k by a thread's run of powers from the table of x^(2^j)
-    (``_powers_by_runs``), a partial sum a tile of ``tile`` elements, then
-    the sum of a row's partials; the adds inside a tile go by halving, not
-    in the kernel's order (a thread's elements, its warp, the warps): the
-    sums are the same limbs."""
+    which may hold one row or one point for all R. As the kernel: each tile
+    of ``tile`` elements by Horner runs at the stride of a warp's lanes,
+    then the tree that joins the runs (``_horner_join``), into the tile's
+    partial sum; then the row's partials the same way at x^tile. Inside a
+    tile the kernel splits the runs over its warps, weights a warp's lanes
+    by x^lane and joins its warps by the tree: the sums are exact, so the
+    limbs are the same."""
     rows = max(coeffs.shape[0], xs.shape[0])
     n = coeffs.shape[1]
     tiles = -(-n // tile)
-    out = []
-    for r in range(rows):
-        c = coeffs[r if coeffs.shape[0] > 1 else 0]
-        x = xs[r if xs.shape[0] > 1 else 0]
-        terms = _powers_by_runs(x, n, c, kernels.EVAL_PER_THREAD)
-        parts = torch.cat([terms, FR.zeros((tiles * tile - n,), c.device)])
-        out.append(_tree_sum(_tree_sum(parts.view(tiles, tile, FR.L))))
-    return torch.stack(out)
+    c = coeffs.expand(rows, n, FR.L)
+    x = xs.expand(rows, FR.L)
+    pad = FR.zeros((rows, tiles * tile - n), c.device)
+    parts = _horner_join(torch.cat([c, pad], 1).view(rows * tiles, tile,
+                                                     FR.L),
+                         x.repeat_interleave(tiles, 0))
+    return _horner_join(parts.view(rows, tiles, FR.L), _pow_plain(x, tile))
 
 
-def _tree_sum(terms: torch.Tensor) -> torch.Tensor:
-    """Σ along dim −2 by halving, padded with zeros to a power of two."""
-    n = terms.shape[-2]
-    width = 1 << max(n - 1, 0).bit_length()
-    pad = FR.zeros(terms.shape[:-2] + (width - n,), terms.device)
-    terms = torch.cat([terms, pad], dim=-2)
-    while terms.shape[-2] > 1:
-        half = terms.shape[-2] // 2
-        terms = FR.add_plain(terms[..., :half, :], terms[..., half:, :])
-    return terms[..., 0, :]
+def _pow_plain(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e (Montgomery) of (B, 8) x by square-and-multiply, plain."""
+    out = FR.ones(x.shape[:-1], x.device)
+    for bit in bin(e)[2:]:
+        out = FR.mont_mul_plain(out, out)
+        if bit == "1":
+            out = FR.mont_mul_plain(out, x)
+    return out
+
+
+def _horner_join(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Σ_j v_j·x^j of (B, m, 8) values at (B, 8) points, as ``fr_eval_rows``
+    joins them: lane l of EVAL_STRIDE takes v_(l + 32i) by Horner's steps
+    from the top with x^32, then a tree of Horner steps joins the lanes,
+    the pair (l, l + d) into h_l + x^d·h_(l+d) (``curve.tree_sum``'s
+    halving tree, whose halves are d apart)."""
+    b, m = v.shape[:2]
+    steps = -(-m // EVAL_STRIDE)
+    pad = FR.zeros((b, steps * EVAL_STRIDE - m), v.device)
+    runs = torch.cat([v, pad], 1).view(b, steps, EVAL_STRIDE, FR.L)
+    xd = {1: x[:, None]}                          # x^d, d = 1 .. 32
+    while len(xd) <= EVAL_STRIDE.bit_length() - 1:
+        d = 1 << len(xd)
+        xd[d] = FR.mont_mul_plain(xd[d // 2], xd[d // 2])
+    h = runs[:, -1]
+    for i in range(steps - 2, -1, -1):
+        h = FR.add_plain(FR.mont_mul_plain(h, xd[EVAL_STRIDE]), runs[:, i])
+    return tree_sum(h, lambda lo, hi: FR.add_plain(
+        lo, FR.mont_mul_plain(hi, xd[lo.shape[1]])), FR.zeros((), v.device))
 
 
 def _eval_rows(coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
