@@ -261,17 +261,21 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 
 # 32-bit integer operations that each function needs: a CIOS product of L
-# limbs is 2·L·L multiply-adds (csrc/mont.cuh); an add or subtract is a
-# carry chain and a conditional correction, 2·L. The RCB15 point add
-# (csrc/g1.cuh) is 14 Fq products and 19 add/subtracts, the double 9 and 9;
-# of the products 2 and 1 are by the constant b3 = 12, which needs no
-# product but 4 additions (2x, 4x, 8x, 8x + 4x). The bound counts them so,
-# although the kernels spend a full product on each: 12 products and 27
-# add/subtracts an add, 8 and 13 a double
+# limbs is 2·L·L multiply-adds (csrc/mont.cuh); a square L·(L+1)/2 limb
+# products (the off-diagonal ones once) and the reduction's L·L
+# (mont::sqr); an add or subtract is a carry chain and a conditional
+# correction, 2·L. The RCB15 point add (csrc/g1.cuh) is 14 Fq products and
+# 19 add/subtracts, the double 9 and 9; of the products 2 and 1 are by the
+# constant b3 = 12, which needs no product but 4 additions (2x, 4x, 8x,
+# 8x + 4x), and 2 of the double's are squares (Y², Z²). The bound counts
+# them so, although the kernels spend a full product on each product by
+# b3: 12 products and 27 add/subtracts an add, 6 products, 2 squares and
+# 13 add/subtracts a double
 OPS_FR_MUL, OPS_FR_LIN = 2 * 8 * 8, 2 * 8
 OPS_FQ_MUL, OPS_FQ_LIN = 2 * 12 * 12, 2 * 12
+OPS_FQ_SQR = 12 * 13 // 2 + 12 * 12
 OPS_G1_ADD = 12 * OPS_FQ_MUL + 27 * OPS_FQ_LIN
-OPS_G1_DOUBLE = 8 * OPS_FQ_MUL + 13 * OPS_FQ_LIN
+OPS_G1_DOUBLE = 6 * OPS_FQ_MUL + 2 * OPS_FQ_SQR + 13 * OPS_FQ_LIN
 G1_BYTES, FQ_BYTES, FR_BYTES = 144, 48, 32
 # a step of fr_inv's binary inverse: a compare-and-subtract, a cofactor
 # add and the shifts of two 8-word values, four carry chains' worth
@@ -291,6 +295,10 @@ BATCH_SAMPLED = (0, 1, 128, 255)
 # a row length whose powers take three levels of the tables (> 2^16)
 THREE_LEVELS = 70000
 LADDER_BITS = 256
+# the double's sizes held to its plain version: every boundary of a warp
+# (32 points) and a block (128 points) of its kernel, and past one wave of
+# the card
+DOUBLE_SIZES = (1, 2, 3, 31, 32, 33, 127, 128, 129, (1 << 16) + 3)
 # the ladder's scalars beside 0, 1, r − 1 and random ones: r − 2, every
 # 4-bit window 8, a carry through every window and out of the top
 # (0x88…89), 2^256 − 1
@@ -566,6 +574,7 @@ def path_inputs(rng, dev):
     n = 1 << LOG_N
     p = random_points(rng, 256, dev)[0].repeat(n // 256, 1, 1)
     q = p.roll(1, 0).contiguous()
+    p20 = p.repeat(16, 1, 1)                       # the double at 2^20
     a, b = random_fr(rng, n, dev), random_fr(rng, n, dev)
     # two MSMs over the same bases, as one request's commit and opening
     sc = FR.from_limbs16(random_scalar_limbs(rng, 2 * n).reshape(2, n, 16),
@@ -627,7 +636,8 @@ def path_inputs(rng, dev):
         random_scalar_limbs(rng, m * n).reshape(m, n, 16), dev)
     return types.SimpleNamespace(rows=rows, alpha=x1.view(1, 8),
                                  pts16=random_fr(rng, m, dev),
-                                 n=n, m=m, n_srs=n_srs, p=p, q=q, a=a, b=b,
+                                 n=n, m=m, n_srs=n_srs, p=p, p20=p20, q=q,
+                                 a=a, b=b,
                                  sa=sa, sb=sb, qa=qa, qb=qb, runs=runs,
                                  runs1=runs1, runs_ones=runs_ones, bk=bk,
                                  wins=wins, x1=x1, xi1=xi1, tab1=tab1,
@@ -941,10 +951,19 @@ def phase_kernels(rng, dev, int_ops_per_s):
     p[5] = p[6] = q[6]                                 # equal projective
     record("g1_add", same_points(kernels.g1_add(p, q),
                                  cv.g1_add_plain(p.cpu(), q.cpu())))
-    record("g1_double", same_points(kernels.g1_double(p),
-                                    cv.g1_double_plain(p.cpu())))
+    record("g1_double", same_limbs(kernels.g1_double(p),
+                                   cv.g1_double_plain(p.cpu())))
     say(f"[kernels] K1 g1_add / g1_double: {n} points incl. P+P, P+(-P), "
         "inf+P, P+inf, inf+inf: equal to plain")
+    # the double at every warp and block boundary of its kernel, the points
+    # above (Z != 1, infinity at 2 and 4) repeated; plain on the card
+    for m in DOUBLE_SIZES:
+        pts = p.repeat(-(-m // n), 1, 1)[:m].contiguous()
+        record("g1_double", same_limbs(kernels.g1_double(pts),
+                                       cv.g1_double_plain(pts)))
+    say("[kernels] K1 g1_double at " + ", ".join(map(str, DOUBLE_SIZES))
+        + " points (infinity and Z != 1 among them): equal to plain limb "
+        "for limb")
 
     # K3: random elements with 0, 1, r−1, r−2, and a broadcast operand
     a = random_fr(rng, n, dev)
@@ -1355,10 +1374,16 @@ def extra_shapes(x):
     the scan and the row evaluation besides ``path_calls``' and
     ``batch_calls``': the scan at a default row of 1024 ([default]),
     ``fr_eval_rows`` at [cli]'s challenge (256 rows of 2^16 at one point)
-    and one 2^16 row at 16 points (``poly_eval_many``)."""
+    and one 2^16 row at 16 points (``poly_eval_many``); and the double at
+    2^20 points, several waves of the card."""
     n, b = x.n, MESH_BATCH
     row1k = x.a[:1024]
+    n20 = x.p20.shape[0]
     return {
+        ("g1_double", "2^20 points"): (
+            lambda: kernels.g1_double(x.p20),
+            lambda: cv.g1_double_plain(x.p20), same_limbs,
+            (2 * G1_BYTES * n20, OPS_G1_DOUBLE * n20), 20),
         ("fr_suffix_scan", "1 x 1024"): (
             lambda: kernels.fr_suffix_scan(row1k),
             lambda: tpoly.fr_suffix_scan_plain(row1k), same_fr_pair,

@@ -1,8 +1,9 @@
 """The CUDA field and point code (zkp_subnet_tpu_torch/csrc/mont.cuh,
 fq.cuh, fr.cuh, g1.cuh) compiled for the host with g++, against Python's
-integers and the port's plain point formulas: the field operations, the
-binary inverse (fr::inv), Horner's steps (fr::horner_step, fr::tree_step:
-K3 fr_eval_rows's runs and its tree), the power tables
+integers and the port's plain point formulas: the field operations (the
+squaring mont::sqr among them), the binary inverse (fr::inv), Horner's
+steps (fr::horner_step, fr::tree_step: K3 fr_eval_rows's runs and its
+tree), the power tables
 (fr::power_table, a level by fr::level_scan) and their lookup
 (fr::table_pow), the point add and double, and the ladder (g1_scalar_mul
 over signed windows, and the recoding signed_digit that both of its
@@ -80,7 +81,7 @@ inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - cf; }
 # entries on one line), 12 lookups in one (x, levels, canonical0, a count
 # m, then m exponents as two words each, low first; a line each), 13 the
 # ladder's signed digits of a scalar's 8 words (4-bit windows and the
-# carry, then 5-bit windows and the carry: two lines)
+# carry, then 5-bit windows and the carry: two lines), 15-16 Fr/Fq squaring
 HOST_MAIN = r"""
 #include <pthread.h>
 
@@ -144,7 +145,7 @@ static void build_table(uint32_t* T, const uint32_t* x, int levels,
 int main() {
   int op;
   while (scanf("%d", &op) == 1) {
-    uint32_t a[36], b[36], r[36];
+    alignas(16) uint32_t a[36], b[36], r[36];
     if (op == 8) {
       read(a, fr::L);
       fr::inv(r, a);
@@ -193,6 +194,12 @@ int main() {
         d5[w] = signed_digit<5>(a, w);
       write((const uint32_t*)d4, ladder_windows<4> + 1);
       write((const uint32_t*)d5, ladder_windows<5> + 1);
+    } else if (op == 15 || op == 16) {
+      const int n = op == 15 ? fr::L : fq::L;
+      read(a, n);
+      if (op == 15) fr::sqr(r, a);
+      else fq::sqr(r, a);
+      write(r, n);
     } else if (op < 6) {
       const int n = op < 3 ? fr::L : fq::L;
       read(a, n);
@@ -209,18 +216,22 @@ int main() {
     } else {
       G1 P, Q, R;
       read(a, G1_WORDS);
-      g1_load(P, a);
-      if (op == 6) {
-        read(b, G1_WORDS);
-        g1_load(Q, b);
-        g1_add(R, P, Q);
-      } else if (op == 9) {
-        read(b, 8);
-        g1_scalar_mul(R, P, b);
-      } else {
+      if (op == 7) {  // as g1_double_kernel moves its points
+        g1_load16(P, a);
         g1_double(R, P);
+        g1_store16(r, R);
+      } else {
+        g1_load(P, a);
+        if (op == 6) {
+          read(b, G1_WORDS);
+          g1_load(Q, b);
+          g1_add(R, P, Q);
+        } else {
+          read(b, 8);
+          g1_scalar_mul(R, P, b);
+        }
+        g1_store(r, R);
       }
-      g1_store(r, R);
       write(r, G1_WORDS);
     }
   }
@@ -285,10 +296,26 @@ def test_mont_carry_chains_match_python_integers(host_binary, name):
     assert [_int(g) for g in got] == want
 
 
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mont_square_matches_python_integers(host_binary, name):
+    """mont::sqr for Fr (8 limbs) and Fq (12) on the chain test's edge
+    values (0, 1, 2, p − 1, p − 2, 2^(32(N−1)) − 1, p >> 1) and 60 random
+    ones, against a²·2^(−32N) mod p: the fully reduced value mul(a, a)
+    gives."""
+    p, n, op = (o.R, 8, 15) if name == "fr" else (o.Q, 12, 16)
+    rng = np.random.default_rng(37)
+    vals = [0, 1, 2, p - 1, p - 2, (1 << (32 * (n - 1))) - 1, p >> 1] + [
+        int.from_bytes(rng.bytes(4 * n + 8), "little") % p
+        for _ in range(60)]
+    got = _run(host_binary, [(op, (_words(x, n),)) for x in vals])
+    r_inv = pow(1 << (32 * n), -1, p)
+    assert [_int(g) for g in got] == [x * x * r_inv % p for x in vals]
+
+
 def test_point_formulas_match_plain(host_binary):
-    """g1_add / g1_double of g1.cuh (b3 = 12 as an add chain) against the
-    plain RCB15 formulas, limb for limb, on general projective points,
-    infinity, P + P and P + (−P)."""
+    """g1_add / g1_double of g1.cuh (b3 = 12 as an add chain; the double's
+    Y² and Z² by fq::sqr) against the plain RCB15 formulas, limb for limb,
+    on general projective points, infinity, P + P and P + (−P)."""
     rng = np.random.default_rng(11)
     dlogs = [int.from_bytes(rng.bytes(40), "little") % (o.R - 1) + 1
              for _ in range(6)]

@@ -164,6 +164,20 @@ def test_g1_kernels_match_plain(dev):
     assert torch.equal(got, tcv.g1_double_plain(p))
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 32, 33, 127, 128, 129,
+                               (1 << 16) + 3])
+def test_g1_double_kernel_at_every_boundary(dev, n):
+    """K1 g1_double limb for limb against its plain version (on the card)
+    at every boundary of a warp (32 points) and a block (128 points) of its
+    kernel and past one wave of the card, on points with Z != 1 and the
+    point at infinity among them."""
+    pts, _, _ = _instance(64, 31)
+    pts = tcv.g1_double_plain(pts)             # Z ≠ 1
+    pts[2] = pts[40] = tcv.g1_infinity(())
+    p = pts.to(dev).repeat(-(-n // 64), 1, 1)[:n].contiguous()
+    assert torch.equal(kernels.g1_double(p), tcv.g1_double_plain(p))
+
+
 def test_msm_on_card_matches_oracle(dev, monkeypatch):
     monkeypatch.setattr(tmsm, "MIN_GROUP_POINTS", 128)
     pts, dlogs, ks = _instance(1000, 3)
@@ -336,6 +350,9 @@ def test_point_kernels_refuse_what_they_do_not_take(dev, path_points):
         kernels.g1_add(p, p[:4])                           # shapes differ
     with pytest.raises(ValueError):
         kernels.g1_double(p[..., :8].contiguous())         # not (..., 3, 12)
+    flat = torch.zeros(8 * 36 + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.g1_double(flat[1:].view(8, 3, 12))      # 4 bytes in
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.msm_buckets(p, perm.cpu(), digits.cpu())
     with pytest.raises(ValueError):

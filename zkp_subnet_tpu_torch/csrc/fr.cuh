@@ -31,6 +31,11 @@ __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
   mont::mul<L>(r, a, b, P, INV);
 }
 
+// r = a·a (Montgomery): mul(r, a, a)'s value from fewer limb products.
+__device__ __forceinline__ void sqr(uint32_t* r, const uint32_t* a) {
+  mont::sqr<L>(r, a, P, INV);
+}
+
 __device__ __forceinline__ void add(uint32_t* r, const uint32_t* a,
                                     const uint32_t* b) {
   mont::add<L>(r, a, b, P);

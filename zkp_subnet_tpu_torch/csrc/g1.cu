@@ -23,6 +23,21 @@
 // kernel_ab.py over copies of the sources with that one choice changed;
 // PERF.md has the times).
 //
+// The double (g1_double_kernel): the same kind of bound (6 Fq products
+// and 2 squares, ~2,500 operations) and a thread a double at 128
+// registers, with two changes that each measured faster on the H100: the
+// point moved as nine 16-byte words each way by g1_load16/g1_store16
+// (the parent's 4-byte loads fell 144 bytes apart across a warp: this
+// halved the time) and Y² and Z² by fq::sqr (mont::sqr: 78
+// limb products where a product has 144, the reduction's 144 alike; ~5%
+// here and in the ladder's thread form). Measured against the point split
+// over 2 lanes (a squaring and a product a lane a step, the squares and a
+// product swapped by shuffles) and 4 (a product a lane a step): faster at
+// one wave of the card (2^16 points) and at 16, slower from several waves
+// (2^20), where the split's repeated additions cost instructions; and
+// against the products taken in pairs, their rows in turns (spills, and
+// slower).
+//
 // g1_scalar_mul: [k_i]P_i, the whole ladder in one launch. Replaces
 // zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ as reached through
 // dispatch_ldouble/dispatch_ladd from zkp_subnet_tpu/ops/curve.py:
@@ -117,16 +132,18 @@ g1_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 }
 
 constexpr int DOUBLE_THREADS = 128;
+constexpr int DOUBLE_MIN_BLOCKS = 4;  // 128 registers, as the add
 
-__global__ void __launch_bounds__(DOUBLE_THREADS)
+// A thread a double, the point moved as 16-byte words (g1_load16).
+__global__ void __launch_bounds__(DOUBLE_THREADS, DOUBLE_MIN_BLOCKS)
 g1_double_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out,
                  long long n) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= n) return;
   G1 P;
-  g1_load(P, p + G1_WORDS * i);
+  g1_load16(P, p + G1_WORDS * i);
   g1_double(P, P);
-  g1_store(out + G1_WORDS * i, P);
+  g1_store16(out + G1_WORDS * i, P);
 }
 
 constexpr int LADDER_THREADS = 128;

@@ -175,6 +175,14 @@ struct FqCall {
 #pragma unroll
     for (int j = 0; j < fq::L; j++) r[j] = x[j];
   }
+  static __device__ __noinline__ void sqr(uint32_t* r, const uint32_t* a) {
+    uint32_t x[fq::L];
+#pragma unroll
+    for (int j = 0; j < fq::L; j++) x[j] = a[j];
+    fq::sqr(x, x);
+#pragma unroll
+    for (int j = 0; j < fq::L; j++) r[j] = x[j];
+  }
   static __device__ __noinline__ void add(uint32_t* r, const uint32_t* a,
                                           const uint32_t* b) {
     uint32_t x[fq::L], y[fq::L];

@@ -11,8 +11,10 @@ Each DIR is the root of a checkout: an earlier commit unpacked with ``git
 archive``, or a copy whose sources were edited to try one design choice.
 Each is driven through its own package, in a process of its own: its
 ``kernels.build()`` compiles its sources into its own ``build/`` (all
-checkouts at once), and its wrappers ``g1_add``, ``g1_double``,
-``msm_buckets(points, *msm.bucket_runs(scalars, groups))``, ``fr_inv`` (of
+checkouts at once), and its wrappers ``g1_add``, ``g1_double`` (at 2^16,
+2^20 and 16 points), ``msm_buckets(points, *msm.bucket_runs(scalars,
+groups))``, ``msm_reduce`` of the uniform scalars' 512 rows of 256
+buckets, ``fr_inv`` (of
 one random element, and of 16 with 0, 1 and r − 1 among them) and, where
 the checkout has it, the ladder ``g1_scalar_mul`` (``LADDER_POINTS``: 16
 points, a default request's 2 × 1024, 2 × 2048, 2^16 and a default
@@ -51,8 +53,9 @@ opening ``fr_open_quotient`` makes of them. ``--only PREFIX ...`` times
 only the functions whose names start so (``fr_`` for K3). Then, for each
 checkout, the registers and spills of the kernels (``KERNELS``, from
 ``-Xptxas -v``) and the SASS
-instruction mix of ``g1_add_kernel`` (``cuobjdump -sass``; a static count,
-which for a kernel without loops is what each thread executes). The last
+instruction mix of ``g1_add_kernel`` and ``g1_double_kernel`` (``cuobjdump
+-sass``; a static count, which for a kernel without loops is what each
+thread executes). The last
 lines are the card (``nvidia-smi`` name and power limit) and one JSON
 object.
 """
@@ -72,6 +75,12 @@ SEED = 20261016
 #: launches a graph replays: (g1_add, g1_double), msm_buckets, the ladder,
 #: the opening's kernels over the batch
 REPS_POINT, REPS_BUCKETS, REPS_LADDER, REPS_BATCH = 100, 5, 2, 2
+#: the double's shapes (label, points, launches a graph replays): one wave
+#: of the card (2^16), several (2^20) and the launch floor (16)
+DOUBLE_POINTS = (("2^16 points", 1 << 16, REPS_POINT),
+                 ("2^20 points", 1 << 20, 20), ("16 points", 16, REPS_POINT))
+#: the kernels whose SASS instruction mix the report prints
+SASS_KERNELS = ("g1_add_kernel", "g1_double_kernel")
 #: the ladder's shapes (label, points, rows of bases): 16 points (the
 #: aggregation's before g1_msm_fixed), a default request's two MSMs of 1024
 #: and two of 2048 (the most a naive MSM takes), 2^16 (chip_smoke.py's SRS
@@ -164,13 +173,20 @@ def child_time(inputs: str, reference: str, *only: str) -> dict:
     dev = torch.device("cuda", 0)
     data = torch.load(inputs)
     p, q = data["p"].to(dev), data["q"].to(dev)
-    fns = {"g1_add": (lambda: kernels.g1_add(p, q), REPS_POINT),
-           "g1_double": (lambda: kernels.g1_double(p), REPS_POINT)}
+    fns = {"g1_add": (lambda: kernels.g1_add(p, q), REPS_POINT)}
+    for label, n, reps in DOUBLE_POINTS:
+        pts = p[:n] if n <= p.shape[0] else p.repeat(n // p.shape[0], 1, 1)
+        fns[f"g1_double {label}"] = (
+            lambda pts=pts.contiguous(): kernels.g1_double(pts), reps)
     for label, scalars in data["scalars"].items():
         scalars = scalars.to(dev)
         runs = tmsm.bucket_runs(scalars, tmsm._groups(scalars.shape[1]))
         fns[f"msm_buckets {label}"] = (
             lambda runs=runs: kernels.msm_buckets(p, *runs), REPS_BUCKETS)
+        if label == "uniform":
+            bk = kernels.msm_buckets(p, *runs)
+            fns["msm_reduce 512 x 256"] = (
+                lambda bk=bk: kernels.msm_reduce(bk), REPS_BUCKETS)
     if hasattr(kernels, "g1_scalar_mul"):
         fns.update(_ladder_fns(kernels, tmsm, p, data["ladder"].to(dev)))
     for n, x in ((1, data["fr"][3:4]), (16, data["fr"])):
@@ -543,21 +559,21 @@ def main(argv=None) -> int:
     report = []
     for root in unique:
         usage = kernels.ptxas_usage(built[root]["log"])
-        mix = sass_mix(built[root]["lib"], "g1_add_kernel")
+        mixes = {k: sass_mix(built[root]["lib"], k) for k in SASS_KERNELS}
         row = {"checkout": root,
                "ms": {k: statistics.fmean(r["ms"][k] for r in runs[root])
                       for k in runs[root][0]["ms"]},
                "runs_ms": [r["ms"] for r in runs[root]],
                "kernels": {k: usage.get(k) for k in KERNELS},
-               "g1_add_sass": mix}
+               "sass": mixes}
         report.append(row)
         print(f"[checkout] {root}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in row["ms"].items()) + "; " + "; ".join(
             f"{k} {u['registers']} registers, {u['spill_stores']} B spill "
-            f"stores" for k, u in row["kernels"].items() if u)
-            + f"; g1_add_kernel {sum(mix.values())} SASS instructions ("
-            + ", ".join(f"{op} {c}" for op, c in list(mix.items())[:6])
-            + ")", flush=True)
+            f"stores" for k, u in row["kernels"].items() if u) + "".join(
+            f"; {k} {sum(mix.values())} SASS instructions ("
+            + ", ".join(f"{op} {c}" for op, c in list(mix.items())[:8])
+            + ")" for k, mix in mixes.items()), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

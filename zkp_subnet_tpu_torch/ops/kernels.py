@@ -279,7 +279,8 @@ def _check(t: torch.Tensor, name: str, dtype=torch.int32, tail=None):
 
 
 def _aligned(name: str, *tensors) -> None:
-    """K3, K4 and K5 move an element as 16-byte words."""
+    """K3, K4, K5 and K1's double move an element or a point as 16-byte
+    words."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
@@ -316,12 +317,20 @@ def g1_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def g1_double(p: torch.Tensor) -> torch.Tensor:
-    """Complete RCB15 double of an (N, 3, 12) point tensor.
+    """Complete RCB15 double of an (N, 3, 12) point tensor (16-byte
+    aligned).
 
     Replaces zkp_subnet_tpu/ops/pallas_g1.py:pfield over lazy8.ZFQ (via
-    dispatch_ldouble). Bound and design as ``g1_add``."""
+    dispatch_ldouble) and _pdouble1 -> pdouble. Bound: integer multiplies
+    (6 Fq products and 2 squares, ~2,500 operations a double). A thread a double in
+    registers at 128 registers (16 warps an SM), the point moved as nine
+    16-byte words each way (the 4-byte words of a warp's loads fell 144
+    bytes apart and took half the time), Y² and Z² by the Montgomery
+    squaring ``fq::sqr``. Measured against the point split over 2 and 4
+    lanes (csrc/g1.cu's header)."""
     _check(p, "p", tail=(3, 12))
     out = torch.empty_like(p)
+    _aligned("g1_double", p, out)
     n = p.numel() // 36
     if n:
         _launch("g1_double", _load().zkp_g1_double,
