@@ -65,6 +65,7 @@ from .curve import (g1_add, g1_add_plain, g1_double_plain, g1_infinity,
                     g1_scalar_mul, g1_sum, scalar_digits, signed_digits,
                     tree_sum)
 from .field import FQ
+from ..utils.trace import span
 
 WINDOW_BITS = 8
 NUM_WINDOWS = 256 // WINDOW_BITS
@@ -109,22 +110,23 @@ def bucket_runs(scalars: torch.Tensor, groups: int):
     groups·K·32 with the group outermost, so that the halves of the rows
     are the halves of the groups. Points past N (the padding of the last
     group) carry digit 0 and are never added."""
-    if scalars.dim() == 2:
-        scalars = scalars[None]
-    k, n = scalars.shape[:2]
-    n_g = -(-n // groups)
-    digits = scalar_digits(scalars, WINDOW_BITS)           # (K, N, 32)
-    if groups * n_g != n:
-        digits = torch.cat([digits, digits.new_zeros(
-            (k, groups * n_g - n, NUM_WINDOWS))], dim=1)
-    rows = digits.view(k, groups, n_g, NUM_WINDOWS).permute(1, 0, 3, 2)
-    rows = rows.reshape(groups * k * NUM_WINDOWS, n_g)
-    sorted_d, order = torch.sort(rows, dim=1, stable=True)
-    offset = torch.arange(groups, device=scalars.device).repeat_interleave(
-        k * NUM_WINDOWS) * n_g
-    perm = (order + offset[:, None]).clamp_(max=n - 1)
-    return (perm.to(torch.int32).contiguous(),
-            sorted_d.to(torch.uint8).contiguous())
+    with span("bucket_runs"):
+        if scalars.dim() == 2:
+            scalars = scalars[None]
+        k, n = scalars.shape[:2]
+        n_g = -(-n // groups)
+        digits = scalar_digits(scalars, WINDOW_BITS)       # (K, N, 32)
+        if groups * n_g != n:
+            digits = torch.cat([digits, digits.new_zeros(
+                (k, groups * n_g - n, NUM_WINDOWS))], dim=1)
+        rows = digits.view(k, groups, n_g, NUM_WINDOWS).permute(1, 0, 3, 2)
+        rows = rows.reshape(groups * k * NUM_WINDOWS, n_g)
+        sorted_d, order = torch.sort(rows, dim=1, stable=True)
+        offset = torch.arange(groups, device=scalars.device
+                              ).repeat_interleave(k * NUM_WINDOWS) * n_g
+        perm = (order + offset[:, None]).clamp_(max=n - 1)
+        return (perm.to(torch.int32).contiguous(),
+                sorted_d.to(torch.uint8).contiguous())
 
 
 def bucket_tile(n: int) -> int:
@@ -503,10 +505,11 @@ def msm_auto_groups(points: torch.Tensor,
     log2 N adds); above, one
     batched Pippenger a group (``msm_many``), where points of their own a
     row would cost one Pippenger a row."""
-    g, k, n = scalars.shape[:3]
-    if n <= NAIVE_THRESHOLD:
-        rows = points[:, None].expand(g, k, n, 3, FQ.L).reshape(
-            g * k, n, 3, FQ.L)
-        return msm_auto_many(rows, scalars.reshape(g * k, n, -1)).view(
-            g, k, 3, FQ.L)
-    return torch.stack([msm_many(p, s) for p, s in zip(points, scalars)])
+    with span("msm"):
+        g, k, n = scalars.shape[:3]
+        if n <= NAIVE_THRESHOLD:
+            rows = points[:, None].expand(g, k, n, 3, FQ.L).reshape(
+                g * k, n, 3, FQ.L)
+            return msm_auto_many(rows, scalars.reshape(g * k, n, -1)).view(
+                g, k, 3, FQ.L)
+        return torch.stack([msm_many(p, s) for p, s in zip(points, scalars)])

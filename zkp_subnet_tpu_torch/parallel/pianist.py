@@ -19,6 +19,11 @@ The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` of shape
 it) gloo. The collectives are NCCL's or gloo's, outside the kernels; the
 local work runs the worker's kernels (K2 MSMs, K3 openings, K5 NTT
 stages) as a single process does.
+
+While torch.profiler records, each layer of a round is a named range of
+the trace (``utils/trace.py``): ``zkp.fft``, then ``zkp.prove`` holding
+``zkp.commit_open`` (with ``zkp.open`` and the MSMs' ``zkp.msm``),
+``zkp.gather`` and ``zkp.aggregate``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..ops import msm as tmsm
 from ..ops import ntt as tntt
 from ..ops import poly as tpoly
 from ..ops.field import FQ, FR
+from ..utils.trace import span
 
 BATCH_AXIS = "batch"
 MACHINES_AXIS = "machines"
@@ -194,17 +200,20 @@ def commit_open(bases: torch.Tensor, rows: torch.Tensor,
     so alpha is inverted once and all Bl·Ml rows open in one call (one
     launch of each opening kernel on the card, the tables of alpha and
     1/alpha built once)."""
-    bl, ml, t = rows.shape[:3]
-    alpha_inv = FR.inv(alpha)
-    evals, quotients = tpoly.poly_open_scalars(
-        rows.reshape(bl * ml, t, FR.L), alpha, alpha_inv)
-    scalars = torch.empty((ml, 2 * bl, t, FR.L), dtype=rows.dtype,
-                          device=rows.device)
-    scalars[:, :bl] = tpoly.from_mont_wide(rows).transpose(0, 1)  # 1 launch
-    scalars[:, bl:] = quotients.view(bl, ml, t, FR.L).transpose(0, 1)
-    out = tmsm.msm_auto_groups(bases, scalars)           # (Ml, 2Bl, 3, 12)
-    return (out[:, :bl].transpose(0, 1).contiguous(),
-            evals.view(bl, ml, FR.L), out[:, bl:].transpose(0, 1).contiguous())
+    with span("commit_open"):
+        bl, ml, t = rows.shape[:3]
+        with span("open"):
+            alpha_inv = FR.inv(alpha)
+            evals, quotients = tpoly.poly_open_scalars(
+                rows.reshape(bl * ml, t, FR.L), alpha, alpha_inv)
+        scalars = torch.empty((ml, 2 * bl, t, FR.L), dtype=rows.dtype,
+                              device=rows.device)
+        scalars[:, :bl] = tpoly.from_mont_wide(rows).transpose(0, 1)
+        scalars[:, bl:] = quotients.view(bl, ml, t, FR.L).transpose(0, 1)
+        out = tmsm.msm_auto_groups(bases, scalars)       # (Ml, 2Bl, 3, 12)
+        return (out[:, :bl].transpose(0, 1).contiguous(),
+                evals.view(bl, ml, FR.L),
+                out[:, bl:].transpose(0, 1).contiguous())
 
 
 def gather(mesh: DeviceMesh, parts: Sequence[torch.Tensor],
@@ -213,17 +222,19 @@ def gather(mesh: DeviceMesh, parts: Sequence[torch.Tensor],
     each concatenated along its worker axis (``axes``) in shard order: the
     tiled ``all_gather`` of ``_prove_block``. The collective stacks along a
     new first axis, which is moved to the worker axis here."""
-    n, _ = _machines(mesh)
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    out = torch.empty(n * flat.numel(), dtype=flat.dtype, device=flat.device)
-    _all_gather(out, flat, group=mesh.get_group(MACHINES_AXIS))
-    out = out.view(n, flat.numel())
-    res, off = [], 0
-    for p, axis in zip(parts, axes):
-        piece = out[:, off:off + p.numel()].reshape((n,) + tuple(p.shape))
-        res.append(torch.cat(list(piece), dim=axis))
-        off += p.numel()
-    return res
+    with span("gather"):
+        n, _ = _machines(mesh)
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        out = torch.empty(n * flat.numel(), dtype=flat.dtype,
+                          device=flat.device)
+        _all_gather(out, flat, group=mesh.get_group(MACHINES_AXIS))
+        out = out.view(n, flat.numel())
+        res, off = [], 0
+        for p, axis in zip(parts, axes):
+            piece = out[:, off:off + p.numel()].reshape((n,) + tuple(p.shape))
+            res.append(torch.cat(list(piece), dim=axis))
+            off += p.numel()
+        return res
 
 
 def prove_gathered(srs: Srs, rows: torch.Tensor, alpha: torch.Tensor,
@@ -239,14 +250,15 @@ def prove_gathered(srs: Srs, rows: torch.Tensor, alpha: torch.Tensor,
     if rows.shape[1] != srs.worker_bases.shape[0]:
         raise ValueError(f"{rows.shape[1]} rows a challenge for "
                          f"{srs.worker_bases.shape[0]} worker slices")
-    with on_device(dev):
+    with on_device(dev), span("prove"):
         com, ev, prf = commit_open(srs.worker_bases, rows.contiguous(),
                                    alpha)
         coms, evals, prfs = gather(mesh, (com, ev, prf), (1, 1, 1))
-        dom, m_inv = pn.aggregation_constants(srs.machines, dev)
-        C, W, C_y, W_y, value = pn.aggregate_core(
-            srs.lagrange_table(), coms, prfs, evals, beta.contiguous(), dom,
-            m_inv)
+        with span("aggregate"):
+            dom, m_inv = pn.aggregation_constants(srs.machines, dev)
+            C, W, C_y, W_y, value = pn.aggregate_core(
+                srs.lagrange_table(), coms, prfs, evals, beta.contiguous(),
+                dom, m_inv)
     return (DistributedProof(com, ev, prf, C, W, C_y, W_y, value),
             (coms, evals, prfs))
 
@@ -291,23 +303,24 @@ def fft(rows: torch.Tensor, mesh: DeviceMesh, left: bool = True,
     and an all-to-all brings the rows back. ``all_to_all_single`` splits
     its first axis only, so the split axis is moved first and made
     contiguous, both ways. Every transform is ``ntt_batch`` (K5)."""
-    if left:
-        return tntt.ntt_batch(rows, inverse=inverse)
-    n, _ = _machines(mesh)
-    if n == 1:
-        out = tntt.ntt_batch(rows.transpose(1, 2), inverse=inverse)
-        return out.transpose(1, 2).contiguous()
-    bl, ml, t, l = rows.shape
-    if t % n:
-        raise ValueError(f"rows of {t} do not split over {n} machines")
-    c = t // n
-    # (n, Bl, Ml, T/n, L): column block s to shard s
-    recv = _all_to_all(mesh, rows.reshape(bl, ml, n, c, l)
-                       .permute(2, 0, 1, 3, 4).contiguous())
-    # from shard s its Ml workers of my columns → (Bl, T/n, M, L)
-    cols = recv.permute(1, 3, 0, 2, 4).reshape(bl, c, n * ml, l)
-    out = tntt.ntt_batch(cols, inverse=inverse)
-    # workers s·Ml.. back to shard s: (n, Bl, Ml, T/n, L)
-    back = _all_to_all(mesh, out.reshape(bl, c, n, ml, l)
-                       .permute(2, 0, 3, 1, 4).contiguous())
-    return back.permute(1, 2, 0, 3, 4).reshape(bl, ml, t, l)
+    with span("fft"):
+        if left:
+            return tntt.ntt_batch(rows, inverse=inverse)
+        n, _ = _machines(mesh)
+        if n == 1:
+            out = tntt.ntt_batch(rows.transpose(1, 2), inverse=inverse)
+            return out.transpose(1, 2).contiguous()
+        bl, ml, t, l = rows.shape
+        if t % n:
+            raise ValueError(f"rows of {t} do not split over {n} machines")
+        c = t // n
+        # (n, Bl, Ml, T/n, L): column block s to shard s
+        recv = _all_to_all(mesh, rows.reshape(bl, ml, n, c, l)
+                           .permute(2, 0, 1, 3, 4).contiguous())
+        # from shard s its Ml workers of my columns → (Bl, T/n, M, L)
+        cols = recv.permute(1, 3, 0, 2, 4).reshape(bl, c, n * ml, l)
+        out = tntt.ntt_batch(cols, inverse=inverse)
+        # workers s·Ml.. back to shard s: (n, Bl, Ml, T/n, L)
+        back = _all_to_all(mesh, out.reshape(bl, c, n, ml, l)
+                           .permute(2, 0, 3, 1, 4).contiguous())
+        return back.permute(1, 2, 0, 3, 4).reshape(bl, ml, t, l)
