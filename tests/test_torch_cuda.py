@@ -285,6 +285,49 @@ def test_msm_many_on_card_matches_msm_and_oracle(dev, monkeypatch):
         assert tcv.g1_affine(got[j]) == [o.G1.to_affine(o.G1.mul(G, want))]
 
 
+@pytest.fixture(scope="module")
+def four_sets(dev):
+    """4 point sets of 4096 points (2 point groups each) and 2 MSMs a set:
+    points (4, 4096, 3, 12), scalars (4, 2, 4096, 8), the dlogs and the
+    scalars as integers."""
+    n, sets = 4096, 4
+    pts, dlogs, ks = _instance(sets * n, 9)
+    all_ks = [[ks[j * n:(j + 1) * n], ks[j * n:(j + 1) * n][::-1]]
+              for j in range(sets)]
+    sc = torch.stack([torch.stack([tcv.fr_to_scalar_limbs(k) for k in pair])
+                      for pair in all_ks]).to(dev)
+    return (pts.view(sets, n, 3, 12).to(dev), sc,
+            [dlogs[j * n:(j + 1) * n] for j in range(sets)], all_ks)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_msm_auto_groups_on_card_passes_match_msm_many(dev, monkeypatch,
+                                                      four_sets, passes):
+    """The Pippenger passes over 4 sets × 2 MSMs × 4096 points, in one pass
+    at the byte budget or in two of 2 sets: limb for limb a per-set
+    msm_many, and the oracle; one msm_buckets, msm_reduce and msm_combine
+    a pass, and log2(G) = 1 g1_add a pass."""
+    pts, sc, dlogs, all_ks = four_sets
+    n, groups = pts.shape[1], tmsm._groups(pts.shape[1])
+    assert groups == 2
+    if passes == 2:
+        monkeypatch.setattr(tmsm, "PASS_BYTES", 2 * groups * (n // groups)
+                            * 2 * tmsm.NUM_WINDOWS * tmsm.SORT_ENTRY_BYTES)
+    assert -(-pts.shape[0] // tmsm.sets_per_pass(n, 2, groups)) == passes
+    before = dict(kernels.LAUNCHES)
+    got = tmsm.msm_auto_groups(pts, sc)
+    used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert (used["msm_buckets"], used["msm_reduce"], used["msm_combine"],
+            used["g1_add"]) == (passes,) * 4
+    assert got.shape == (4, 2, 3, 12)
+    for j in range(4):
+        assert torch.equal(got[j], tmsm.msm_many(pts[j], sc[j]))
+        for k, scalars in enumerate(all_ks[j]):
+            want = sum(a * s for a, s in zip(dlogs[j], scalars)) % o.R
+            assert tcv.g1_affine(got[j, k]) == [
+                o.G1.to_affine(o.G1.mul(G, want))]
+
+
 def _sorted_rows(case, n, rows, rng):
     """(perm int32, digits uint8) of `rows` digit-sorted rows of n entries
     over 2^16 points, for one case."""

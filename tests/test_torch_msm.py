@@ -324,6 +324,73 @@ def test_msm_many_matches_msm_and_oracle(monkeypatch):
     assert tmsm.msm_many(pts[:0], sc[:, :0]).shape == (2, 3, 12)
 
 
+def test_msm_auto_groups_passes_match_msm_many_and_oracle(monkeypatch):
+    """K = 2 MSMs over each of 3 point sets on the Pippenger path, in 2
+    passes of 1 and 2 sets, each set's last group padded, equal a per-set
+    msm_many limb for limb, and the oracle. bucket_runs' rows over the sets
+    are each set's own rows in (group, set, MSM, window) order, offset to
+    the set's points, its padding clamped to its own last point; over
+    points of their own a row msm_auto_many takes the same passes.
+
+    The rows are checked at the path's 8-bit windows; the MSMs run at 4-bit
+    windows (16 buckets a row), since the plain reduce takes ~600 point
+    operations a row of 256 buckets (~10 s a set here) and nothing of the
+    passes depends on the width."""
+    monkeypatch.setattr(tmsm, "NAIVE_THRESHOLD", 16)
+    monkeypatch.setattr(tmsm, "MIN_GROUP_POINTS", 16)
+    n, sets = 37, 3
+    inst = [_instance(n, 40 + j) for j in range(sets)]
+    pts = torch.stack([p for p, _, _ in inst])
+    all_ks = [[ks, ks[::-1]] for _, _, ks in inst]
+    all_ks[1][1] = [0] * 20 + [all_ks[1][0][0]] * 17    # one digit a window
+    sc = torch.stack([torch.stack([tcv.fr_to_scalar_limbs(k) for k in pair])
+                      for pair in all_ks])                  # (3, 2, 37, 8)
+    assert tmsm._groups(n) == 2
+
+    def rows_match(w):
+        perm, digits = tmsm.bucket_runs(sc, 2)
+        assert perm.shape == digits.shape == (2 * sets * 2 * w, 19)
+        for j in range(sets):
+            one_perm, one_digits = tmsm.bucket_runs(sc[j], 2)
+            rows = [(g * sets + j) * 2 * w + r for g in range(2)
+                    for r in range(2 * w)]
+            assert torch.equal(perm[rows], one_perm + j * n)
+            assert torch.equal(digits[rows], one_digits)
+            # group 1 holds points 19..36 and one padded entry: the last
+            # point twice
+            assert bool(((perm[rows[2 * w:]] == j * n + n - 1).sum(1)
+                         == 2).all())
+        lo = (torch.arange(perm.shape[0]) // (2 * w) % sets * n)[:, None]
+        assert bool(((perm >= lo) & (perm < lo + n)).all())
+    rows_match(32)
+    for name, value in (("WINDOW_BITS", 4), ("NUM_WINDOWS", 64),
+                        ("NUM_BUCKETS", 16)):
+        monkeypatch.setattr(tmsm, name, value)
+    rows_match(64)
+
+    entries = 2 * 19 * 2 * tmsm.NUM_WINDOWS
+    monkeypatch.setattr(tmsm, "PASS_BYTES",
+                        2 * entries * tmsm.SORT_ENTRY_BYTES)
+    assert tmsm.sets_per_pass(n, 2, 2) == 2
+    loads, one_pass = [], tmsm._pass
+
+    def counted(p, s):
+        loads.append(s.shape[0])
+        return one_pass(p, s)
+    monkeypatch.setattr(tmsm, "_pass", counted)
+    got = tmsm.msm_auto_groups(pts, sc)
+    assert loads == [1, 2]
+    assert got.shape == (sets, 2, 3, 12)
+    for j, (_, dlogs, _) in enumerate(inst):
+        assert torch.equal(got[j], tmsm.msm_many(pts[j], sc[j]))
+        for k, scalars in enumerate(all_ks[j]):
+            assert tcv.g1_affine(got[j, k]) == [_want(dlogs, scalars)]
+    # points of their own a row: the sets of one MSM each, in one pass
+    loads.clear()
+    assert torch.equal(tmsm.msm_auto_many(pts, sc[:, 0]), got[:, 0])
+    assert loads == [3]
+
+
 def test_prove_row_matches_commit_and_open(monkeypatch):
     """The worker's one batched Pippenger MSM gives the limbs of kzg.commit
     and kzg.open_ run one after the other (tests/test_torch_worker.py holds

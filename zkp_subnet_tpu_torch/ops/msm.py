@@ -10,17 +10,19 @@ one jitted program (``zkp_subnet_tpu/runtime/worker.py:35-42``); ``msm`` is
 the K = 1 case. ``msm_fixed`` runs K MSMs over fixed bases (the Pianist
 aggregation's Lagrange-Y keys) through their window table
 (``fixed_table``), a K1 kernel whose tree of launches takes any number of
-keys. ``msm_auto_many`` also
-takes points of their own a row (K, N, 3, 12), as Pianist's
-``commit_all``/``open_all`` give it every worker's bases;
-``msm_auto_groups`` takes K MSMs over each of G point sets.
+keys. ``msm_sets`` takes K MSMs over each of S point sets (a rank's
+workers: ``msm_auto_groups``, and ``msm_auto_many`` over points of their
+own a row, as Pianist's ``commit_all``/``open_all`` give it every worker's
+bases) and runs them in a few passes, each one chain of the launches below
+for all the sets it holds.
 
 The Pippenger here is 8-bit windows (32 windows × 256 buckets) in Hopper
 shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
 
-1. glue: the points are split into G contiguous groups (``_groups``), each
-   scalar into 32 byte digits; every (group, MSM, window) row is sorted by
-   digit (``bucket_runs``);
+1. glue: each set's points are split into G contiguous groups
+   (``_groups``), each scalar into 32 byte digits; every (group, set, MSM,
+   window) row of the pass is sorted by digit (``bucket_runs``), the group
+   outermost, its point indices into the pass's sets laid end to end;
 2. K2 ``msm_buckets``: the sum of every bucket of every row (replaces
    ``_chunk_bucket_sums``, msm.py:202). Like the TPU's prefix scan over the
    sorted row, the work is cut by position, not by digit: one block a row,
@@ -37,10 +39,16 @@ shape, not the TPU's sort + scan + one-hot-matmul chunk stream:
 4. K1 ``g1_add``: the G group results of each window fold in log2(G)
    launches, as the JAX package folds its chunk groups (msm.py:371-377);
 5. K2 ``msm_combine``: Horner over the 32 windows of each MSM (replaces the
-   sweep at msm.py:384), one warp per MSM. Its 288 dependent point
-   operations are inherent, so each one is made short: the lanes of the
-   warp share the independent Fq products of a point operation, following
-   the schedule of ``ops/msm_rounds.py``.
+   sweep at msm.py:384), one warp per MSM, every MSM of the pass in one
+   launch. Its 288 dependent point operations are inherent, so each one is
+   made short: the lanes of the warp share the independent Fq products of
+   a point operation, following the schedule of ``ops/msm_rounds.py``.
+
+A pass holds as many sets as keep its transient tensors under
+``PASS_BYTES`` (``sets_per_pass``); the sets are split into passes of
+equal size. Each row's digits, sort, adds, fold pairs and Horner chain are
+those of the set alone, so a pass gives the limbs of one ``msm_many`` a
+set.
 
 Each kernel has its plain version here (``msm_buckets_plain``,
 ``msm_reduce_plain``, ``msm_combine_plain``), taken for CPU tensors only;
@@ -89,6 +97,20 @@ BUCKET_THREADS = 256
 #: for the plain version.
 REDUCE_SEGMENT = 8
 
+#: bytes the transient tensors of one Pippenger pass may hold: under a
+#: tenth of the card's 80 GB, beside the rank's bases, rows and pool, and
+#: room for 42 of a 2^16 worker's K = 2 MSMs (201 MB each), so that a
+#: 256-worker prove is 7 passes and the combine's launches no longer weigh
+#: on the round
+PASS_BYTES = 8 << 30
+
+#: bytes a pass holds at its peak for each digit entry (one scalar's window
+#: of one MSM): the segmented sort in ``bucket_runs`` holds the int64 rows,
+#: the sorted keys, the order, ATen's index input and cub's alternate keys
+#: and values, 8 bytes each. What the pass holds after the sort (perm,
+#: digits, buckets) is less.
+SORT_ENTRY_BYTES = 6 * 8
+
 
 def _groups(n: int) -> int:
     """Point groups for an n-point MSM: the largest power of two ≤
@@ -102,30 +124,34 @@ def _groups(n: int) -> int:
 
 
 def bucket_runs(scalars: torch.Tensor, groups: int):
-    """Every (group, MSM, window) row in digit order.
+    """Every (group, set, MSM, window) row in digit order.
 
-    ``scalars`` is (N, 8) or (K, N, 8). Returns ``perm`` (rows, n_g) int32
-    point indices (K MSMs address the same N points) and ``digits`` (rows,
+    ``scalars`` is (N, 8), (K, N, 8) or (S, K, N, 8): K MSMs over each of
+    S sets of N points. Returns ``perm`` (rows, n_g) int32 point indices
+    into the S sets laid end to end, (S·N, 3, 12), and ``digits`` (rows,
     n_g) uint8, both in ascending digit order within a row, rows =
-    groups·K·32 with the group outermost, so that the halves of the rows
-    are the halves of the groups. Points past N (the padding of the last
-    group) carry digit 0 and are never added."""
+    groups·S·K·32 with the group outermost, so that the halves of the rows
+    are the halves of the groups. Points past N (the padding of a set's
+    last group) carry digit 0, are never added, and point at the set's own
+    last point."""
     with span("bucket_runs"):
-        if scalars.dim() == 2:
+        while scalars.dim() < 4:
             scalars = scalars[None]
-        k, n = scalars.shape[:2]
+        s, k, n = scalars.shape[:3]
         n_g = -(-n // groups)
-        digits = scalar_digits(scalars, WINDOW_BITS)       # (K, N, 32)
+        digits = scalar_digits(scalars, WINDOW_BITS)       # (S, K, N, 32)
         if groups * n_g != n:
             digits = torch.cat([digits, digits.new_zeros(
-                (k, groups * n_g - n, NUM_WINDOWS))], dim=1)
-        rows = digits.view(k, groups, n_g, NUM_WINDOWS).permute(1, 0, 3, 2)
-        rows = rows.reshape(groups * k * NUM_WINDOWS, n_g)
-        sorted_d, order = torch.sort(rows, dim=1, stable=True)
-        offset = torch.arange(groups, device=scalars.device
-                              ).repeat_interleave(k * NUM_WINDOWS) * n_g
-        perm = (order + offset[:, None]).clamp_(max=n - 1)
-        return (perm.to(torch.int32).contiguous(),
+                (s, k, groups * n_g - n, NUM_WINDOWS))], dim=2)
+        digits = digits.view(s, k, groups, n_g, NUM_WINDOWS).permute(
+            2, 0, 1, 4, 3).reshape(groups * s * k * NUM_WINDOWS, n_g)
+        sorted_d, order = torch.sort(digits, dim=1, stable=True)
+        dev = scalars.device
+        first = torch.arange(groups, device=dev).view(groups, 1, 1, 1) * n_g
+        base = torch.arange(s, device=dev).view(1, s, 1, 1) * n
+        perm = order.view(groups, s, k * NUM_WINDOWS, n_g)
+        perm.add_(first).clamp_(max=n - 1).add_(base)
+        return (perm.view(-1, n_g).to(torch.int32),
                 sorted_d.to(torch.uint8).contiguous())
 
 
@@ -322,24 +348,57 @@ def msm_combine(window_sums, window_bits: int = WINDOW_BITS):
 
 # -- public entry points ------------------------------------------------------
 
-def msm_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
-    """K MSMs over the same points by Pippenger with 8-bit windows, side by
-    side through one launch of each K2 kernel. points: (N, 3, 12)
-    Montgomery projective; scalars: (K, N, 8) canonical. Returns
-    (K, 3, 12)."""
-    k, n = scalars.shape[:2]
+def sets_per_pass(n: int, k: int, groups: int) -> int:
+    """The most sets of n points, K MSMs each, that one pass holds under
+    ``PASS_BYTES``: the digit entries of a set's rows (n padded to whole
+    groups) at ``SORT_ENTRY_BYTES`` each. At least one."""
+    entries = max(1, groups * -(-n // groups) * k) * NUM_WINDOWS
+    return max(1, PASS_BYTES // (entries * SORT_ENTRY_BYTES))
+
+
+def _pass(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """K MSMs over each of S point sets through one launch of each K2
+    kernel and log2(G) ``g1_add`` folds: points (S, N, 3, 12), scalars
+    (S, K, N, 8) → (S, K, 3, 12)."""
+    s, k, n = scalars.shape[:3]
     if n == 0 or k == 0:
-        return g1_infinity((k,), points.device)
-    points = points.contiguous()
+        return g1_infinity((s, k), points.device)
     groups = _groups(n)
     perm, digits = bucket_runs(scalars, groups)
-    buckets = msm_buckets(points, perm, digits)
-    sums = msm_reduce(buckets)                         # (G·K·W, 3, 12)
+    buckets = msm_buckets(points.reshape(s * n, 3, FQ.L).contiguous(), perm,
+                          digits)
+    sums = msm_reduce(buckets)                         # (G·S·K·W, 3, 12)
     while groups > 1:                                  # fold groups: K1 adds
         half = sums.shape[0] // 2
         sums = g1_add(sums[:half], sums[half:])
         groups //= 2
-    return msm_combine(sums.view(k, NUM_WINDOWS, 3, 12), WINDOW_BITS)
+    return msm_combine(sums.view(s * k, NUM_WINDOWS, 3, FQ.L),
+                       WINDOW_BITS).view(s, k, 3, FQ.L)
+
+
+def msm_sets(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """K MSMs over each of S point sets by Pippenger with 8-bit windows:
+    points (S, N, 3, 12) Montgomery projective, scalars (S, K, N, 8)
+    canonical → (S, K, 3, 12), the limbs of one ``msm_many`` a set. The
+    sets go in passes of equal size, each under ``PASS_BYTES``
+    (``sets_per_pass``), each one chain of launches for all its sets (a
+    span ``msm_pass``)."""
+    s, k, n = scalars.shape[:3]
+    passes = -(-s // sets_per_pass(n, k, _groups(n)))
+    out = []
+    for j in range(passes):
+        lo, hi = s * j // passes, s * (j + 1) // passes
+        with span("msm_pass"):
+            out.append(_pass(points[lo:hi], scalars[lo:hi]))
+    return torch.cat(out)
+
+
+def msm_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    """K MSMs over the same points by Pippenger with 8-bit windows, side by
+    side through one launch of each K2 kernel (a pass of one set). points:
+    (N, 3, 12) Montgomery projective; scalars: (K, N, 8) canonical. Returns
+    (K, 3, 12)."""
+    return _pass(points[None], scalars[None])[0]
 
 
 def msm(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
@@ -366,7 +425,8 @@ def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     N ≤ NAIVE_THRESHOLD one ladder over all K·N products (one launch on
     the card) and one tree of adds over the K rows (log2 N ``g1_add``
     launches), the limbs of K ``msm_naive`` calls; above, one batched
-    Pippenger over shared points, or one Pippenger a row."""
+    Pippenger over shared points (``msm_many``), or, over points of their
+    own a row, ``msm_sets`` with one MSM a set."""
     k, n = scalars.shape[:2]
     shared = points.dim() == 3
     if n <= NAIVE_THRESHOLD:
@@ -376,7 +436,7 @@ def msm_auto_many(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
                         g1_infinity((), prods.device))
     if shared:
         return msm_many(points, scalars)
-    return torch.stack([msm(p, s) for p, s in zip(points, scalars)])
+    return msm_sets(points, scalars[:, None])[:, 0]
 
 
 # -- K1 g1_msm_fixed: MSMs over fixed bases through a window table ------------
@@ -502,9 +562,8 @@ def msm_auto_groups(points: torch.Tensor,
     (G, K, N, 8) → (G, K, 3, 12), as the multi-device prove gives each
     worker's bases its commitments and openings. At N ≤ NAIVE_THRESHOLD
     one ``msm_auto_many`` over all G·K rows (one ladder launch, one tree of
-    log2 N adds); above, one
-    batched Pippenger a group (``msm_many``), where points of their own a
-    row would cost one Pippenger a row."""
+    log2 N adds); above, ``msm_sets``: a few Pippenger passes, each over as
+    many of the G workers as its byte budget holds."""
     with span("msm"):
         g, k, n = scalars.shape[:3]
         if n <= NAIVE_THRESHOLD:
@@ -512,4 +571,4 @@ def msm_auto_groups(points: torch.Tensor,
                 g * k, n, 3, FQ.L)
             return msm_auto_many(rows, scalars.reshape(g * k, n, -1)).view(
                 g, k, 3, FQ.L)
-        return torch.stack([msm_many(p, s) for p, s in zip(points, scalars)])
+        return msm_sets(points, scalars)

@@ -22,8 +22,9 @@ stages) as a single process does.
 
 While torch.profiler records, each layer of a round is a named range of
 the trace (``utils/trace.py``): ``zkp.fft``, then ``zkp.prove`` holding
-``zkp.commit_open`` (with ``zkp.open`` and the MSMs' ``zkp.msm``),
-``zkp.gather`` and ``zkp.aggregate``.
+``zkp.commit_open`` (with ``zkp.open`` and the MSMs' ``zkp.msm``, at
+2^16 one ``zkp.msm_pass`` a Pippenger pass), ``zkp.gather`` and
+``zkp.aggregate``.
 """
 
 from __future__ import annotations
@@ -195,11 +196,13 @@ def commit_open(bases: torch.Tensor, rows: torch.Tensor,
     """The local step: bases (Ml, T, 3, 12), rows (Bl, Ml, T, 8) Montgomery,
     alpha (8,) → commitments (Bl, Ml, 3, 12), evals (Bl, Ml, 8), proofs
     (Bl, Ml, 3, 12). Worker i's Bl commitments and Bl openings are 2·Bl MSMs
-    over its bases, batched (``msm_auto_groups``), as the worker batches
-    its commit and opening (``kzg.commit_open``). Every row opens at alpha,
-    so alpha is inverted once and all Bl·Ml rows open in one call (one
-    launch of each opening kernel on the card, the tables of alpha and
-    1/alpha built once)."""
+    over its bases, and all Ml workers' MSMs go through one
+    ``msm_auto_groups``: at 2^16 a few Pippenger passes, each one chain of
+    K2 launches over as many workers as its byte budget holds, with the
+    limbs of one batched commit and opening a worker (``kzg.commit_open``).
+    Every row opens at alpha, so alpha is inverted once and all Bl·Ml rows
+    open in one call (one launch of each opening kernel on the card, the
+    tables of alpha and 1/alpha built once)."""
     with span("commit_open"):
         bl, ml, t = rows.shape[:3]
         with span("open"):
